@@ -1,0 +1,42 @@
+"""Carry equilibria and ray states across from the JAX package.
+
+The port imports no ``jax``, so these take the JAX objects duck-typed:
+anything with the right attributes whose arrays ``numpy.asarray`` accepts
+(a ``graph_framework_tpu`` EfitEquilibrium or RayState, or their numpy
+copies).  The tests use them to feed both packages the same inputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from graph_framework_tpu_torch.models.efit import EfitEquilibrium
+from graph_framework_tpu_torch.models.rays import RayState
+
+_EFIT_TABLES = ("psi_coeffs", "ne_coeffs", "te_coeffs", "pres_coeffs",
+                "fpol_coeffs", "profile_coeffs")
+_EFIT_SCALARS = ("psimin", "dpsi", "rmin", "dr", "zmin", "dz",
+                 "ne_scale", "te_scale", "pres_scale")
+
+
+def _tensor(a, dtype, device):
+    return torch.as_tensor(np.array(a, dtype=np.float64),
+                           dtype=dtype, device=device)
+
+
+def efit_from_numpy(eq, *, dtype=torch.float64, device="cpu"):
+    """The port's :class:`EfitEquilibrium` holding the same tables and
+    scalars as ``eq`` (the JAX package's EfitEquilibrium)."""
+    return EfitEquilibrium(
+        **{k: _tensor(getattr(eq, k), dtype, device) for k in _EFIT_TABLES},
+        **{k: float(getattr(eq, k)) for k in _EFIT_SCALARS},
+        cell_local=bool(eq.cell_local))
+
+
+def ray_state_from_numpy(state, *, dtype=torch.float64, device="cpu"):
+    """The port's :class:`RayState` with the leaves of ``state`` (any
+    object with fields t, w, x, y, z, kx, ky, kz)."""
+    return RayState(*[_tensor(getattr(state, f), dtype, device)
+                      for f in RayState._fields])
+

@@ -1,0 +1,122 @@
+"""Build the package's CUDA sources with ``nvcc`` at first use.
+
+The kernels in ``graph_framework_tpu_torch/csrc/*.cu`` have a plain C
+interface; they are compiled into one shared library and loaded with
+``ctypes`` (no PyTorch headers: the build takes seconds, not minutes).
+Every pointer and the stream go through ctypes as ``c_void_p``.
+
+The library lands in ``graph_framework_tpu_torch/_build/`` under a name
+keyed by a hash of the sources and flags, so it is rebuilt only when
+either changes.  Importing this module needs no ``nvcc``; :func:`load`
+builds on the first call, from the package's own sources alone, and
+raises if the build fails.
+
+Never add ``--use_fast_math``: it changes division and square root and
+breaks the comparison with the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+PACKAGE = pathlib.Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+BUILD_DIR = PACKAGE / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_VOID_P, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+#: argtypes/restype of every exported function (csrc/efit_window.cu).
+SIGNATURES = {
+    "gft_efit_window": (
+        [_INT, _INT, _INT, _INT, _LL,                 # dtype method comp K n
+         ctypes.POINTER(_VOID_P), ctypes.POINTER(_VOID_P),   # state in/out
+         _VOID_P, _INT, _INT, _VOID_P, _INT,          # psi nr nz prof npsi
+         ctypes.POINTER(ctypes.c_double), _VOID_P],   # params stream
+        _INT),
+    "gft_error_string": ([_INT], ctypes.c_char_p),
+}
+
+_library = None
+#: What the build of the loaded library printed (ptxas registers, spills).
+build_log = ""
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME / $CUDA_PATH, then $PATH, then the toolkit's
+    default install prefix."""
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(var)
+        if root and (pathlib.Path(root) / "bin" / "nvcc").is_file():
+            return str(pathlib.Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.is_file():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> pathlib.Path:
+    """The content-keyed library file for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgft_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile csrc/*.cu into the keyed library unless it exists already.
+    Writes to a temporary name and renames, so concurrent builders never
+    load a half-written file."""
+    global build_log
+    out = library_path()
+    if out.is_file():
+        log = out.with_suffix(".log")
+        build_log = log.read_text() if log.is_file() else ""
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{build_log}")
+    os.replace(tmp, out)
+    out.with_suffix(".log").write_text(build_log)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with every exported
+    function's argtypes and restype declared."""
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+        _library = lib
+    return _library
+
+
+def error_string(code: int) -> str:
+    return load().gft_error_string(code).decode()
