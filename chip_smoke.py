@@ -8,21 +8,36 @@ tokamak equilibrium, in the reference benchmark's configuration (100k
 rays, 1000 recorded steps x 10 substeps, endtime 1.0), through the
 library entry points ``init_k`` and ``Solver.run`` with the production
 stack - frozen-cell rk2, a 10-substep freeze window, compensated f32
-accumulation and the hand-written CUDA window kernel.  Phases, one line
-each (any failed check raises and the script exits non-zero):
+accumulation and the hand-written CUDA window kernel (K1).  The second
+path is reverse mode through it: gradients of trace endpoints with
+respect to the launch state and the spline tables, through the window
+kernel's backward kernels K2 and K3 (``torch.autograd.grad`` over
+``Solver.run`` with the plain f32 window).  Phases, one line each (any
+failed check raises and the script exits non-zero):
 
 1. device: the card's name and, on its own line, ``nvidia-smi``'s
    name and power limit; no CUDA card is a failure, never a CPU run;
-2. build: ``nvcc`` builds ``csrc/efit_window.cu``; registers and spills;
-3. kernel vs plain PyTorch version at 4099 rays (a ragged count): rk2/rk4
+2. build: ``nvcc`` builds ``csrc/*.cu`` (one process per source);
+   registers and spills of every kernel variant;
+3. K1 vs plain PyTorch version at 4099 rays (a ragged count): rk2/rk4
    x plain/compensated x f32/f64, one recorded step at K = 10 and K = 5,
    each within a limit that lies well below what a wrong kernel shows;
+   3a. the same for K2 and K3 against autograd of the plain version, with
+   random cotangents;
 4. main path at full width: 100k rays f32 compensated, then f64 plain,
    then 1M rays for 100 recorded steps; launch counts, validity,
    residuals, the f32/f64 endpoint gap, and ray-steps/s;
+   4b'. (phase b) fwd+bwd at full width: the gradient of bench.py's
+   endpoint loss with respect to the launch state over 100k rays x 1000
+   x 10, twice - the first pass allocates the graph's memory, the
+   second finds it cached (K1 and K2 launch counts, finite gradients,
+   ray-steps/s, the memory the autograd graph holds) - then table
+   gradients over 100k x 100 x 10 through K3;
+   4c'. (phase c) the gradient through ``init_k`` and the kernels against
+   central differences, f64;
 5. ``trace_segmented``: 32 recorded rows of 100k rays kept in memory;
 6. the plain version's ray-steps/s on the card beside the kernel's;
-7. the kernel's milliseconds per window beside the plain version's.
+7. each kernel's milliseconds per window beside its plain version's.
 
 It then prints the kernel table as one JSON line and, last, the device
 line ``{"ok": true, "device": {...}}``.
@@ -36,11 +51,13 @@ made from ``SEED``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -49,7 +66,8 @@ from graph_framework_tpu_torch.constants import Q
 from graph_framework_tpu_torch.kernels import build, efit_step
 from graph_framework_tpu_torch.models.dispersion import cold_plasma
 from graph_framework_tpu_torch.models.efit import efit_from_tables
-from graph_framework_tpu_torch.models.rays import RayState, residual_fn
+from graph_framework_tpu_torch.models.rays import (
+    RayDerivatives, RayState, dispersion_residual, residual_fn)
 from graph_framework_tpu_torch.ops.compensated import (
     CompCarry, comp_state_f64, init_comp_carry)
 from graph_framework_tpu_torch.solver import Solver, init_k, make_ray_state
@@ -111,6 +129,30 @@ CAN_SEE_ORDER = {(torch.float32, False): False,
 # The uncompensated f32 run's gap is measured beside it (read 7.4e-5) and
 # must lie SEPARATION times above the same-root limit.
 GAP_TOL = {"f32 root": 5.0e-7, "own root": 1.0e-5}
+
+# -- tolerances of the backward kernels against their plain versions ---------
+# Per leaf of the state cotangent, and per table of the scattered block
+# cotangents: the largest deviation over the rays (table rows) divided by
+# the largest magnitude of that leaf (table) in the plain version, over one
+# recorded step from seeded normal cotangents at 4099 rays.  The plain
+# version is torch.autograd of frozen_window (reverse over reverse); the
+# kernels transpose by hand and take the Hessian-vector products by
+# forward over forward mode, and the table scatter adds with atomics, so
+# the two round differently.  Each limit sits about 20x above what the
+# card read (NVIDIA H100 80GB HBM3, 700.00 W):
+#   f32 state  read 8.3e-7;   f32 tables read 4.2e-6;
+#   f64 state  read 9.3e-16;  f64 tables read 1.2e-14.
+# Phase 3a also measures on the plain version what a wrong backward shows
+# and asserts that each limit lies SEPARATION times below it: the transpose
+# without v_w (D_w's dependence on the state dropped; read 3.8e-3 state,
+# 6.7e-3 tables in both dtypes) and, in f64, the other Runge-Kutta order's
+# transpose (read 2.6e-9 state, 2.8e-5 tables).
+BWD_TOL = {torch.float32: {"state": 2.0e-5, "tables": 1.0e-4},
+           torch.float64: {"state": 2.0e-14, "tables": 2.5e-13}}
+# Phase c: the directional derivative along the gradient against central
+# differences (tests/test_gradients.py's rtol and step sizes).
+FD_RTOL = 1.0e-5
+FD_STEP = {"launch": 1.0e-3, "psi_coeffs": 1.0e-7}
 
 
 def synthetic_samples(grid=GRID):
@@ -214,11 +256,11 @@ def event_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def profile_kernel(fn):
+def profile_kernel(fn, kernel="efit_window_kernel"):
     """Run fn once under torch.profiler.  Returns (total device ms of the
-    window kernel from the CUDA trace - None if the trace shows no device
-    time - and the device-timeline ms of the whole call from CUDA
-    events)."""
+    kernels whose name holds ``kernel`` from the CUDA trace - None if the
+    trace shows no device time - and the device-timeline ms of the whole
+    call from CUDA events)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -232,7 +274,7 @@ def profile_kernel(fn):
         torch.cuda.synchronize()
     total_us = sum(getattr(e, "device_time_total", 0.0)
                    for e in prof.key_averages()
-                   if "efit_window_kernel" in e.key)
+                   if kernel in e.key)
     return (total_us / 1000.0 if total_us else None,
             start.elapsed_time(stop))
 
@@ -254,14 +296,21 @@ def phase_device():
 
 def ptxas_summary(log):
     """{variant: 'N registers, ... spill ...'} from nvcc's -Xptxas -v log;
-    the variant (f32/rk2/plain, ...) is read from the mangled name of
-    efit_window_kernel<T, METHOD, COMPENSATED>."""
+    the variant is read from the mangled name of efit_window_kernel<T,
+    METHOD, COMPENSATED> (K1: f32/rk2/plain, ...) or of
+    efit_window_bwd_kernel<T, METHOD, TAB> (K2 f32/rk2 without the table
+    cotangents, K3 f32/rk2 with them)."""
     out, variant = {}, None
     for line in log.splitlines():
-        m = re.search(r"efit_window_kernelI([fd])Li([24])ELb([01])", line)
+        m = re.search(
+            r"efit_window_(bwd_)?kernelI([fd])Li([24])ELb([01])", line)
         if m:
-            variant = (f"{'f32' if m[1] == 'f' else 'f64'}/rk{m[2]}/"
-                       f"{'comp' if m[3] == '1' else 'plain'}")
+            dtype = "f32" if m[2] == "f" else "f64"
+            if m[1]:
+                variant = f"{'K3' if m[4] == '1' else 'K2'} {dtype}/rk{m[3]}"
+            else:
+                variant = (f"{dtype}/rk{m[3]}/"
+                           f"{'comp' if m[4] == '1' else 'plain'}")
             out[variant] = []
         elif variant and ("spill" in line or "registers" in line):
             out[variant].append(line.split(":", 1)[-1].strip())
@@ -272,7 +321,9 @@ def phase_build():
     t0 = time.perf_counter()
     build.load()
     seconds = time.perf_counter() - t0
-    print(f"[2 build] {seconds:.2f} s; ptxas per kernel variant:")
+    print(f"[2 build] {seconds:.2f} s ({len(list(build.CSRC.glob('*.cu')))}"
+          f" nvcc processes in parallel, then a link); ptxas per kernel "
+          f"variant:")
     for variant, info in ptxas_summary(build.build_log).items():
         print(f"    {variant}: {info}")
 
@@ -338,6 +389,272 @@ def phase_kernel_vs_plain(device, n=4099):
     failed = {key: row for key, row in rows.items() if row["fail"]}
     if failed:
         raise AssertionError(f"kernel vs plain: {failed}")
+
+
+# -- reverse mode -------------------------------------------------------------
+
+
+def endpoint_loss(s):
+    """bench.py's endpoint functional (run_grad): the mean final position
+    and wave-vector sum."""
+    return (s.x.sum() + s.y.sum() + s.z.sum() + s.kx.sum()) / s.x.shape[0]
+
+
+def random_cotangent(like, seed):
+    rng = np.random.default_rng(seed)
+    return RayState(*[torch.from_numpy(rng.standard_normal(like.x.shape[0]))
+                      .to(like.x) for _ in RayState._fields])
+
+
+def rhs_without_vw(dispersion, feq):
+    """A wrong ray RHS for the separation check: the values of
+    make_ray_rhs, but 1/D_w is held constant in the transpose, so the
+    cotangent loses D_w's dependence on the state (v_w of the kernels)."""
+    d_all = dispersion_residual(dispersion, feq)
+
+    def rhs(s):
+        args = [leaf.view_as(leaf) for leaf in
+                (s.w, s.x, s.y, s.z, s.kx, s.ky, s.kz)]
+        g = torch.autograd.grad(d_all(s.t, *args).sum(), args,
+                                create_graph=True)
+        inv = (1.0 / g[0]).detach()
+        return RayDerivatives(-g[4] * inv, -g[5] * inv, -g[6] * inv,
+                              g[1] * inv, g[2] * inv, g[3] * inv)
+
+    return rhs
+
+
+def step_vjp(eq, st, ct, method, k, how, tables):
+    """The VJP of one recorded step (SUB_STEPS // k plain windows) from
+    ``st`` for the output cotangent ``ct``: (state cotangent, psi-table
+    and profile-table cotangents or None).  ``how``: "kernel" (K2, or K3
+    with ``tables``), "plain" (autograd of frozen_window), or a wrong
+    backward on the plain version: "v_w dropped", "other order"."""
+    inputs = [st]
+    for _ in range(SUB_STEPS // k - 1):
+        inputs.append(efit_step.frozen_window(
+            eq, cold_plasma, inputs[-1], method=method, dt=DT, steps=k,
+            compensated=False))
+    order = method
+    if how == "other order":
+        order = "rk4" if method == "rk2" else "rk2"
+    d_tabs = None
+    for s in reversed(inputs):
+        if how == "kernel":
+            vjp = efit_step.efit_window_vjp(eq, s, ct, method=method,
+                                            dt=DT, steps=k, tables=tables)
+        elif how == "v_w dropped":
+            with mock.patch.object(efit_step, "make_ray_rhs",
+                                   rhs_without_vw):
+                vjp = efit_step.frozen_window_vjp_blocks(
+                    eq, s, ct, method=order, dt=DT, steps=k)
+        else:
+            vjp = efit_step.frozen_window_vjp_blocks(
+                eq, s, ct, method=order, dt=DT, steps=k)
+        ct = vjp.state
+        if tables:
+            tabs = efit_step.scatter_block_cotangents(eq, vjp)
+            d_tabs = tabs if d_tabs is None else tuple(
+                a + b for a, b in zip(d_tabs, tabs))
+    return ct, d_tabs
+
+
+def relative_deviations(got, want):
+    """Per tensor (leaf or table): max |got - want| / max |want|."""
+    return [float((a.double() - b.double()).abs().max()
+                  / b.double().abs().max().clamp_min(1e-300))
+            for a, b in zip(got, want)]
+
+
+def check_window_bwd(eq, st, method, k, seed):
+    """K2 and K3 against autograd of the plain version over one recorded
+    step from ``st`` with seeded cotangents.  Returns a row: the worst
+    relative deviation of the state cotangent (K2 and K3) and of the
+    tables (K3), their limits, what the wrong backwards show, and
+    ``fail``."""
+    ct = random_cotangent(st, seed)
+    tol = BWD_TOL[st.x.dtype]
+    want_st, want_tab = step_vjp(eq, st, ct, method, k, "plain", True)
+    k2, _ = step_vjp(eq, st, ct, method, k, "kernel", False)
+    k3, k3_tab = step_vjp(eq, st, ct, method, k, "kernel", True)
+    row = {"state": max(relative_deviations(k2, want_st)
+                        + relative_deviations(k3, want_st)),
+           "tables": max(relative_deviations(k3_tab, want_tab)),
+           "limits": tol}
+    wrongs = ["v_w dropped"] + (["other order"]
+                                if CAN_SEE_ORDER[st.x.dtype, False] else [])
+    for how in wrongs:
+        w_st, w_tab = step_vjp(eq, st, ct, method, k, how, True)
+        row[how] = {"state": max(relative_deviations(w_st, want_st)),
+                    "tables": max(relative_deviations(w_tab, want_tab))}
+    row["fail"] = [part for part in ("state", "tables")
+                   if not row[part] <= tol[part]] + [
+        f"{how} {part}" for how in wrongs for part in ("state", "tables")
+        if not row[how][part] >= SEPARATION * tol[part]]
+    return row
+
+
+def phase_bwd_vs_plain(device, n=4099):
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        eq = synthetic_equilibrium(dtype, device)
+        st = init_k(launch(n, dtype, device, seed=SEED + 1), cold_plasma,
+                    eq)
+        for method in ("rk2", "rk4"):
+            for k in (10, 5):
+                rows[f"{str(dtype)[6:]}/{method}/K={k}"] = \
+                    check_window_bwd(eq, st, method, k, SEED + 2)
+    print(f"[3a K2/K3 vs plain, {n} rays, 1 recorded step, seeded "
+          f"cotangents] worst relative deviation of the state cotangent "
+          f"and of the table cotangents against their limits, and what a "
+          f"wrong backward would show: {json.dumps(rows)}")
+    failed = {key: row for key, row in rows.items() if row["fail"]}
+    if failed:
+        raise AssertionError(f"backward kernels vs plain: {failed}")
+
+
+def reset_launch_counts():
+    efit_step.efit_window_launches = 0
+    efit_step.efit_window_bwd_launches = 0
+    efit_step.efit_window_bwd_tab_launches = 0
+
+
+def launch_counts():
+    return (efit_step.efit_window_launches,
+            efit_step.efit_window_bwd_launches,
+            efit_step.efit_window_bwd_tab_launches)
+
+
+def phase_grad_main(device, n=100_000, steps=1000, steps_tab=100):
+    """Phase b: fwd+bwd at full width through K1 and K2, twice, then table
+    gradients through K3.  The first pass allocates the autograd graph's
+    memory from the card (cudaMalloc, through the caching allocator); the
+    second finds it cached, as every pass after the first in a training
+    loop does.  Returns the launch counts of the second pass and of the
+    table run."""
+    eq = synthetic_equilibrium(torch.float32, device)
+    root = init_k(launch(n, torch.float32, device), cold_plasma, eq)
+    sol = production_solver(eq, compensated=False)
+    windows = steps * (SUB_STEPS // FREEZE_EVERY)
+    for attempt in ("first pass", "second pass"):
+        leaves = [leaf.detach().clone().requires_grad_(True)
+                  for leaf in root]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = endpoint_loss(sol.run(RayState(*leaves), steps))
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        graph_bytes = torch.cuda.memory_allocated() - before
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        float(grads[2][0])
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        rate = n * steps * SUB_STEPS / seconds
+        print(f"[b fwd+bwd f32 rk2 K={FREEZE_EVERY}, {attempt}] {n} rays x "
+              f"{steps} x {SUB_STEPS}: forward {t_fwd:.3f} s, forward + "
+              f"backward {seconds:.3f} s = {rate:.6e} fwd+bwd ray-steps/s; "
+              f"launches K1/K2/K3 {counts}; graph holds "
+              f"{graph_bytes / 1e9:.3f} GB, the allocator reserves "
+              f"{torch.cuda.memory_reserved() / 1e9:.3f} GB; loss "
+              f"{float(loss.detach()):.6f}; max |dL/d leaf| "
+              f"{json.dumps({f: float(g.abs().max()) for f, g in zip(RayState._fields, grads)})}")
+        if counts != (windows, windows, 0) or not finite:
+            raise AssertionError(f"fwd+bwd: launches {counts}, finite "
+                                 f"{finite}")
+        del loss, grads, leaves
+
+    psi = eq.psi_coeffs.clone().requires_grad_(True)
+    prof = eq.profile_coeffs.clone().requires_grad_(True)
+    eqt = dataclasses.replace(eq, psi_coeffs=psi, profile_coeffs=prof)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = endpoint_loss(production_solver(eqt, compensated=False).run(
+        root, steps_tab))
+    d_psi, d_prof = torch.autograd.grad(loss, [psi, prof])
+    torch.cuda.synchronize()
+    seconds_tab = time.perf_counter() - t0
+    counts_tab = launch_counts()
+    windows_tab = steps_tab * (SUB_STEPS // FREEZE_EVERY)
+    ok = all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+             for g in (d_psi, d_prof))
+    print(f"[b table gradients] {n} rays x {steps_tab} x {SUB_STEPS}: "
+          f"{seconds_tab:.3f} s = "
+          f"{n * steps_tab * SUB_STEPS / seconds_tab:.6e} fwd+bwd "
+          f"ray-steps/s; launches K1/K2/K3 {counts_tab}; max |dL/dpsi| "
+          f"{float(d_psi.abs().max()):.6e}, max |dL/dprof| "
+          f"{float(d_prof.abs().max()):.6e}, "
+          f"{int((d_psi != 0).sum())} psi and {int((d_prof != 0).sum())} "
+          f"profile coefficients touched")
+    if counts_tab != (windows_tab, 0, windows_tab) or not ok:
+        raise AssertionError(f"table gradients: launches {counts_tab}, "
+                             f"finite and nonzero {ok}")
+    return counts, counts_tab
+
+
+def phase_grad_fd(device, n=256, steps=20):
+    """Phase c: d(endpoint loss) through init_k and the kernels, along
+    the gradient, against central differences (f64).
+
+    A frozen-window trace is only piecewise smooth in the launch: a ray
+    whose window base crosses a cell boundary switches to the neighbouring
+    cell's polynomial, a jump far below the rounding of one step but
+    present in every difference quotient.  On the CPU, over these 256 rays
+    the quotient lies 2.7e-6 (20 recorded steps) and 6.3e-6 (50) from the
+    gradient for any step from 1e-4 to 3e-3, while the same trace without
+    frozen cells agrees to 3.5e-8: the trace is kept at 20 recorded
+    steps."""
+    eq = synthetic_equilibrium(torch.float64, device)
+    start = launch(n, torch.float64, device, seed=SEED + 3)
+
+    def loss(st, e):
+        root = init_k(st, cold_plasma, e)
+        return endpoint_loss(production_solver(e, compensated=False).run(
+            root, steps))
+
+    def loss_launch(x, ky):
+        return loss(start._replace(x=x, ky=ky), eq)
+
+    def loss_psi(psi):
+        return loss(start, dataclasses.replace(eq, psi_coeffs=psi))
+
+    rows = {}
+    x = start.x.clone().requires_grad_(True)
+    ky = start.ky.clone().requires_grad_(True)
+    reset_launch_counts()
+    g = torch.autograd.grad(loss_launch(x, ky), [x, ky])
+    counts = launch_counts()
+    norm = float(torch.sqrt(sum((a * a).sum() for a in g)))
+    v = [a / norm for a in g]
+    h = FD_STEP["launch"]
+    with torch.no_grad():
+        fd = (loss_launch(start.x + h * v[0], start.ky + h * v[1])
+              - loss_launch(start.x - h * v[0], start.ky - h * v[1])) / (2 * h)
+    rows["launch (x, ky)"] = {"grad": norm, "fd": float(fd)}
+
+    psi = eq.psi_coeffs.clone().requires_grad_(True)
+    (gp,) = torch.autograd.grad(loss_psi(psi), [psi])
+    norm = float(gp.norm())
+    v = gp / norm
+    h = FD_STEP["psi_coeffs"]
+    with torch.no_grad():
+        fd = (loss_psi(eq.psi_coeffs + h * v)
+              - loss_psi(eq.psi_coeffs - h * v)) / (2 * h)
+    rows["psi_coeffs"] = {"grad": norm, "fd": float(fd)}
+    for row in rows.values():
+        row["rel"] = abs(row["grad"] - row["fd"]) / abs(row["fd"])
+    print(f"[c gradient vs central differences, f64, {n} rays x {steps} x "
+          f"{SUB_STEPS}, through init_k] directional derivative along the "
+          f"gradient: {json.dumps(rows)}, rtol {FD_RTOL}; launches "
+          f"K1/K2/K3 of the launch gradient {counts}")
+    windows = steps * (SUB_STEPS // FREEZE_EVERY)
+    bad = {k: r for k, r in rows.items() if not r["rel"] <= FD_RTOL}
+    if bad or counts != (windows, windows, 0):
+        raise AssertionError(f"gradient vs central differences: {rows}, "
+                             f"launches {counts}")
 
 
 def run_main(eq, state, steps, compensated):
@@ -483,6 +800,56 @@ def kernel_record(eq, state, launches):
             "plain_ms": plain_ms}
 
 
+def bwd_kernel_records(eq, state, launches, launches_tab):
+    """The K2 and K3 lines (phase d): each backward kernel against its
+    plain version on one main-path window (100k rays, f32 plain rk2,
+    K = 10, seeded cotangents): absolute error and milliseconds, by CUDA
+    events per wrapper call and by the profiler on the device."""
+    ct = random_cotangent(state, SEED + 4)
+    kw = dict(method="rk2", dt=DT, steps=FREEZE_EVERY)
+    records = []
+    for tables, name, line, count, plain in (
+            (False, "efit_window_bwd", 260, launches,
+             efit_step.frozen_window_vjp),
+            (True, "efit_window_bwd_tab", 318, launches_tab,
+             efit_step.frozen_window_vjp_blocks)):
+        def kern_call():
+            return efit_step.efit_window_vjp(eq, state, ct, tables=tables,
+                                             **kw)
+
+        def plain_call():
+            return plain(eq, state, ct, **kw)
+
+        got, want = kern_call(), plain_call()
+        pairs = list(zip(got.state, want if not tables else want.state))
+        if tables:
+            pairs += [(got.psi_block, want.psi_block),
+                      (got.prof_block, want.prof_block)]
+            if not (torch.equal(got.psi_cell, want.psi_cell)
+                    and torch.equal(got.prof_cell, want.prof_cell)):
+                raise AssertionError(f"{name}: cells differ from the "
+                                     f"plain version's")
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in pairs)
+        ms = event_ms(kern_call, 10)
+        plain_ms = event_ms(plain_call, 2)
+        kernel_ms, _ = profile_kernel(lambda: [kern_call() for _ in range(10)],
+                                      kernel="efit_window_bwd_kernel")
+        print(f"[7 {name} time] {state.x.shape[0]} rays, f32 rk2 "
+              f"K={FREEZE_EVERY}: {ms:.4f} ms per window call (CUDA "
+              f"events, wrapper included); kernel on the device "
+              f"{kernel_ms and kernel_ms / 10} ms (profiler); plain version "
+              f"(autograd of frozen_window) {plain_ms:.4f} ms; max abs "
+              f"error {err:.3e}")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "graph_framework_tpu_torch/csrc/efit_window_bwd.cuh",
+            "replaces": f"graph_framework_tpu/pallas/efit_step.py:{line}",
+            "launches": count, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms})
+    return records
+
+
 def main():
     name, _ = phase_device()
     device = torch.device("cuda", 0)
@@ -490,11 +857,15 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     phase_kernel_vs_plain(device)
+    phase_bwd_vs_plain(device)
     out, eq32, st32 = phase_main(device)
+    counts, counts_tab = phase_grad_main(device)
+    phase_grad_fd(device)
     phase_segmented(eq32, st32)
     phase_plain_timing(eq32, st32, out["rate_f32"])
-    record = kernel_record(eq32, st32, out["launches"])
-    print(json.dumps({"kernels": [record]}))
+    records = [kernel_record(eq32, st32, out["launches"])]
+    records += bwd_kernel_records(eq32, st32, counts[1], counts_tab[2])
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
 """Build the package's CUDA sources with ``nvcc`` at first use.
 
 The kernels in ``graph_framework_tpu_torch/csrc/*.cu`` have a plain C
-interface; they are compiled into one shared library and loaded with
-``ctypes`` (no PyTorch headers: the build takes seconds, not minutes).
-Every pointer and the stream go through ctypes as ``c_void_p``.
+interface; each source is compiled to an object by its own ``nvcc``, all
+of them at once, and the objects are linked into one shared library,
+loaded with ``ctypes`` (no PyTorch headers: the build takes seconds, not
+minutes).  Every pointer and the stream go through ctypes as
+``c_void_p``.
 
 The library lands in ``graph_framework_tpu_torch/_build/`` under a name
 keyed by a hash of the sources and flags, so it is rebuilt only when
@@ -30,17 +32,28 @@ CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _VOID_P, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-#: argtypes/restype of every exported function (csrc/efit_window.cu).
+_PTRS = ctypes.POINTER(_VOID_P)
+
+#: argtypes/restype of every exported function (csrc/efit_window.cu,
+#: csrc/efit_window_bwd.cu).
 SIGNATURES = {
     "gft_efit_window": (
         [_INT, _INT, _INT, _INT, _LL,                 # dtype method comp K n
-         ctypes.POINTER(_VOID_P), ctypes.POINTER(_VOID_P),   # state in/out
+         _PTRS, _PTRS,                                # state in/out
          _VOID_P, _INT, _INT, _VOID_P, _INT,          # psi nr nz prof npsi
          ctypes.POINTER(ctypes.c_double), _VOID_P],   # params stream
+        _INT),
+    "gft_efit_window_bwd": (
+        [_INT, _INT, _INT, _LL,                       # dtype method K n
+         _PTRS, _PTRS, _PTRS,                         # state, ct in, ct out
+         _VOID_P, _INT, _INT, _VOID_P, _INT,          # psi nr nz prof npsi
+         ctypes.POINTER(ctypes.c_double),             # params
+         _VOID_P, _VOID_P, _VOID_P, _VOID_P,          # dpsi dprof cells
+         _VOID_P],                                    # stream
         _INT),
     "gft_error_string": ([_INT], ctypes.c_char_p),
 }
@@ -80,7 +93,8 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/*.cu into the keyed library unless it exists already.
+    """Compile csrc/*.cu into the keyed library unless it exists already:
+    one ``nvcc -c`` per source, all started together, then one link.
     Writes to a temporary name and renames, so concurrent builders never
     load a half-written file."""
     global build_log
@@ -90,17 +104,33 @@ def build() -> pathlib.Path:
         build_log = log.read_text() if log.is_file() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, out)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = pathlib.Path(tmpdir) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)} ({proc.returncode})")
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed: {'; '.join(failed)}\n"
+                               f"{build_log}")
+        tmp = pathlib.Path(tmpdir) / "lib.so"
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
     out.with_suffix(".log").write_text(build_log)
     return out
 

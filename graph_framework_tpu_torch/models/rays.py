@@ -18,6 +18,7 @@ coordinates and ``reference_correction`` wait for the VMEC port.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
@@ -83,22 +84,50 @@ def dispersion_residual(dispersion: Callable, eq):
     return d_all
 
 
+def _closure_requires_grad(obj) -> bool:
+    """True if a tensor that ``obj`` holds - directly, or in a nested
+    dataclass such as a frozen view's ``base`` - requires grad (an
+    equilibrium whose spline tables are being differentiated)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.requires_grad
+    return dataclasses.is_dataclass(obj) and any(
+        _closure_requires_grad(getattr(obj, f.name))
+        for f in dataclasses.fields(obj))
+
+
 def make_ray_rhs(dispersion: Callable, eq):
     """Build the batched ray right-hand side ``rhs(state) ->
     RayDerivatives``: one ``torch.autograd.grad`` of sum(D) over
     (w, x, y, z, kx, ky, kz) gives all seven derivatives.
 
-    The state's leaves are detached first, so the RHS is a value (reverse
-    mode through a trace is not ported yet)."""
+    Two paths, chosen per call:
+
+    * value: when grad mode is off, or neither a state leaf nor a tensor
+      of ``eq`` requires grad, the leaves are detached and the result
+      carries no graph;
+    * differentiable: otherwise the seven partials are taken with
+      ``create_graph=True`` on fresh views of the leaves, so the result is
+      a differentiable function of the state and of the equilibrium's
+      tables (the JAX package differentiates its ``jax.grad`` RHS the same
+      way).  The views keep each partial a partial: a leaf computed from
+      another (kx solved from ky by ``init_k``) does not leak its
+      dependence into the other's derivative."""
     d_all = dispersion_residual(dispersion, eq)
+    eq_grad = _closure_requires_grad(eq)
 
     def rhs(state: RayState) -> RayDerivatives:
+        leaves = (state.w, state.x, state.y, state.z,
+                  state.kx, state.ky, state.kz)
+        differentiable = torch.is_grad_enabled() and (
+            eq_grad or any(leaf.requires_grad for leaf in leaves))
         with torch.enable_grad():
-            args = [leaf.detach().requires_grad_(True) for leaf in
-                    (state.w, state.x, state.y, state.z,
-                     state.kx, state.ky, state.kz)]
+            args = [leaf.view_as(leaf)
+                    if differentiable and leaf.requires_grad
+                    else leaf.detach().requires_grad_(True)
+                    for leaf in leaves]
             d = d_all(state.t, *args).sum()
-            grads = torch.autograd.grad(d, args, allow_unused=True)
+            grads = torch.autograd.grad(d, args, allow_unused=True,
+                                        create_graph=differentiable)
         dw, dx, dy, dz, dkx, dky, dkz = [
             torch.zeros_like(a) if g is None else g
             for a, g in zip(args, grads)]

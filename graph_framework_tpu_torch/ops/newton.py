@@ -9,9 +9,10 @@ elementwise over rays, so the gradient of the sum is the per-ray
 derivative.
 
 The loop is a host loop with one scalar readback per iteration (the
-reference likewise reads its max-reduction back each pass).  The
-implicit-function gradient of the root (the JAX package's
-``lax.custom_root``) waits for reverse mode.
+reference likewise reads its max-reduction back each pass).  It runs
+detached; the root's gradient comes from the implicit function theorem,
+as the JAX package's ``lax.custom_root`` gives it (see
+:func:`newton_solve`).
 """
 
 from __future__ import annotations
@@ -52,6 +53,16 @@ def newton_solve(f: Callable, x0, *, tolerance: float = 1.0e-30,
 
     with the comparisons made in the working dtype, as the JAX loop makes
     them.  Returns ``(x, converged, NewtonDiagnostics)``.
+
+    Gradient: when grad mode is on and ``f`` closes over tensors that
+    require grad, the root x* is returned as
+
+        x* - (f(x*) - f(x*).detach()) / f'(x*).detach()
+
+    whose value is x* bit for bit and whose gradient with respect to what
+    ``f`` closes over (theta) is -f_theta / f_x: the implicit function
+    theorem, one extra evaluation of f instead of differentiating the
+    loop.  The initial guess ``x0`` gets no gradient.
     """
     x = x0.detach()
     big = torch.tensor(torch.finfo(x.dtype).max, dtype=x.dtype,
@@ -70,4 +81,9 @@ def newton_solve(f: Callable, x0, *, tolerance: float = 1.0e-30,
         last = cur
         it += 1
     converged = bool(cur <= tolerance)
+    if torch.is_grad_enabled():
+        with torch.enable_grad():
+            f_attached = f(x)
+        if f_attached.requires_grad:
+            x = x - (f_attached - f_attached.detach()) / dfx
     return x, converged, NewtonDiagnostics(it, cur, converged)

@@ -8,7 +8,12 @@ and the hot loop is one CUDA kernel launch per freeze window
 
 Ported: fixed-dt rk2/rk4, plain or compensated, with or without frozen
 cells and freeze windows; ``run``, ``trace`` and ``trace_segmented``.
-Not ported yet: ``split_simplextic``, ``adaptive_rk4``, the remat options,
+Reverse mode runs through every plain path by autograd - the gradients of
+trace endpoints with respect to the launch state (through ``init_k``'s
+implicit root gradient) and to the spline tables - and through the window
+kernel by its backward kernels; ``remat_substeps`` checkpoints the plain
+path.  The compensated window kernel is forward-only.
+Not ported yet: ``split_simplextic``, ``adaptive_rk4``, ``remat_policy``,
 ``block_rays`` and ``pad_rays`` (the kernel masks a ragged last block, so
 the ray count needs no padding).
 """
@@ -19,6 +24,7 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from graph_framework_tpu_torch.kernels.efit_step import (
     efit_window, frozen_window)
@@ -88,7 +94,12 @@ class Solver:
     window in substeps, dividing ``sub_steps``.  ``window_kernel``: run
     each freeze window as one launch of the CUDA window kernel
     (kernels/efit_step.py; the plain version on CPU tensors) - the
-    counterpart of the JAX package's ``pallas_window``.
+    counterpart of the JAX package's ``pallas_window``; its backward is a
+    kernel too.  ``remat_substeps``: under autograd, keep only each
+    integrator unit's input (a substep, or a freeze window when frozen -
+    the JAX package's checkpointed stepper) and recompute the unit in the
+    backward pass (``torch.utils.checkpoint``); the window kernel already
+    recomputes inside its backward, so the two do not combine.
     """
     dispersion: Callable
     eq: object
@@ -99,6 +110,7 @@ class Solver:
     frozen_cells: bool = False
     freeze_every: int = 1
     window_kernel: bool = False
+    remat_substeps: bool = False
 
     def __post_init__(self):
         if self.method not in STEPPERS:
@@ -127,6 +139,11 @@ class Solver:
             if self.dispersion is not cold_plasma:
                 raise ValueError(
                     "window_kernel implements cold_plasma only")
+            if self.remat_substeps:
+                raise ValueError(
+                    "remat_substeps is redundant with window_kernel: the "
+                    "window's backward kernel already recomputes its "
+                    "substeps; set remat_substeps=False")
 
     # -- the integration carry ---------------------------------------------
     def init_carry(self, state: RayState):
@@ -162,6 +179,13 @@ class Solver:
             else:
                 def window(s):
                     return STEPPERS[method](rhs, s, dt)
+
+        if self.remat_substeps:
+            unit = window
+
+            def window(c):
+                return torch.utils.checkpoint.checkpoint(
+                    unit, c, use_reentrant=False)
 
         def step(carry):
             for _ in range(windows):

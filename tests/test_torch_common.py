@@ -156,7 +156,10 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 def test_ptxas_summary_names_each_variant():
     """chip_smoke reads each kernel variant's registers and spills from
-    nvcc's -Xptxas -v output (the format of CUDA 12)."""
+    nvcc's -Xptxas -v output (the format of CUDA 12): K1's
+    efit_window_kernel<T, METHOD, COMPENSATED> and the backward kernels'
+    efit_window_bwd_kernel<T, METHOD, TAB> (K2 without the table
+    cotangents, K3 with them)."""
     log = "\n".join([
         "ptxas info    : 0 bytes gmem",
         "ptxas info    : Compiling entry function '_ZN3gft18efit_window_"
@@ -172,8 +175,26 @@ def test_ptxas_summary_names_each_variant():
         "kernelIfLi2ELb0EEEvNS_9StatePtrsIT_EES3_PKS2_S5_NS_6ParamsIS2_EEix'"
         " for 'sm_90a'",
         "ptxas info    : Used 154 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN3gft22efit_window_bwd_"
+        "kernelIfLi4ELb0EEEvNS_9StatePtrsIT_EES3_S3_PKS2_S5_NS_6ParamsIS2_"
+        "EEixPS2_S8_PxS9_' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN3gft22efit_window_bwd_"
+        "kernelIfLi4ELb0EEEvNS_9StatePtrsIT_EES3_S3_PKS2_S5_NS_6ParamsIS2_"
+        "EEixPS2_S8_PxS9_",
+        "    6096 bytes stack frame, 7864 bytes spill stores, 10484 bytes "
+        "spill loads",
+        "ptxas info    : Used 168 registers, used 0 barriers, 6096 bytes "
+        "cumulative stack size",
+        "ptxas info    : Compiling entry function '_ZN3gft22efit_window_bwd_"
+        "kernelIdLi2ELb1EEEvNS_9StatePtrsIT_EES3_S3_PKS2_S5_NS_6ParamsIS2_"
+        "EEixPS2_S8_PxS9_' for 'sm_90a'",
+        "ptxas info    : Used 255 registers, used 0 barriers",
     ])
     assert chip_smoke.ptxas_summary(log) == {
+        "K2 f32/rk4": "6096 bytes stack frame, 7864 bytes spill stores, "
+                      "10484 bytes spill loads; Used 168 registers, used 0 "
+                      "barriers, 6096 bytes cumulative stack size",
+        "K3 f64/rk2": "Used 255 registers, used 0 barriers",
         "f32/rk2/plain": "Used 154 registers, used 0 barriers",
         "f64/rk4/comp": "304 bytes stack frame, 352 bytes spill stores, "
                         "944 bytes spill loads; Used 255 registers, used 0 "
