@@ -37,16 +37,37 @@ failed check raises and the script exits non-zero):
    central differences, f64;
 5. ``trace_segmented``: 32 recorded rows of 100k rays kept in memory;
 6. the plain version's ray-steps/s on the card beside the kernel's;
-7. each kernel's milliseconds per window beside its plain version's.
+7. each kernel's milliseconds per window beside its plain version's and
+   its bound.
 
-It then prints the kernel table as one JSON line and, last, the device
-line ``{"ok": true, "device": {...}}``.
+The particle paths follow (``xkorc``'s Boris push, ``xpic``'s PIC loop),
+with the hand-written kernels K5 (the slab push, ``csrc/boris.cu``) and K6
+(the grid deposit, ``csrc/deposit.cu``):
+
+8. K5 vs plain version at 100 003 particles, f32 and f64, one launch of
+   100 steps, within a limit that lies well below what a kernel one step
+   short shows;
+9. K5 at full width, bench.py's korc configuration: 1e8 particles f32,
+   10 launches of 100 steps; particle-steps/s, launch count, the drift of
+   sqrt(1 + u.u), and the plain version's rate over one launch;
+10. ``run_korc`` through the EFIT field (plain PyTorch): 1e6 particles f64
+   x 1000 steps; the axis field, particle-steps/s, validity, gamma drift;
+11. K6 vs plain version at 100 003 particles, G 1000 and 1001, a mask with
+   zeros, f32 and f64; wrong deposits (mask ignored, the last chunk
+   dropped) and a second launch equal bit for bit;
+12. ``run_pic`` at full width, bench.py's pic configuration: 1M particles x
+   1000 grid points f32 x 50 steps, 50 K6 launches, against the same steps
+   with the plain deposit;
+13. K5's and K6's milliseconds beside their plain versions' and bounds.
+
+It then prints the kernel table as one JSON line (all five kernels) and,
+last, the device line ``{"ok": true, "device": {...}}``.
 
 The equilibrium is built in memory (no file, no ``h5py``): a smooth
 up-down symmetric tokamak flux map on a 129 x 129 grid with 129-knot
 profiles, chosen so that the cold-plasma wave propagates everywhere the
-rays go - see :func:`synthetic_samples`.  Weights-free: everything is
-made from ``SEED``.
+rays go - see :func:`synthetic_samples` (phase 10 moves its axis:
+``KORC_AXIS``).  Weights-free: everything is made from ``SEED``.
 """
 
 from __future__ import annotations
@@ -57,15 +78,21 @@ import re
 import subprocess
 import sys
 import time
+import types
 from unittest import mock
 
 import numpy as np
 import torch
 
 from graph_framework_tpu_torch.constants import Q
-from graph_framework_tpu_torch.kernels import build, efit_step
+from graph_framework_tpu_torch.kernels import boris, build, efit_step
+from graph_framework_tpu_torch.kernels import deposit as k6
 from graph_framework_tpu_torch.models.dispersion import cold_plasma
 from graph_framework_tpu_torch.models.efit import efit_from_tables
+from graph_framework_tpu_torch.models.korc import (
+    ParticleState, initialize_gamma, run_korc)
+from graph_framework_tpu_torch.models.pic import (
+    PicState, make_grid, make_push_step, pic_start, run_pic)
 from graph_framework_tpu_torch.models.rays import (
     RayDerivatives, RayState, dispersion_residual, residual_fn)
 from graph_framework_tpu_torch.ops.compensated import (
@@ -92,6 +119,20 @@ R0, A_MINOR, KAPPA, B0, PSI0 = 2.0, 0.9, 1.5, 0.35, 0.04
 NE0, TE0 = 2.0e18, 2.0e3
 GRID = 129                   # grid points in R and Z; profile knots
 R_RANGE, Z_RANGE = (1.0, 3.0), (-1.0, 1.0)
+
+# The particle push through EFIT (phase k) runs on the same flux map with
+# its magnetic axis 3 cm above the midplane and the flux there 1% of PSI0
+# below psimin (KORC_AXIS, keyword arguments of synthetic_samples).  The
+# reference's axis find (characteristic_field: simultaneous Newton steps
+# on R and Z of the normalized flux from (1.7, 0), step 0.1) divides by
+# dpsi/dz, which vanishes at z = 0 on an up-down symmetric map, and where
+# psimin is the axis flux it hunts a double root whose iterates wander
+# with the rounding: there it walks off the table, in the JAX package as
+# in the port (|B| of 1e6-1e11 T), and the two land apart.  With
+# KORC_AXIS the normalized flux has a simple root on a contour 9 cm from
+# the axis: both packages stop on it after about 190 iterations at
+# (1.9114, 0.0060) m, |B| = 0.36625 T, within 5e-13 of each other.
+KORC_AXIS = dict(z_axis=0.03, psi_axis=-0.01 * PSI0)
 
 # -- the launch (the reference benchmark's values, bench.py:171) -------------
 W0, X0, KX0, KY0 = 500.0, 2.5, -500.0, 150.0
@@ -155,13 +196,15 @@ FD_RTOL = 1.0e-5
 FD_STEP = {"launch": 1.0e-3, "psi_coeffs": 1.0e-7}
 
 
-def synthetic_samples(grid=GRID):
+def synthetic_samples(grid=GRID, z_axis=0.0, psi_axis=0.0):
     """Gridded samples of the synthetic equilibrium, the keyword arguments
-    of ``tools.make_splines.efit_tables`` / ``write_efit_file``."""
+    of ``tools.make_splines.efit_tables`` / ``write_efit_file``, with the
+    magnetic axis at (R0, ``z_axis``) and the flux ``psi_axis`` there."""
     r = np.linspace(*R_RANGE, grid)
     z = np.linspace(*Z_RANGE, grid)
     psi = PSI0 * ((r[:, None] - R0) ** 2 / A_MINOR ** 2
-                  + z[None, :] ** 2 / (KAPPA * A_MINOR) ** 2)
+                  + (z[None, :] - z_axis) ** 2 / (KAPPA * A_MINOR) ** 2
+                  ) + psi_axis
     psi_profile = np.linspace(0.0, 1.02 * psi.max(), grid)
     s = psi_profile / PSI0                       # 1 at the plasma edge
     shape = 0.005 + 0.995 * 0.5 * (1.0 - np.tanh((s - 0.8) / 0.12))
@@ -171,8 +214,10 @@ def synthetic_samples(grid=GRID):
                 fpol=np.full_like(psi_profile, R0 * B0))
 
 
-def synthetic_equilibrium(dtype, device, grid=GRID):
-    return efit_from_tables(efit_tables(**synthetic_samples(grid)),
+def synthetic_equilibrium(dtype, device, grid=GRID, **axis):
+    """The synthetic equilibrium on ``device``; ``axis``: the z_axis and
+    psi_axis of :func:`synthetic_samples`."""
+    return efit_from_tables(efit_tables(**synthetic_samples(grid, **axis)),
                             dtype=dtype, device=device)
 
 
@@ -256,11 +301,14 @@ def event_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def profile_kernel(fn, kernel="efit_window_kernel"):
-    """Run fn once under torch.profiler.  Returns (total device ms of the
-    kernels whose name holds ``kernel`` from the CUDA trace - None if the
-    trace shows no device time - and the device-timeline ms of the whole
-    call from CUDA events)."""
+def profile_kernel(fn, kernel=("efit_window_kernel",)):
+    """Run fn once under torch.profiler.  Returns (device ms per launch
+    from the CUDA trace - for each name in ``kernel`` the median duration
+    of the kernels whose name holds it, summed over the names; None if
+    the trace shows no device time - the number of launches the trace
+    holds of the first name, and the device-timeline ms of the whole call
+    from CUDA events).  The trace can miss a launch or hold one without
+    its duration (in some runs), hence the median of what it holds."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -272,11 +320,17 @@ def profile_kernel(fn, kernel="efit_window_kernel"):
         fn()
         stop.record()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "device_time_total", 0.0)
-                   for e in prof.key_averages()
-                   if kernel in e.key)
-    return (total_us / 1000.0 if total_us else None,
-            start.elapsed_time(stop))
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    per_launch, counts = 0.0, []
+    for name in kernel:
+        us = [e.device_time_total for e in events if name in e.name]
+        counts.append(len(us))
+        timed_us = [t for t in us if t > 0]
+        if not timed_us:
+            return None, counts[0], start.elapsed_time(stop)
+        per_launch += float(np.median(timed_us)) / 1000.0
+    return per_launch, counts[0], start.elapsed_time(stop)
 
 
 def phase_device():
@@ -297,14 +351,25 @@ def phase_device():
 def ptxas_summary(log):
     """{variant: 'N registers, ... spill ...'} from nvcc's -Xptxas -v log;
     the variant is read from the mangled name of efit_window_kernel<T,
-    METHOD, COMPENSATED> (K1: f32/rk2/plain, ...) or of
+    METHOD, COMPENSATED> (K1: f32/rk2/plain, ...), of
     efit_window_bwd_kernel<T, METHOD, TAB> (K2 f32/rk2 without the table
-    cotangents, K3 f32/rk2 with them)."""
+    cotangents, K3 f32/rk2 with them), of slab_push_kernel<T> (K5 f32,
+    K5 f64) or of deposit_partial_kernel<T> and deposit_reduce_kernel<T>
+    (K6 pass 1 f32, K6 pass 2 f32, ...)."""
     out, variant = {}, None
     for line in log.splitlines():
         m = re.search(
             r"efit_window_(bwd_)?kernelI([fd])Li([24])ELb([01])", line)
-        if m:
+        p = re.search(
+            r"(slab_push|deposit_partial|deposit_reduce)_kernelI([fd])E",
+            line)
+        if p and "Compiling entry function" in line:
+            dtype = "f32" if p[2] == "f" else "f64"
+            variant = {"slab_push": f"K5 {dtype}",
+                       "deposit_partial": f"K6 pass 1 {dtype}",
+                       "deposit_reduce": f"K6 pass 2 {dtype}"}[p[1]]
+            out[variant] = []
+        elif m:
             dtype = "f32" if m[2] == "f" else "f64"
             if m[1]:
                 variant = f"{'K3' if m[4] == '1' else 'K2'} {dtype}/rk{m[3]}"
@@ -783,21 +848,26 @@ def kernel_record(eq, state, launches):
 
     ms = event_ms(kern_call, 20)
     plain_ms = event_ms(plain_call, 3)
-    kernel_ms, _ = profile_kernel(lambda: [kern_call() for _ in range(20)])
+    kernel_ms, _, _ = profile_kernel(
+        lambda: [kern_call() for _ in range(20)])
     sol = production_solver(eq)
-    busy_ms, wall_ms = profile_kernel(lambda: sol.run(state, 50))
+    launch_ms, seen, wall_ms = profile_kernel(lambda: sol.run(state, 50))
+    busy_ms = None if launch_ms is None else launch_ms * seen
     share = None if busy_ms is None else busy_ms / wall_ms
     print(f"[7 kernel time] 100000 rays, f32 compensated rk2 K=10: "
           f"{ms:.4f} ms per window call (CUDA events, wrapper included); "
-          f"kernel on the device {kernel_ms and kernel_ms / 20} ms "
-          f"(profiler); plain version {plain_ms:.4f} ms per window; over 50 "
+          f"kernel on the device {kernel_ms} ms (profiler); plain version "
+          f"{plain_ms:.4f} ms per window; over 50 "
           f"recorded steps of Solver.run the kernel is busy {busy_ms} of "
           f"{wall_ms:.3f} device ms (share {share})")
+    b_ms, b_by = window_bound(eq, state.x.shape[0], "K1 rk2 comp")
+    print(f"[7 efit_window bound] {b_ms:.4f} ms ({b_by})")
     return {"name": "efit_window", "route": "cuda",
             "source": "graph_framework_tpu_torch/csrc/efit_window.cu",
             "replaces": "graph_framework_tpu/pallas/efit_step.py:159",
             "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def bwd_kernel_records(eq, state, launches, launches_tab):
@@ -833,20 +903,384 @@ def bwd_kernel_records(eq, state, launches, launches_tab):
                   for a, b in pairs)
         ms = event_ms(kern_call, 10)
         plain_ms = event_ms(plain_call, 2)
-        kernel_ms, _ = profile_kernel(lambda: [kern_call() for _ in range(10)],
-                                      kernel="efit_window_bwd_kernel")
+        kernel_ms, _, _ = profile_kernel(
+            lambda: [kern_call() for _ in range(10)],
+            kernel=("efit_window_bwd_kernel",))
         print(f"[7 {name} time] {state.x.shape[0]} rays, f32 rk2 "
               f"K={FREEZE_EVERY}: {ms:.4f} ms per window call (CUDA "
               f"events, wrapper included); kernel on the device "
-              f"{kernel_ms and kernel_ms / 10} ms (profiler); plain version "
+              f"{kernel_ms} ms (profiler); plain version "
               f"(autograd of frozen_window) {plain_ms:.4f} ms; max abs "
               f"error {err:.3e}")
+        b_ms, b_by = window_bound(eq, state.x.shape[0],
+                                  "K3 rk2" if tables else "K2 rk2")
+        print(f"[7 {name} bound] {b_ms:.4f} ms ({b_by})")
         records.append({
             "name": name, "route": "cuda",
             "source": "graph_framework_tpu_torch/csrc/efit_window_bwd.cuh",
             "replaces": f"graph_framework_tpu/pallas/efit_step.py:{line}",
             "launches": count, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms})
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+    return records
+
+
+# -- the particle paths: K5 (slab push) and K6 (deposit) ----------------------
+# bench.py's korc configuration (bench.py:393-412): the slab field of
+# make_slab, b0 = b1 = 1, b_shear 0.1, larmor 1, dt 0.5; 100 steps a launch.
+SLAB = dict(dt=0.5, b0=1.0, b1=1.0, b_shear=0.1, larmor=1.0)
+SLAB_STEPS = 100
+# K5 against its plain version over one 100-step launch of 100 003
+# particles: per leaf, max |kernel - plain| over that leaf's max |plain|.
+# The two differ only in rounding (the kernel's FMA contraction); each
+# limit sits about 20x above the card's reading (NVIDIA H100 80GB HBM3,
+# 700.00 W): f32 2.4e-5, f64 4.1e-14.  A kernel one step short shows 0.18
+# (asserted SEPARATION above the limit).  Gamma carried from the launch's
+# start instead of recovered is no wrong kernel here: gamma is invariant in
+# a pure magnetic field, so it changes only the rounding (read 2.1e-5 in
+# f32, 4.1e-14 in f64) and is reported, not asserted.
+K5_TOL = {torch.float32: 5.0e-4, torch.float64: 1.0e-12}
+# K6 against its plain version (100 003 particles, G 1000 and 1001, a mask
+# with zeros): n and e, each relative to its max; the sums run in another
+# order.  Read on the card: f32 5.7e-7, f64 7.9e-16; a deposit that drops
+# the ragged last chunk shows 2.1e-2, one that ignores the mask 0.12.
+K6_TOL = {torch.float32: 1.0e-5, torch.float64: 1.5e-14}
+# xpic at full width, the kernel's 50 steps against the plain deposit's
+# from the same start, per leaf relative to its max: f32 sums of 1M terms
+# in another order (read 5.5e-7; the positions barely move at dt 1e-14,
+# so the difference does not grow).
+PIC_TOL = 1.0e-5
+# Operations per ray and window of FREEZE_EVERY substeps of the window
+# kernels on the main path (rk2), counted over the kernels' own source by
+# graph_framework_tpu_torch/tools/count_ops.py (tests/test_torch_common.py
+# holds these to it).
+WINDOW_OPS = {"K1 rk2 comp": 44892, "K2 rk2": 225677, "K3 rk2": 349677}
+# Peak rates of one H100 SXM (NVIDIA's data sheet): f32 and f64 outside the
+# tensor cores, and the HBM rate.  bound_ms is the larger of ops / peak and
+# bytes / rate.
+PEAK_OPS = {torch.float32: 67.0e12, torch.float64: 34.0e12}
+PEAK_BYTES = 3.35e12
+
+
+def bound(ops, nbytes, dtype):
+    """(bound_ms, bound_by) of work that does ``ops`` operations of
+    ``dtype`` and must move ``nbytes``."""
+    t_ops = 1e3 * ops / PEAK_OPS[dtype]
+    t_bytes = 1e3 * nbytes / PEAK_BYTES
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def window_bound(eq, n, kernel):
+    """One f32 window of ``kernel`` ("K1 rk2 comp", "K2 rk2", "K3 rk2")
+    over n rays: WINDOW_OPS a ray; the bytes of the state leaves in and
+    out (16 + 16 compensated for K1; 8 in, 8 cotangents in and 8 out for
+    K2; and K3's 32 block cotangents and 2 cell rows a ray), and the two
+    tables read once."""
+    size = 4
+    per_ray = {"K1 rk2 comp": 32 * size, "K2 rk2": 24 * size,
+               "K3 rk2": 56 * size + 16}[kernel]
+    tables = size * (eq.psi_coeffs.numel() + eq.profile_coeffs.numel())
+    return bound(WINDOW_OPS[kernel] * n, per_ray * n + tables,
+                 torch.float32)
+
+
+def slab_bound(n, dtype, steps=SLAB_STEPS):
+    """One slab push launch: SLAB_PUSH_OPS a particle-step; the six state
+    arrays read once and written once."""
+    size = torch.finfo(dtype).bits // 8
+    return bound(boris.SLAB_PUSH_OPS * n * steps, 12 * n * size, dtype)
+
+
+def deposit_bound(p, g, dtype):
+    """One deposit: DEPOSIT_OPS_PER_PAIR a pair plus the second pass's
+    sums; x, mask and the grid read once, n and e written once."""
+    size = torch.finfo(dtype).bits // 8
+    chunks = -(-p // k6.CHUNK)
+    return bound(k6.DEPOSIT_OPS_PER_PAIR * p * g + 2 * g * chunks,
+                 (2 * p + 3 * g) * size, dtype)
+
+
+def particle_ensemble(n, dtype, device, seed):
+    """n particles (the six leaves of the slab push), as the JAX kernel
+    test builds them: x in [1.5, 2], y and z in [-0.5, 0.5], velocity
+    fractions (ux in [-0.3, 0.3], 0.9, 0.1) through initialize_gamma."""
+    rng = np.random.default_rng(seed)
+    cols = [rng.uniform(1.5, 2.0, n), rng.uniform(-0.5, 0.5, n),
+            rng.uniform(-0.5, 0.5, n), rng.uniform(-0.3, 0.3, n),
+            np.full(n, 0.9), np.full(n, 0.1), np.ones(n)]
+    st = initialize_gamma(ParticleState(*[
+        torch.from_numpy(c).to(dtype=dtype, device=device) for c in cols]))
+    return list(st[:6])
+
+
+def slab_push_gamma_carried(leaves, steps):
+    """A wrong slab push for the separation check: gamma held at its value
+    at the launch's start instead of recovered from u each step (the first
+    of the three square roots of each step of the plain version)."""
+    g0 = torch.sqrt(1.0 + sum(u * u for u in leaves[3:]))
+    sqrt, calls = torch.sqrt, [0]
+
+    def first_is_gamma(a):
+        calls[0] += 1
+        return g0 if calls[0] % 3 == 1 else sqrt(a)
+
+    with mock.patch.object(torch, "sqrt", first_is_gamma):
+        return boris.slab_push_plain(*leaves, **SLAB, steps=steps)
+
+
+def phase_slab_vs_plain(device, n=100_003):
+    """Phase 8: K5 against its plain version over one launch of 100 steps,
+    f32 and f64, and what a wrong kernel shows on the plain version: one
+    step fewer (asserted SEPARATION above the limit) and gamma carried
+    from the start (reported: gamma is invariant in a pure magnetic field,
+    so carrying it changes only the rounding)."""
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        leaves = particle_ensemble(n, dtype, device, SEED + 5)
+        push = boris.make_slab_push(**SLAB, steps=SLAB_STEPS)
+        plain = boris.slab_push_plain(*leaves, **SLAB, steps=SLAB_STEPS)
+        row = {"dev": max(relative_deviations(push(*leaves), plain)),
+               "limit": K5_TOL[dtype]}
+        row["one step fewer"] = max(relative_deviations(
+            boris.slab_push_plain(*leaves, **SLAB, steps=SLAB_STEPS - 1),
+            plain))
+        row["gamma carried"] = max(relative_deviations(
+            slab_push_gamma_carried(leaves, SLAB_STEPS), plain))
+        row["fail"] = (([] if row["dev"] <= row["limit"] else ["dev"])
+                       + ([] if row["one step fewer"]
+                          >= SEPARATION * row["limit"]
+                          else ["one step fewer"]))
+        rows[str(dtype)[6:]] = row
+    print(f"[8 K5 vs plain, {n} particles, {SLAB_STEPS} steps] worst "
+          f"relative leaf deviation against its limit, and what a wrong "
+          f"kernel would show: {json.dumps(rows)}")
+    failed = {key: row for key, row in rows.items() if row["fail"]}
+    if failed:
+        raise AssertionError(f"slab push vs plain: {failed}")
+
+
+def gamma_of(leaves):
+    ux, uy, uz = leaves[3:]
+    return torch.sqrt(1.0 + ux * ux + uy * uy + uz * uz)
+
+
+def phase_slab_push(device, n=100_000_000, launches=10):
+    """Phase 9: K5 at full width, bench.py's korc configuration: n
+    particles f32 at x 1.7, u (0, 0.99, 0.1) c through initialize_gamma,
+    ``launches`` launches of 100 steps; then one 100-step launch of the
+    plain version at the same size.  Returns what the kernel record
+    needs."""
+    dtype = torch.float32
+
+    def full(value):
+        return torch.full((n,), value, dtype=dtype, device=device)
+
+    st = initialize_gamma(ParticleState(full(1.7), full(0.0), full(0.0),
+                                        full(0.0), full(0.99), full(0.1),
+                                        full(1.0)))
+    start = list(st[:6])
+    g0 = st.gamma
+    del st
+    push = boris.make_slab_push(**SLAB, steps=SLAB_STEPS)
+    push(*[a[:1].contiguous() for a in start])        # load the module
+    boris.slab_push_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    leaves = start
+    for _ in range(launches):
+        leaves = push(*leaves)
+    torch.cuda.synchronize()
+    float(leaves[0][0])
+    seconds = time.perf_counter() - t0
+    count = boris.slab_push_launches
+    rate = n * SLAB_STEPS * launches / seconds
+    finite = all(bool(torch.isfinite(a).all()) for a in leaves)
+    drift = float(((gamma_of(leaves) - g0).abs() / g0).max())
+    del leaves
+    plain, plain_s = timed(
+        lambda: boris.slab_push_plain(*start, **SLAB, steps=SLAB_STEPS),
+        pick=lambda out: types.SimpleNamespace(x=out[0]))
+    plain_rate = n * SLAB_STEPS / plain_s
+    kern = push(*start)
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(kern, plain))
+    rel = max(relative_deviations(kern, plain))
+    del kern, plain
+    print(f"[9 K5 full width] {n} particles f32 x {launches} launches x "
+          f"{SLAB_STEPS} steps: {seconds:.4f} s = {rate:.6e} "
+          f"particle-steps/s; {count} launches; all finite {finite}; "
+          f"largest relative drift of sqrt(1 + u.u) from its start "
+          f"{drift:.3e}; plain version, one launch: {plain_s:.4f} s = "
+          f"{plain_rate:.6e} particle-steps/s; first launch kernel vs "
+          f"plain: max abs {err:.3e}, relative {rel:.3e}; the allocator "
+          f"peaked at {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if count != launches or not finite or not rel <= K5_TOL[dtype]:
+        raise AssertionError(f"slab push: {count} launches, finite "
+                             f"{finite}, kernel vs plain {rel}")
+    return dict(start=start, launches=count, err=err,
+                plain_ms=1e3 * plain_s)
+
+
+def phase_korc_efit(device, n=1_000_000, steps=1000):
+    """Phase 10: xkorc through the EFIT field (plain PyTorch, no kernel):
+    run_korc with xkorc's 1e6 particles in f64 for ``steps`` steps (the
+    reference's 1e6 steps cut to keep the smoke in its time limit)."""
+    eq = synthetic_equilibrium(torch.float64, device, **KORC_AXIS)
+    b0, axis_s = timed(lambda: eq.characteristic_field(),
+                       pick=lambda out: types.SimpleNamespace(x=out[None]))
+    st, seconds = timed(lambda: run_korc(eq, n, steps, dt=0.5,
+                                         dtype=torch.float64, device=device))
+    g0 = 1.0 / np.sqrt(1.0 - (0.99 ** 2 + 0.1 ** 2))
+    r = torch.sqrt(st.x * st.x + st.y * st.y)
+    finite = all(bool(torch.isfinite(a).all()) for a in st)
+    inside = bool(((r > 0.5) & (r < 3.0)).all())
+    drift = float(((st.gamma - g0).abs() / g0).max())
+    rate = n * steps / seconds
+    print(f"[10 xkorc through EFIT, f64] characteristic field "
+          f"{float(b0):.9f} T ({axis_s:.3f} s); {n} particles x {steps} "
+          f"steps (dt 0.5 gyro periods / 2 pi): {seconds:.3f} s = "
+          f"{rate:.6e} particle-steps/s; all finite {finite}; R in (0.5, "
+          f"3.0) m {inside} (R from {float(r.min()):.4f} to "
+          f"{float(r.max()):.4f} m); largest relative drift of gamma "
+          f"{drift:.3e}")
+    if not (finite and inside and 0.3 < float(b0) < 0.4):
+        raise AssertionError(f"xkorc: finite {finite}, inside {inside}, "
+                             f"b0 {float(b0)}")
+
+
+def deposit_inputs(n, g, dtype, device, seed):
+    """n particles 0.25 N(0, 1) with a mask that drops about one in ten,
+    and g grid points on [-1, 1] (run_pic's grid)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(0.25 * rng.standard_normal(n))
+    mask = torch.from_numpy((rng.uniform(size=n) > 0.1).astype(np.float64))
+    grid = make_grid(g, 2.0 / (g - 1.0), -1.0, dtype, device)
+    return x.to(dtype=dtype, device=device), mask.to(dtype=dtype,
+                                                     device=device), grid
+
+
+def phase_deposit_vs_plain(device, n=100_003):
+    """Phase 11: K6 against its plain version, G = 1000 and a ragged
+    1001, a mask with zeros, f32 and f64; what a wrong kernel shows on
+    the plain version (the mask ignored; the ragged last chunk of
+    particles dropped), each asserted SEPARATION above the limit; and two
+    launches on the same inputs equal bit for bit."""
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        for g in (1000, 1001):
+            x, mask, grid = deposit_inputs(n, g, dtype, device, SEED + 6)
+            got = k6.deposit(x, mask, grid)
+            again = k6.deposit(x, mask, grid)
+            plain = k6.deposit_plain(x, mask, grid)
+            full = (n // k6.CHUNK) * k6.CHUNK
+            row = {"dev": max(relative_deviations(got, plain)),
+                   "limit": K6_TOL[dtype],
+                   "mask ignored": max(relative_deviations(
+                       k6.deposit_plain(x, torch.ones_like(mask), grid),
+                       plain)),
+                   "last chunk dropped": max(relative_deviations(
+                       k6.deposit_plain(x[:full], mask[:full], grid),
+                       plain)),
+                   "bitwise repeat": all(torch.equal(a, b)
+                                         for a, b in zip(got, again))}
+            row["fail"] = (
+                ([] if row["dev"] <= row["limit"] else ["dev"])
+                + [w for w in ("mask ignored", "last chunk dropped")
+                   if not row[w] >= SEPARATION * row["limit"]]
+                + ([] if row["bitwise repeat"] else ["bitwise repeat"]))
+            rows[f"{str(dtype)[6:]}/G={g}"] = row
+    print(f"[11 K6 vs plain, {n} particles] worst relative deviation of n "
+          f"and e against the limit, what a wrong kernel would show, and "
+          f"whether a second launch repeats the first bit for bit: "
+          f"{json.dumps(rows)}")
+    failed = {key: row for key, row in rows.items() if row["fail"]}
+    if failed:
+        raise AssertionError(f"deposit vs plain: {failed}")
+
+
+def phase_pic(device, n=1_000_000, g=1000, steps=50, dt=1.0e-14):
+    """Phase 12: xpic at full width, bench.py's pic configuration
+    (bench.py:519-535): run_pic with n particles, g grid points, ``steps``
+    steps of dt, f32, one K6 launch a step; then the same steps from the
+    same start with the plain deposit.  Returns what the record needs."""
+    dtype = torch.float32
+    k6.deposit_launches = 0
+    final, seconds = timed(lambda: run_pic(n, g, steps, dt=dt, seed=SEED,
+                                           dtype=dtype, device=device))
+    count = k6.deposit_launches
+    rate = n * steps / seconds
+    finite = all(bool(torch.isfinite(a).all()) for a in final)
+    scale, offset = 2.0 / (g - 1.0), -1.0
+    grid = make_grid(g, scale, offset, dtype, device)
+    push = make_push_step(scale, offset, dt)
+    st = pic_start(n, g, SEED, dtype, device)
+    with torch.no_grad():
+        for _ in range(steps):
+            dens, field = k6.deposit_plain(st.x, torch.ones_like(st.x), grid)
+            st = push(st._replace(n=dens, epara=field))
+    devs = dict(zip(PicState._fields, relative_deviations(final, st)))
+    print(f"[12 xpic full width] {n} particles x {g} grid points f32 x "
+          f"{steps} steps, dt {dt}: {seconds:.4f} s = {rate:.6e} "
+          f"particle-steps/s = {rate * g:.6e} pair-updates/s; {count} K6 "
+          f"launches; all finite {finite}; n.max() {float(final.n.max()):.6e}"
+          f"; against the plain deposit's run, relative deviation "
+          f"{json.dumps(devs)}, limit {PIC_TOL}")
+    if (count != steps or not finite or not float(final.n.max()) > 0
+            or not max(devs.values()) <= PIC_TOL):
+        raise AssertionError(f"xpic: {count} launches, finite {finite}, "
+                             f"deviations {devs}")
+    return dict(x=final.x, grid=grid, launches=count)
+
+
+def particle_kernel_records(slab, pic):
+    """The K5 and K6 lines (phase 13): milliseconds per wrapper call by
+    CUDA events and on the device by the profiler, at the main path's
+    shapes (1e8 particles x 100 steps; 1M particles x 1000 grid points),
+    beside the plain version's, and the bound."""
+    push = boris.make_slab_push(**SLAB, steps=SLAB_STEPS)
+    start = slab["start"]
+    n = start[0].shape[0]
+    ms = event_ms(lambda: push(*start), 3)
+    dev_ms, _, _ = profile_kernel(lambda: [push(*start) for _ in range(3)],
+                                  kernel=("slab_push_kernel",))
+    b_ms, b_by = slab_bound(n, torch.float32)
+    print(f"[13 slab_push time] {n} particles f32 x {SLAB_STEPS} steps: "
+          f"{ms:.4f} ms per launch (CUDA events, wrapper included); kernel "
+          f"on the device {dev_ms} ms (profiler); plain "
+          f"version {slab['plain_ms']:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by})")
+    records = [{"name": "slab_push", "route": "cuda",
+                "source": "graph_framework_tpu_torch/csrc/boris.cu",
+                "replaces": "graph_framework_tpu/pallas/boris.py:36",
+                "launches": slab["launches"], "max_abs_err": slab["err"],
+                "ms": ms, "plain_ms": slab["plain_ms"], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None}]
+    del start
+
+    x, grid = pic["x"], pic["grid"]
+    mask = torch.ones_like(x)
+    got, want = k6.deposit(x, mask, grid), k6.deposit_plain(x, mask, grid)
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(got, want))
+    ms = event_ms(lambda: k6.deposit(x, mask, grid), 20)
+    plain_ms = event_ms(lambda: k6.deposit_plain(x, mask, grid), 2)
+    dev_ms, _, _ = profile_kernel(
+        lambda: [k6.deposit(x, mask, grid) for _ in range(20)],
+        kernel=("deposit_partial_kernel", "deposit_reduce_kernel"))
+    b_ms, b_by = deposit_bound(x.shape[0], grid.shape[0], torch.float32)
+    print(f"[13 deposit time] {x.shape[0]} particles x {grid.shape[0]} "
+          f"grid points f32: {ms:.4f} ms per call (CUDA events, both "
+          f"passes, wrapper included); kernels on the device "
+          f"{dev_ms} ms (profiler); plain version "
+          f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); max abs error "
+          f"{err:.3e} (n up to {float(want[0].abs().max()):.3e}, e up to "
+          f"{float(want[1].abs().max()):.3e})")
+    records.append({"name": "deposit", "route": "cuda",
+                    "source": "graph_framework_tpu_torch/csrc/deposit.cu",
+                    "replaces": "graph_framework_tpu/pallas/deposit.py:26",
+                    "launches": pic["launches"], "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None})
     return records
 
 
@@ -865,6 +1299,13 @@ def main():
     phase_plain_timing(eq32, st32, out["rate_f32"])
     records = [kernel_record(eq32, st32, out["launches"])]
     records += bwd_kernel_records(eq32, st32, counts[1], counts_tab[2])
+    del eq32, st32
+    phase_slab_vs_plain(device)
+    slab = phase_slab_push(device)
+    phase_korc_efit(device)
+    phase_deposit_vs_plain(device)
+    pic = phase_pic(device)
+    records += particle_kernel_records(slab, pic)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

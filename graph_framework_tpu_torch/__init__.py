@@ -6,19 +6,23 @@ it by ``tests/test_torch_*.py`` (the same inputs through both packages).
 
 It imports ``torch`` and numpy only - never ``jax`` and never
 ``graph_framework_tpu``.  Plain tensor code is eager PyTorch: functions on
-tensors, ``NamedTuple`` states of tensors, an explicit device and dtype.
-There is no ``jit``: ``lax.scan`` becomes a Python loop, and the hot loop
-is the hand-written CUDA kernel in ``csrc/efit_window.cu`` (wrapper and
-plain version in :mod:`graph_framework_tpu_torch.kernels.efit_step`).
+tensors, ``NamedTuple`` states of tensors, an explicit device and dtype
+(the card unless the caller names another).  There is no ``jit``:
+``lax.scan`` becomes a Python loop, and the hot loops are hand-written
+CUDA kernels in ``csrc/`` - the ray trace's freeze window and its
+backward, the slab-field Boris push and the PIC deposit - each with its
+wrapper and plain version in :mod:`graph_framework_tpu_torch.kernels`.
 
 Subpackages
 -----------
-``ops``      table index, spline evaluation, RK integrators, compensated
-             accumulation, Newton iteration.
-``models``   the equilibrium protocol, EFIT, cold-plasma dispersion, ray
-             equations.
+``ops``      table index and gathers, spline evaluation, RK integrators,
+             compensated accumulation, Newton iteration.
+``models``   the equilibrium protocol, the analytic equilibria, EFIT,
+             cold-plasma dispersion, ray equations, the Boris pusher
+             (korc) and the PIC demo (pic).
 ``kernels``  CUDA kernel wrappers and their build (``nvcc`` at first use).
-``tools``    numpy spline-table builders for EFIT inputs.
+``tools``    numpy spline-table builders for EFIT inputs; the kernels'
+             operation counter.
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,11 @@
-"""Carry equilibria and ray states across from the JAX package.
+"""Carry equilibria and ray and particle states across from the JAX package.
 
 The port imports no ``jax``, so these take the JAX objects duck-typed:
 anything with the right attributes whose arrays ``numpy.asarray`` accepts
-(a ``graph_framework_tpu`` EfitEquilibrium or RayState, or their numpy
-copies).  The tests use them to feed both packages the same inputs.
+(a ``graph_framework_tpu`` EfitEquilibrium, RayState, ParticleState or
+PicState, or their numpy copies).  The tests use them to feed both
+packages the same inputs.  The tensors land on the card unless the caller
+names another ``device``.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import numpy as np
 import torch
 
 from graph_framework_tpu_torch.models.efit import EfitEquilibrium
+from graph_framework_tpu_torch.models.korc import ParticleState
+from graph_framework_tpu_torch.models.pic import PicState
 from graph_framework_tpu_torch.models.rays import RayState
 
 _EFIT_TABLES = ("psi_coeffs", "ne_coeffs", "te_coeffs", "pres_coeffs",
@@ -25,7 +29,7 @@ def _tensor(a, dtype, device):
                            dtype=dtype, device=device)
 
 
-def efit_from_numpy(eq, *, dtype=torch.float64, device="cpu"):
+def efit_from_numpy(eq, *, dtype=torch.float64, device="cuda"):
     """The port's :class:`EfitEquilibrium` holding the same tables and
     scalars as ``eq`` (the JAX package's EfitEquilibrium)."""
     return EfitEquilibrium(
@@ -34,9 +38,25 @@ def efit_from_numpy(eq, *, dtype=torch.float64, device="cpu"):
         cell_local=bool(eq.cell_local))
 
 
-def ray_state_from_numpy(state, *, dtype=torch.float64, device="cpu"):
+def _fields(cls, state, dtype, device):
+    return cls(*[_tensor(getattr(state, f), dtype, device)
+                 for f in cls._fields])
+
+
+def ray_state_from_numpy(state, *, dtype=torch.float64, device="cuda"):
     """The port's :class:`RayState` with the leaves of ``state`` (any
     object with fields t, w, x, y, z, kx, ky, kz)."""
-    return RayState(*[_tensor(getattr(state, f), dtype, device)
-                      for f in RayState._fields])
+    return _fields(RayState, state, dtype, device)
 
+
+def particle_state_from_numpy(state, *, dtype=torch.float64,
+                              device="cuda"):
+    """The port's :class:`ParticleState` with the leaves of ``state`` (any
+    object with fields x, y, z, ux, uy, uz, gamma)."""
+    return _fields(ParticleState, state, dtype, device)
+
+
+def pic_state_from_numpy(state, *, dtype=torch.float64, device="cuda"):
+    """The port's :class:`PicState` with the leaves of ``state`` (any
+    object with fields x, vpara, epara, n)."""
+    return _fields(PicState, state, dtype, device)

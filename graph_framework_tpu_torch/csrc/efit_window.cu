@@ -168,6 +168,6 @@ extern "C" int gft_efit_window(int dtype, int method, int compensated,
 
 extern "C" const char* gft_error_string(int code) {
   if (code == gft::kInvalidArgument)
-    return "invalid argument to a gft_efit_window kernel";
+    return "invalid argument to a gft kernel";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

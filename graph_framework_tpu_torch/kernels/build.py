@@ -39,7 +39,7 @@ _VOID_P, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PTRS = ctypes.POINTER(_VOID_P)
 
 #: argtypes/restype of every exported function (csrc/efit_window.cu,
-#: csrc/efit_window_bwd.cu).
+#: csrc/efit_window_bwd.cu, csrc/boris.cu, csrc/deposit.cu).
 SIGNATURES = {
     "gft_efit_window": (
         [_INT, _INT, _INT, _INT, _LL,                 # dtype method comp K n
@@ -54,6 +54,17 @@ SIGNATURES = {
          ctypes.POINTER(ctypes.c_double),             # params
          _VOID_P, _VOID_P, _VOID_P, _VOID_P,          # dpsi dprof cells
          _VOID_P],                                    # stream
+        _INT),
+    "gft_slab_push": (
+        [_INT, _LL, _INT,                             # dtype n steps
+         _PTRS, _PTRS,                                # state in/out
+         ctypes.POINTER(ctypes.c_double), _VOID_P],   # params stream
+        _INT),
+    "gft_deposit": (
+        [_INT, _LL, _INT, _LL,                        # dtype n grid chunk
+         _VOID_P, _VOID_P, _VOID_P,                   # x mask grid
+         _VOID_P, _VOID_P, _VOID_P,                   # partial n e
+         ctypes.POINTER(ctypes.c_double), _VOID_P],   # params stream
         _INT),
     "gft_error_string": ([_INT], ctypes.c_char_p),
 }
@@ -150,3 +161,15 @@ def load() -> ctypes.CDLL:
 
 def error_string(code: int) -> str:
     return load().gft_error_string(code).decode()
+
+
+def pointers(tensors):
+    """A ctypes array of the tensors' data pointers (a ``void**``)."""
+    return (_VOID_P * len(tensors))(*[a.data_ptr() for a in tensors])
+
+
+def stream(x):
+    """PyTorch's current CUDA stream on ``x``'s device, as an int."""
+    import torch
+
+    return torch.cuda.current_stream(x.device).cuda_stream

@@ -194,14 +194,6 @@ def _check_launch(eq, leaves, method, steps):
                          "profile_coeffs (npsi, 4, 4)")
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _pointers(tensors):
-    return (ctypes.c_void_p * len(tensors))(*[a.data_ptr() for a in tensors])
-
-
 def _launch(eq, leaves, method, dt, steps, compensated):
     """K1 on the current stream: the advanced leaves, in new tensors."""
     from graph_framework_tpu_torch.kernels import build
@@ -219,9 +211,9 @@ def _launch(eq, leaves, method, dt, steps, compensated):
     with torch.cuda.device(x.device):
         rc = lib.gft_efit_window(
             _DTYPE_CODES[x.dtype], _METHOD_CODES[method], int(compensated),
-            steps, n, _pointers(leaves), _pointers(outs), psi.data_ptr(),
-            psi.shape[0], psi.shape[1], prof.data_ptr(), prof.shape[0],
-            params, _stream(x))
+            steps, n, build.pointers(leaves), build.pointers(outs),
+            psi.data_ptr(), psi.shape[0], psi.shape[1], prof.data_ptr(),
+            prof.shape[0], params, build.stream(x))
     if rc != 0:
         raise RuntimeError(f"efit_window kernel launch failed ({rc}): "
                            f"{build.error_string(rc)}")
@@ -249,14 +241,15 @@ def _launch_bwd(eq, leaves, cts, method, dt, steps, tables):
         with torch.cuda.device(x.device):
             rc = lib.gft_efit_window_bwd(
                 _DTYPE_CODES[x.dtype], _METHOD_CODES[method], steps, n,
-                _pointers(leaves), _pointers(cts), _pointers(outs),
+                build.pointers(leaves), build.pointers(cts),
+                build.pointers(outs),
                 psi.data_ptr(), psi.shape[0], psi.shape[1], prof.data_ptr(),
                 prof.shape[0], params,
                 blocks[0].data_ptr() if tables else None,
                 blocks[1].data_ptr() if tables else None,
                 cells[0].data_ptr() if tables else None,
                 cells[1].data_ptr() if tables else None,
-                _stream(x))
+                build.stream(x))
         if rc != 0:
             raise RuntimeError(f"efit_window_bwd kernel launch failed "
                                f"({rc}): {build.error_string(rc)}")

@@ -27,6 +27,7 @@ import torch
 
 from graph_framework_tpu_torch.models.equilibrium import (
     Equilibrium, PlasmaQuantities)
+from graph_framework_tpu_torch.ops.newton import newton_solve_multi
 from graph_framework_tpu_torch.ops.spline import (
     eval_bicubic_2d, eval_bicubic_jet, eval_bicubic_jet_block,
     eval_cubic_1d, eval_cubic_multi, eval_cubic_multi_block, rebase_cells_1d,
@@ -131,6 +132,23 @@ class EfitEquilibrium(Equilibrium):
                                 self.psimin, local=self.cell_local)
         return _plasma_quantities(x, y, r, psi_r, psi_z, vals, self)
 
+    def characteristic_field(self):
+        """|B| at the magnetic axis (a 0-dim tensor), found by Newton on
+        the normalized flux from the seed (1.7, 0, 0) with step 0.1
+        (equilibrium.hpp:1584-1615)."""
+
+        def flux(xa, za):
+            pos = torch.stack([xa, torch.zeros_like(xa), za])
+            return (self.psi(pos) - self.psimin) / self.dpsi
+
+        like = self.psi_coeffs
+        start = (torch.tensor(1.7, dtype=like.dtype, device=like.device),
+                 torch.tensor(0.0, dtype=like.dtype, device=like.device))
+        (xa, za), _, _ = newton_solve_multi(
+            flux, start, tolerance=1.0e-30, max_iterations=1000, step=0.1)
+        b = self.magnetic_field(torch.stack([xa, torch.zeros_like(xa), za]))
+        return torch.sqrt(torch.sum(b * b))
+
     def freeze_cells(self, pos):
         """Gather this position's spline blocks ONCE and return a
         :class:`FrozenCellEfit` view that evaluates plasma_quantities
@@ -221,7 +239,7 @@ def read_efit_tables(path):
     return tables
 
 
-def efit_from_tables(tables, *, dtype=torch.float64, device="cpu",
+def efit_from_tables(tables, *, dtype=torch.float64, device="cuda",
                      replicate_reference_quirks=True, cell_local=True):
     """Build an :class:`EfitEquilibrium` from file-format tables: ``psi``
     (4, 4, nr, nz) and ``ne``/``te``/``pressure``/``fpol`` (4, npsi) in the
@@ -260,7 +278,7 @@ def efit_from_tables(tables, *, dtype=torch.float64, device="cpu",
             "ne_scale", "te_scale", "pres_scale")})
 
 
-def make_efit(path, *, dtype=torch.float64, device="cpu",
+def make_efit(path, *, dtype=torch.float64, device="cuda",
               replicate_reference_quirks=True, cell_local=True):
     """Load an EFIT spline file (make_efit, equilibrium.hpp:1627-1844)."""
     return efit_from_tables(

@@ -4,8 +4,10 @@ Counterpart of ``graph_framework_tpu.models.equilibrium`` (reference:
 equilibrium.hpp:235-466).  An equilibrium is an object whose methods are
 plain batched torch functions: positions are (3, ...) tensors with the
 component axis LEADING (as in the JAX package), fields come back the same
-way.  The analytic equilibria are not ported yet; EFIT
-(:mod:`graph_framework_tpu_torch.models.efit`) implements this protocol.
+way.  The analytic equilibria (``NoMagneticField``, ``Slab``,
+``SlabDensity``, ``SlabField``, ``GaussianDensity``; equilibrium.hpp:
+482-1104) live here; EFIT (:mod:`graph_framework_tpu_torch.models.efit`)
+implements the same protocol.
 
 Units are the reference's: densities in 1/m^3, temperatures in eV,
 magnetic fields in T, positions in m.
@@ -16,6 +18,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+
+from graph_framework_tpu_torch.constants import MI_DEUTERIUM
 
 
 class PlasmaQuantities(NamedTuple):
@@ -45,8 +49,40 @@ class Equilibrium:
     def num_ion_species(self) -> int:
         return len(self.ion_masses)
 
+    # -- profiles ----------------------------------------------------------
+    def electron_density(self, pos):
+        raise NotImplementedError
+
+    def ion_density(self, index, pos):
+        raise NotImplementedError
+
+    def electron_temperature(self, pos):
+        raise NotImplementedError
+
+    def ion_temperature(self, index, pos):
+        raise NotImplementedError
+
+    def magnetic_field(self, pos):
+        raise NotImplementedError
+
     def plasma_quantities(self, pos) -> PlasmaQuantities:
-        """All dispersion inputs at ``pos`` (see PlasmaQuantities)."""
+        """All dispersion inputs at ``pos`` (see PlasmaQuantities).
+
+        Default: delegate to the individual accessors, as the analytic
+        equilibria share no work between them; EFIT overrides it to share
+        its table gathers."""
+        n = self.num_ion_species
+        return PlasmaQuantities(
+            b=self.magnetic_field(pos),
+            ne=self.electron_density(pos),
+            te=self.electron_temperature(pos),
+            ni=tuple(self.ion_density(i, pos) for i in range(n)),
+            ti=tuple(self.ion_temperature(i, pos) for i in range(n)),
+        )
+
+    def characteristic_field(self):
+        """Normalizing field magnitude (the Boris pusher's b0;
+        equilibrium.hpp get_characteristic_field)."""
         raise NotImplementedError
 
     def kvec(self, kcov, pos):
@@ -72,3 +108,119 @@ class Equilibrium:
         """True when the field/basis methods take (3, num_rays) positions,
         which the batched ray right-hand side (models.rays) needs."""
         return self.is_cartesian()
+
+
+def _constant(value, pos):
+    """A 0-dim tensor of ``pos``'s dtype and device (the JAX package's
+    ``jnp.asarray(value, dtype=result_type(pos))``)."""
+    return torch.full((), value, dtype=pos.dtype, device=pos.device)
+
+
+def _field_z(pos, bz):
+    """B = (0, 0, bz) stacked on the leading axis."""
+    zero = torch.zeros_like(pos[0])
+    return torch.stack([zero, zero, zero + bz])
+
+
+class _AnalyticEquilibrium(Equilibrium):
+    """Shared bits of the closed-form equilibria: one deuterium ion species
+    of charge 1 (equilibrium.hpp:488,617,...), and ion profiles equal to
+    the electrons'.  All take (3, ...) positions; characteristic field 1."""
+
+    ion_masses = (MI_DEUTERIUM,)
+    ion_charges = (1,)
+
+    def ion_density(self, index, pos):
+        return self.electron_density(pos)
+
+    def ion_temperature(self, index, pos):
+        return self.electron_temperature(pos)
+
+    def electron_temperature(self, pos):
+        return _constant(1000.0, pos)
+
+    def characteristic_field(self):
+        return 1.0
+
+
+class NoMagneticField(_AnalyticEquilibrium):
+    """Linear density ramp, B = 0 (equilibrium.hpp:482-595):
+    ne = ni = 1e19 (0.1 x + 1), te = ti = 1000 eV."""
+
+    def electron_density(self, pos):
+        return 1.0e19 * (0.1 * pos[0] + 1.0)
+
+    def magnetic_field(self, pos):
+        return torch.zeros_like(pos)
+
+
+class Slab(_AnalyticEquilibrium):
+    """Uniform density, sheared field (equilibrium.hpp:611-719):
+    ne = ni = 1e19, te = ti = 1000 eV, B = (0, 0, 0.1 x + 1)."""
+
+    def electron_density(self, pos):
+        return _constant(1.0e19, pos)
+
+    def magnetic_field(self, pos):
+        return _field_z(pos, 0.1 * pos[0] + 1.0)
+
+
+class SlabDensity(_AnalyticEquilibrium):
+    """Linear density ramp, uniform field (equilibrium.hpp:735-848):
+    ne = ni = 1e19 (0.1 x + 1), te = ti = 1000 eV, B = (0, 0, 1)."""
+
+    def electron_density(self, pos):
+        return 1.0e19 * (0.1 * pos[0] + 1.0)
+
+    def magnetic_field(self, pos):
+        return _field_z(pos, 1.0)
+
+
+class SlabField(_AnalyticEquilibrium):
+    """Gentle density+temperature+field ramps (equilibrium.hpp:864-977):
+    ne = ni = 1e19 (0.01 x + 1), te = ti = 2000 (0.01 x + 1) eV,
+    B = (0, 0, 0.01 x + 1)."""
+
+    def electron_density(self, pos):
+        return 1.0e19 * (0.01 * pos[0] + 1.0)
+
+    def electron_temperature(self, pos):
+        return 2000.0 * (0.01 * pos[0] + 1.0)
+
+    def magnetic_field(self, pos):
+        return _field_z(pos, 0.01 * pos[0] + 1.0)
+
+
+class GaussianDensity(_AnalyticEquilibrium):
+    """Gaussian density well, uniform x-directed field
+    (equilibrium.hpp:991-1104): ne = ni = 1e19 exp(-(x^2+y^2)/0.2),
+    te = ti = 1000 eV, B = (1, 0, 0)."""
+
+    def electron_density(self, pos):
+        return 1.0e19 * torch.exp((pos[0] * pos[0] + pos[1] * pos[1])
+                                  / -0.2)
+
+    def magnetic_field(self, pos):
+        zero = torch.zeros_like(pos[0])
+        return torch.stack([zero + 1.0, zero, zero])
+
+
+# -- factories matching the reference's make_* helpers ----------------------
+def make_no_magnetic_field():
+    return NoMagneticField()
+
+
+def make_slab():
+    return Slab()
+
+
+def make_slab_density():
+    return SlabDensity()
+
+
+def make_slab_field():
+    return SlabField()
+
+
+def make_gaussian_density():
+    return GaussianDensity()

@@ -12,12 +12,14 @@ The loop is a host loop with one scalar readback per iteration (the
 reference likewise reads its max-reduction back each pass).  It runs
 detached; the root's gradient comes from the implicit function theorem,
 as the JAX package's ``lax.custom_root`` gives it (see
-:func:`newton_solve`).
+:func:`newton_solve`).  :func:`newton_solve_multi` is the several-unknown
+form (newton.hpp:42-47); its callers take no gradient of the root, and it
+gives none.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -43,8 +45,8 @@ def newton_solve(f: Callable, x0, *, tolerance: float = 1.0e-30,
     """Solve ``f(x) = 0`` for one unknown per ray.
 
     ``f`` maps the batched unknown to the residual of the same shape, all
-    other ray state closed over.  The loop stops on the first of
-    (workflow.hpp:184-204):
+    other ray state closed over.  The loop (:func:`newton_solve_multi`
+    with one unknown) stops on the first of (workflow.hpp:184-204):
 
       max f^2 <= tol                       (converged)
       |last - current| <= tol              (stagnation)
@@ -64,12 +66,41 @@ def newton_solve(f: Callable, x0, *, tolerance: float = 1.0e-30,
     theorem, one extra evaluation of f instead of differentiating the
     loop.  The initial guess ``x0`` gets no gradient.
     """
-    x = x0.detach()
-    big = torch.tensor(torch.finfo(x.dtype).max, dtype=x.dtype,
-                       device=x.device)
-    last, off_last, it = big, big, 0
+    (x,), converged, diag = newton_solve_multi(
+        f, (x0,), tolerance=tolerance, max_iterations=max_iterations,
+        step=step)
+    if torch.is_grad_enabled():
+        with torch.enable_grad():
+            f_attached = f(x)
+        if f_attached.requires_grad:
+            _, dfx = _value_and_slope(f, x)
+            x = x - (f_attached - f_attached.detach()) / dfx
+    return x, converged, diag
+
+
+def newton_solve_multi(f: Callable, xs0: Sequence, *,
+                       tolerance: float = 1.0e-30,
+                       max_iterations: int = 1000, step: float = 1.0):
+    """Simultaneous Newton on several unknowns of one residual
+    (``solver::newton`` with several variables, newton.hpp:42-47): each
+    unknown takes ``x_i <- x_i - step * f / (df/dx_i)`` with its partial
+    derivative, all from the same state of the iteration, under
+    :func:`newton_solve`'s stop rules, with one readback per iteration.
+    Used by the EFIT axis find (equilibrium.hpp:1584-1615).
+
+    ``f(*xs)`` returns the residual.  Returns ``(xs, converged,
+    NewtonDiagnostics)``; the unknowns come back detached.
+    """
+    xs = [x.detach() for x in xs0]
+    last = off_last = torch.tensor(torch.finfo(xs[0].dtype).max,
+                                   dtype=xs[0].dtype, device=xs[0].device)
+    it = 0
     while True:
-        fx, dfx = _value_and_slope(f, x)
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(True) for x in xs]
+            fx = f(*leaves)
+            grads = torch.autograd.grad(fx.sum(), leaves)
+        fx = fx.detach()
         cur = (fx * fx).max()
         keep = ((cur.abs() > tolerance) & ((last - cur).abs() > tolerance)
                 & ((off_last - cur).abs() > tolerance))
@@ -77,13 +108,8 @@ def newton_solve(f: Callable, x0, *, tolerance: float = 1.0e-30,
             break
         if it % 2 == 0:
             off_last = cur
-        x = x - step * fx / dfx
+        xs = [x - step * fx / g for x, g in zip(xs, grads)]
         last = cur
         it += 1
     converged = bool(cur <= tolerance)
-    if torch.is_grad_enabled():
-        with torch.enable_grad():
-            f_attached = f(x)
-        if f_attached.requires_grad:
-            x = x - (f_attached - f_attached.detach()) / dfx
-    return x, converged, NewtonDiagnostics(it, cur, converged)
+    return tuple(xs), converged, NewtonDiagnostics(it, cur, converged)

@@ -13,7 +13,7 @@ trace endpoints with respect to the launch state (through ``init_k``'s
 implicit root gradient) and to the spline tables - and through the window
 kernel by its backward kernels; ``remat_substeps`` checkpoints the plain
 path.  The compensated window kernel is forward-only.
-Not ported yet: ``split_simplextic``, ``adaptive_rk4``, ``remat_policy``,
+Not ported yet: ``split_symplectic``, ``adaptive_rk4``, ``remat_policy``,
 ``block_rays`` and ``pad_rays`` (the kernel masks a ragged last block, so
 the ray count needs no padding).
 """
@@ -40,8 +40,9 @@ from graph_framework_tpu_torch.ops.newton import newton_solve
 
 def make_ray_state(num_rays=None, *, t=0.0, w, x=0.0, y=0.0, z=0.0,
                    kx=0.0, ky=0.0, kz=0.0, dtype=torch.float64,
-                   device="cpu") -> RayState:
-    """Build a RayState from scalars or arrays, broadcast to num_rays."""
+                   device="cuda") -> RayState:
+    """Build a RayState from scalars or arrays, broadcast to num_rays, on
+    ``device`` (the card unless the caller names another)."""
     leaves = dict(t=t, w=w, x=x, y=y, z=z, kx=kx, ky=ky, kz=kz)
     leaves = {k: torch.as_tensor(v, dtype=dtype, device=device)
               for k, v in leaves.items()}

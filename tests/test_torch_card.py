@@ -13,7 +13,10 @@ reverse mode), with each limit checked to lie well below what a kernel
 that lost the low words or ran the other Runge-Kutta order would show.
 The backward kernels K2 and K3 are held to autograd of the plain version
 by ``chip_smoke.check_window_bwd`` the same way (``chip_smoke.BWD_TOL``;
-the wrong backwards: v_w dropped, the other order's transpose).
+the wrong backwards: v_w dropped, the other order's transpose).  The slab
+push K5 and the deposit K6 are held to their plain versions within
+``chip_smoke.K5_TOL`` and ``chip_smoke.K6_TOL`` (rounding: FMA contraction
+and another order of the sums), at ragged counts.
 """
 
 import dataclasses
@@ -23,8 +26,10 @@ import pytest
 import torch
 
 import chip_smoke
-from graph_framework_tpu_torch.kernels import efit_step
+from graph_framework_tpu_torch.kernels import boris, efit_step
+from graph_framework_tpu_torch.kernels import deposit as k6
 from graph_framework_tpu_torch.models.dispersion import cold_plasma
+from graph_framework_tpu_torch.models.pic import run_pic
 from graph_framework_tpu_torch.models.rays import RayState
 from graph_framework_tpu_torch.ops.compensated import init_comp_carry
 from graph_framework_tpu_torch.solver import init_k
@@ -120,3 +125,66 @@ def test_compensated_window_refuses_gradients(device):
                               method="rk2", dt=1e-4, steps=2,
                               compensated=True)
     assert chip_smoke.launch_counts() == (0, 0, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_slab_push_matches_plain_version(device, dtype):
+    leaves = chip_smoke.particle_ensemble(RAGGED, dtype, device, seed=7)
+    push = boris.make_slab_push(**chip_smoke.SLAB, steps=25)
+    boris.slab_push_launches = 0
+    got = push(*leaves)
+    assert boris.slab_push_launches == 1
+    want = boris.slab_push_plain(*leaves, **chip_smoke.SLAB, steps=25)
+    assert boris.slab_push_launches == 1
+    devs = chip_smoke.relative_deviations(got, want)
+    assert max(devs) <= chip_smoke.K5_TOL[dtype], devs
+    assert all(g.dtype == dtype and g.device == leaves[0].device
+               for g in got)
+
+
+def test_slab_push_refuses(device):
+    leaves = chip_smoke.particle_ensemble(16, torch.float32, device, seed=8)
+    push = boris.make_slab_push(**chip_smoke.SLAB, steps=2)
+    boris.slab_push_launches = 0
+    with pytest.raises(ValueError, match="six contiguous"):
+        push(*leaves[:5], leaves[5].cpu())
+    with pytest.raises(ValueError, match="no backward"):
+        push(*leaves[:5], leaves[5].clone().requires_grad_(True))
+    assert boris.slab_push_launches == 0
+
+
+@pytest.mark.parametrize("num_grid", [64, 1001])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_deposit_matches_plain_version(device, dtype, num_grid):
+    x, mask, grid = chip_smoke.deposit_inputs(10_007, num_grid, dtype,
+                                              device, seed=9)
+    assert bool((mask == 0).any())
+    k6.deposit_launches = 0
+    got = k6.deposit(x, mask, grid)
+    again = k6.deposit(x, mask, grid)
+    assert k6.deposit_launches == 2
+    want = k6.deposit_plain(x, mask, grid)
+    devs = chip_smoke.relative_deviations(got, want)
+    assert max(devs) <= chip_smoke.K6_TOL[dtype], devs
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_deposit_refuses(device):
+    x, mask, grid = chip_smoke.deposit_inputs(100, 8, torch.float32, device,
+                                              seed=10)
+    k6.deposit_launches = 0
+    with pytest.raises(ValueError, match="one dtype and device"):
+        k6.deposit(x, mask.cpu(), grid)
+    with pytest.raises(ValueError, match="no backward"):
+        k6.deposit(x.clone().requires_grad_(True), mask, grid)
+    assert k6.deposit_launches == 0
+
+
+def test_run_pic_launches_once_a_step(device):
+    k6.deposit_launches = 0
+    st = run_pic(4099, 101, 3, dt=1e-9, device=device)
+    assert k6.deposit_launches == 3
+    assert all(bool(torch.isfinite(a).all()) for a in st)
+    assert float(st.n.max()) > 0

@@ -12,8 +12,10 @@ The other ``test_torch_*`` files import the helpers below.
 """
 
 import os
+import shutil
 import subprocess
 import sys
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -51,7 +53,8 @@ def efit_path(source, tmp_path_factory):
 def load_both(source, tmp_path_factory):
     """(JAX equilibrium, port equilibrium), both float64, one file."""
     path = efit_path(source, tmp_path_factory)
-    return jax_make_efit(path, dtype=jnp.float64), make_efit(path)
+    return (jax_make_efit(path, dtype=jnp.float64),
+            make_efit(path, device="cpu"))
 
 
 def launch_arrays(n=NUM_RAYS, seed=0):
@@ -69,14 +72,15 @@ def launch_arrays(n=NUM_RAYS, seed=0):
 def both_states(arrays):
     """(JAX RayState, port RayState) of the same float64 arrays."""
     jax_state = jax_make_ray_state(len(arrays["x"]), **arrays)
-    return jax_state, ray_state_from_numpy(jax_state)
+    return jax_state, ray_state_from_numpy(jax_state, device="cpu")
 
 
 def leaf_errors(port_state, jax_state):
     """Per-leaf deviation of the port from JAX, relative to the scale of
     the leaf's group (chip_smoke.leaf_errors)."""
     return chip_smoke.leaf_errors(port_state,
-                                  ray_state_from_numpy(jax_state))
+                                  ray_state_from_numpy(jax_state,
+                                                       device="cpu"))
 
 
 # -- the package boundary ----------------------------------------------------
@@ -95,6 +99,8 @@ out = Solver(cold_plasma, eq, method="rk2", dt=1e-4, sub_steps=2,
              frozen_cells=True, freeze_every=2, compensated=True,
              window_kernel=True).run(state, 1)
 assert bool(torch.isfinite(out.x).all())
+from graph_framework_tpu_torch.models.pic import run_pic
+assert bool(torch.isfinite(run_pic(64, 16, 1, device="cpu").x).all())
 print(sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "graph_framework_tpu"
@@ -128,6 +134,59 @@ def test_port_sources_import_no_jax(name):
     assert not bad, bad
 
 
+def _entry_points(tmp_path_factory):
+    """Each entry point of the port that makes tensors, called without a
+    device (so on the card), as a zero-argument callable."""
+    from graph_framework_tpu_torch import convert
+    from graph_framework_tpu_torch.models import efit, korc, pic
+    from graph_framework_tpu_torch.solver import make_ray_state
+    from graph_framework_tpu_torch.tools.make_splines import efit_tables
+
+    samples = chip_smoke.synthetic_samples(grid=9)
+    cpu_eq = chip_smoke.synthetic_equilibrium(torch.float64, "cpu", grid=9)
+    ray = types.SimpleNamespace(**{f: np.zeros(2) for f in (
+        "t", "w", "x", "y", "z", "kx", "ky", "kz")})
+    particle = types.SimpleNamespace(**{f: np.zeros(2) for f in (
+        "x", "y", "z", "ux", "uy", "uz", "gamma")})
+    state = types.SimpleNamespace(**{f: np.zeros(2) for f in (
+        "x", "vpara", "epara", "n")})
+    return {
+        "make_ray_state": lambda: make_ray_state(2, w=1.0),
+        "efit_from_tables": lambda: efit.efit_from_tables(
+            efit_tables(**samples)),
+        "make_efit": lambda: efit.make_efit(
+            efit_path("synthetic", tmp_path_factory)),
+        "efit_from_numpy": lambda: convert.efit_from_numpy(cpu_eq),
+        "ray_state_from_numpy": lambda: convert.ray_state_from_numpy(ray),
+        "particle_state_from_numpy":
+            lambda: convert.particle_state_from_numpy(particle),
+        "pic_state_from_numpy": lambda: convert.pic_state_from_numpy(state),
+        "run_korc": lambda: korc.run_korc(cpu_eq, 2, 1),
+        "make_deposit": lambda: pic.make_deposit(8, 0.25, -1.0,
+                                                 torch.float32),
+        "pic_start": lambda: pic.pic_start(8, 8),
+        "run_pic": lambda: pic.run_pic(8, 8, 1),
+    }
+
+
+ENTRY_POINTS = ["make_ray_state", "efit_from_tables", "make_efit",
+                "efit_from_numpy", "ray_state_from_numpy",
+                "particle_state_from_numpy", "pic_state_from_numpy",
+                "run_korc", "make_deposit", "pic_start", "run_pic"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_default_to_the_card(name, tmp_path_factory):
+    """Called without a device, an entry point puts its tensors on the
+    card: where torch has no CUDA it raises, as torch does for any CUDA
+    tensor, and never runs on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    call = _entry_points(tmp_path_factory)[name]
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        call()
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     """chip_smoke.py exits non-zero, and prints no result line, where
     torch has no CUDA device - it never falls back to the CPU."""
@@ -157,9 +216,10 @@ def test_chip_smoke_alone_fails(tmp_path):
 def test_ptxas_summary_names_each_variant():
     """chip_smoke reads each kernel variant's registers and spills from
     nvcc's -Xptxas -v output (the format of CUDA 12): K1's
-    efit_window_kernel<T, METHOD, COMPENSATED> and the backward kernels'
+    efit_window_kernel<T, METHOD, COMPENSATED>, the backward kernels'
     efit_window_bwd_kernel<T, METHOD, TAB> (K2 without the table
-    cotangents, K3 with them)."""
+    cotangents, K3 with them), K5's slab_push_kernel<T> and K6's two
+    passes."""
     log = "\n".join([
         "ptxas info    : 0 bytes gmem",
         "ptxas info    : Compiling entry function '_ZN3gft18efit_window_"
@@ -189,8 +249,27 @@ def test_ptxas_summary_names_each_variant():
         "kernelIdLi2ELb1EEEvNS_9StatePtrsIT_EES3_S3_PKS2_S5_NS_6ParamsIS2_"
         "EEixPS2_S8_PxS9_' for 'sm_90a'",
         "ptxas info    : Used 255 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN3gft12_GLOBAL__N_116"
+        "slab_push_kernelIfEEvNS0_9ParticlesIT_EENS0_10SlabParamsIS3_EEix' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN3gft12_GLOBAL__N_116"
+        "slab_push_kernelIfEEvNS0_9ParticlesIT_EENS0_10SlabParamsIS3_EEix",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 29 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN3gft12_GLOBAL__N_122"
+        "deposit_partial_kernelIdEEvPKT_S4_S4_PS2_xixS2_S2_' for 'sm_90a'",
+        "ptxas info    : Used 40 registers, used 1 barriers, 16384 bytes "
+        "smem",
+        "ptxas info    : Compiling entry function '_ZN3gft12_GLOBAL__N_121"
+        "deposit_reduce_kernelIfEEvPKT_PS2_S5_ii' for 'sm_90a'",
+        "ptxas info    : Used 32 registers, used 0 barriers",
     ])
     assert chip_smoke.ptxas_summary(log) == {
+        "K5 f32": "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                  "spill loads; Used 29 registers, used 0 barriers",
+        "K6 pass 1 f64": "Used 40 registers, used 1 barriers, 16384 bytes "
+                         "smem",
+        "K6 pass 2 f32": "Used 32 registers, used 0 barriers",
         "K2 f32/rk4": "6096 bytes stack frame, 7864 bytes spill stores, "
                       "10484 bytes spill loads; Used 168 registers, used 0 "
                       "barriers, 6096 bytes cumulative stack size",
@@ -202,10 +281,30 @@ def test_ptxas_summary_names_each_variant():
     }
 
 
+def test_op_counts_match_the_sources():
+    """The operation counts behind the kernels' bounds (chip_smoke's
+    WINDOW_OPS, kernels.boris.SLAB_PUSH_OPS,
+    kernels.deposit.DEPOSIT_OPS_PER_PAIR) are what tools/count_ops.py
+    counts over the CUDA sources as they stand."""
+    if shutil.which("g++") is None:
+        pytest.skip("count_ops needs g++")
+    from graph_framework_tpu_torch.kernels import boris, deposit
+    from graph_framework_tpu_torch.tools import count_ops
+
+    counted = count_ops.count()
+    assert counted["window"] == chip_smoke.FREEZE_EVERY
+    ops = counted["ops"]
+    for kernel, value in chip_smoke.WINDOW_OPS.items():
+        assert ops[kernel]["per_ray_window"] == value, kernel
+    assert ops["K5"]["per_particle_step"] == boris.SLAB_PUSH_OPS
+    assert ops["K6"]["per_pair"] == deposit.DEPOSIT_OPS_PER_PAIR
+
+
 def test_synthetic_equilibrium_matches_file(tmp_path_factory):
     """chip_smoke's in-memory equilibrium (no file, no h5py) holds the
     same tables as the file written from the same samples."""
-    from_file = make_efit(efit_path("synthetic", tmp_path_factory))
+    from_file = make_efit(efit_path("synthetic", tmp_path_factory),
+                          device="cpu")
     in_memory = chip_smoke.synthetic_equilibrium(torch.float64, "cpu")
     for name in ("psi_coeffs", "profile_coeffs", "ne_coeffs", "te_coeffs",
                  "pres_coeffs", "fpol_coeffs"):

@@ -106,7 +106,7 @@ def test_efit_from_numpy_matches_loader(eqs):
     """convert.efit_from_numpy of the JAX equilibrium is the port's own
     load of the file."""
     jeq, peq = eqs
-    conv = efit_from_numpy(jeq)
+    conv = efit_from_numpy(jeq, device="cpu")
     for name in TABLES:
         assert torch.equal(getattr(conv, name), getattr(peq, name)), name
     for name in SCALARS:
@@ -122,12 +122,14 @@ def test_loader_options(source, tmp_path_factory):
     path = efit_path(source, tmp_path_factory)
     for kw in (dict(replicate_reference_quirks=False),
                dict(cell_local=False)):
-        jeq, peq = jax_make_efit(path, **kw), make_efit(path, **kw)
+        jeq, peq = (jax_make_efit(path, **kw),
+                    make_efit(path, device="cpu", **kw))
         for name in TABLES:
             np.testing.assert_array_equal(
                 getattr(peq, name).numpy(), np.asarray(getattr(jeq, name)),
                 f"{name} {kw}")
-    f64, f32 = make_efit(path), make_efit(path, dtype=torch.float32)
+    f64 = make_efit(path, device="cpu")
+    f32 = make_efit(path, dtype=torch.float32, device="cpu")
     for name in TABLES:
         assert torch.equal(getattr(f32, name),
                            getattr(f64, name).to(torch.float32)), name

@@ -49,8 +49,8 @@ def test_init_k_roots(setup):
     got = proot.kx.numpy()
     assert np.max(np.abs(got - want) / np.abs(want)) < 1e-9
     # the other components are untouched
-    assert all(torch.equal(getattr(proot, f),
-                           ray_state_from_numpy(jroot)._asdict()[f])
+    jroot_port = ray_state_from_numpy(jroot, device="cpu")
+    assert all(torch.equal(getattr(proot, f), getattr(jroot_port, f))
                for f in ("t", "w", "x", "y", "z", "ky", "kz"))
 
 
@@ -62,7 +62,7 @@ def test_init_k_diagnostics_and_dtype_tolerance(setup):
     assert float(diag.residual) <= 1e-30
     # f32: the default tolerance is 1e-10, which f32 resolves
     st32 = make_ray_state(w=pstate.w, x=pstate.x, ky=pstate.ky,
-                          kx=pstate.kx, dtype=torch.float32)
+                          kx=pstate.kx, dtype=torch.float32, device="cpu")
     eq32 = dataclasses.replace(peq, **{
         f.name: getattr(peq, f.name).to(torch.float32)
         for f in dataclasses.fields(peq)
@@ -139,9 +139,10 @@ def test_solver_validation(setup):
 
 
 def test_make_ray_state_broadcasts():
-    st = make_ray_state(4, w=500.0, x=torch.arange(4.0), kx=-1.0)
+    st = make_ray_state(4, w=500.0, x=torch.arange(4.0), kx=-1.0,
+                        device="cpu")
     assert all(leaf.shape == (4,) and leaf.dtype == torch.float64
                for leaf in st)
     assert torch.equal(st.x, torch.arange(4.0, dtype=torch.float64))
-    st2 = make_ray_state(w=500.0, x=[0.0, 1.0, 2.0])
+    st2 = make_ray_state(w=500.0, x=[0.0, 1.0, 2.0], device="cpu")
     assert st2.w.shape == (3,)
