@@ -60,14 +60,35 @@ with the hand-written kernels K5 (the slab push, ``csrc/boris.cu``) and K6
    with the plain deposit;
 13. K5's and K6's milliseconds beside their plain versions' and bounds.
 
-It then prints the kernel table as one JSON line (all five kernels) and,
+Then the VMEC stellarator ray trace, with the hand-written kernels K4 (the
+fused geometry jet, ``csrc/vmec_geom.cu``) and K7 (the mode sums,
+``csrc/vmec_modes.cu``):
+
+14. K4 vs plain version at 4099 rays, f32 and f64, all 27 jet sums, s
+   over both clamps, past both table ends and on the cell edges; the VJP
+   of its autograd Function against autograd of the plain jet; each limit
+   10x below what a kernel that drops the last mode, reads lmns on the full
+   grid or swaps two Jacobian rows shows;
+15. K7 vs plain version at 4099 rays x 86 modes, f32 and f64, forward and
+   VJP, 10x below a kernel one mode short or a VJP with two cotangents
+   swapped;
+16. the VMEC main path at full width, bench.py's fused_rk2 leg: 100k rays
+   x 86 modes f32, rk2, 10 substeps, ``fused_mode_sums=True`` (K4), at
+   least 100 recorded steps; K4's launch count, validity, max D^2,
+   ray-steps/s and the device's busy share; then against the unfused plain
+   path, and the frozen-radial rk2 path (K = 10, plain torch);
+17. K4's and K7's milliseconds beside their plain versions' and bounds.
+
+It then prints the kernel table as one JSON line (all seven kernels) and,
 last, the device line ``{"ok": true, "device": {...}}``.
 
-The equilibrium is built in memory (no file, no ``h5py``): a smooth
+The equilibria are built in memory (no file, no ``h5py``): a smooth
 up-down symmetric tokamak flux map on a 129 x 129 grid with 129-knot
 profiles, chosen so that the cold-plasma wave propagates everywhere the
 rays go - see :func:`synthetic_samples` (phase 10 moves its axis:
-``KORC_AXIS``).  Weights-free: everything is made from ``SEED``.
+``KORC_AXIS``) - and a W7-X-like stellarator with the reference VMEC
+file's shapes (:func:`synthetic_vmec_samples`).  Weights-free: everything
+is made from ``SEED``.
 """
 
 from __future__ import annotations
@@ -85,7 +106,8 @@ import numpy as np
 import torch
 
 from graph_framework_tpu_torch.constants import Q
-from graph_framework_tpu_torch.kernels import boris, build, efit_step
+from graph_framework_tpu_torch.kernels import (
+    boris, build, efit_step, vmec_geom, vmec_modes)
 from graph_framework_tpu_torch.kernels import deposit as k6
 from graph_framework_tpu_torch.models.dispersion import cold_plasma
 from graph_framework_tpu_torch.models.efit import efit_from_tables
@@ -95,10 +117,12 @@ from graph_framework_tpu_torch.models.pic import (
     PicState, make_grid, make_push_step, pic_start, run_pic)
 from graph_framework_tpu_torch.models.rays import (
     RayDerivatives, RayState, dispersion_residual, residual_fn)
+from graph_framework_tpu_torch.models.vmec import vmec_from_tables
 from graph_framework_tpu_torch.ops.compensated import (
     CompCarry, comp_state_f64, init_comp_carry)
 from graph_framework_tpu_torch.solver import Solver, init_k, make_ray_state
-from graph_framework_tpu_torch.tools.make_splines import efit_tables
+from graph_framework_tpu_torch.tools.make_splines import (
+    efit_tables, vmec_tables)
 
 SEED = 0
 
@@ -133,6 +157,39 @@ R_RANGE, Z_RANGE = (1.0, 3.0), (-1.0, 1.0)
 # the axis: both packages stop on it after about 190 iterations at
 # (1.9114, 0.0060) m, |B| = 0.36625 T, within 5e-13 of each other.
 KORC_AXIS = dict(z_axis=0.03, psi_axis=-0.01 * PSI0)
+
+# -- the synthetic stellarator (VMEC) -----------------------------------------
+# A W7-X-like rotating-ellipse stellarator of five field periods in VMEC
+# flux coordinates (s, u, v), with the reference file's shapes: 86 modes
+# (xm 0..9, xn = 5 n, n in -4..4; 90 grid slots), 199 full-grid knots on s
+# in [-1, 1] (ds = 1/99) and a half grid shifted by ds / 2.  The surface of
+# label s has the mean radius rho(s) = A sqrt((s + HOLLOW) / (1 + HOLLOW)):
+# rho^2 is linear in s, as the toroidal flux phi = signj dphi s is, so the
+# Jacobian and the toroidal field are smooth and finite on the whole table
+# (s = -1 is the surface rho = A / 3, not a singular axis).  R00 5.5 m,
+# A 0.5 m, elongation KAPPA, a rotating ellipse (m, n) = (1, 1) and a
+# helical axis excursion (0, 1); every other mode carries
+# SHAPE DECAY^(m + |n|) (rho / A)^m, and lambda LAMBDA times the same.
+# The profiles are the analytic ones of the reference: ne = 1e19 (1 -
+# |s|^1.5)^2, te = 1 keV times the same.  For the launch frequency w = 900
+# /m (omega = 2.7e11 rad/s): the plasma frequency is at most 595 /m (s =
+# 0), the electron cyclotron frequency about 264 /m (B0 0.45 T), the upper
+# hybrid frequency at most 652 /m and the R cutoff at most 796 /m, so w
+# lies above every cutoff and resonance and both branches propagate.
+VMEC_KNOTS, VMEC_NFP = 199, 5.0
+VMEC_R00, VMEC_A, VMEC_HOLLOW, VMEC_KAPPA = 5.5, 0.5, 1.25, 1.1
+VMEC_ELLIPSE, VMEC_AXIS, VMEC_SHAPE, VMEC_DECAY = 0.25, 0.04, 0.02, 0.6
+VMEC_LAMBDA, VMEC_B0, VMEC_IOTA = 0.05, 0.45, (0.9, 0.1)
+# The VMEC launch (bench.py:151-152, config 4): w 900 /m at (s, u, v) =
+# (0.5, 0.5, 0), kx (the covariant s component) solved by init_k from 500
+# (it lands near 99: the O-mode root), ky = kz = 0; s and u spread
+# normally so that the rays differ.  bench.py's fused_rk2 leg: rk2, 10
+# substeps of dt 2.5e-6 a recorded step (endtime 0.025 over 1000 steps).
+# Over 1000 recorded steps the rays move some 0.15 in s: they stay inside
+# 0 < s < 1, where both branches propagate (above).
+VMEC_W0, VMEC_S0, VMEC_U0, VMEC_KX0 = 900.0, 0.5, 0.5, 500.0
+VMEC_S_SPREAD, VMEC_U_SPREAD = 0.01, 0.05
+VMEC_DT, VMEC_SUB_STEPS = 2.5e-6, 10
 
 # -- the launch (the reference benchmark's values, bench.py:171) -------------
 W0, X0, KX0, KY0 = 500.0, 2.5, -500.0, 150.0
@@ -212,6 +269,86 @@ def synthetic_samples(grid=GRID, z_axis=0.0, psi_axis=0.0):
     return dict(r=r, z=z, psi=psi, psi_profile=psi_profile, ne=ne, te=te,
                 pressure=2.0 * Q * ne * te,
                 fpol=np.full_like(psi_profile, R0 * B0))
+
+
+def synthetic_vmec_samples(knots=VMEC_KNOTS):
+    """Gridded samples of the synthetic stellarator, the keyword arguments
+    of ``tools.make_splines.vmec_tables`` / ``write_vmec_file``: ``knots``
+    full-grid knots on s in [-1, 1] (ds = 2 / (knots - 1)), the half grid
+    shifted by ds / 2, and the 86 modes of the reference's file."""
+    s_full = np.linspace(-1.0, 1.0, knots)
+    ds = s_full[1] - s_full[0]
+    s_half = s_full[:-1] + 0.5 * ds
+    xm, xn = vmec_mode_numbers()
+
+    def coefficients(s):
+        """(rmnc, zmns, lmns) of every mode at the radii ``s``."""
+        rho = VMEC_A * np.sqrt((s + VMEC_HOLLOW) / (1.0 + VMEC_HOLLOW))
+        x = rho / VMEC_A
+        rmnc = np.zeros((xm.size, s.size))
+        zmns = np.zeros((xm.size, s.size))
+        lmns = np.zeros((xm.size, s.size))
+        for k, (m, n) in enumerate(zip(xm, xn / VMEC_NFP)):
+            decay = VMEC_DECAY ** (m + abs(n)) * x ** m
+            sign = (-1.0) ** (m + n)
+            rmnc[k] = VMEC_SHAPE * sign * decay
+            zmns[k] = -VMEC_SHAPE * decay
+            lmns[k] = VMEC_LAMBDA * sign * decay
+            if (m, n) == (0, 0):
+                rmnc[k], zmns[k], lmns[k] = VMEC_R00, 0.0, 0.0
+            elif (m, n) == (1, 0):
+                rmnc[k], zmns[k] = rho, VMEC_KAPPA * rho
+            elif (m, n) == (1, 1):
+                rmnc[k], zmns[k] = VMEC_ELLIPSE * rho, -VMEC_ELLIPSE * rho
+            elif (m, n) == (0, 1):
+                rmnc[k], zmns[k] = VMEC_AXIS, -VMEC_AXIS
+        return rmnc, zmns, lmns
+
+    rmnc, zmns, _ = coefficients(s_full)
+    _, _, lmns = coefficients(s_half)
+    # toroidal flux phi = signj dphi s gives B_phi = VMEC_B0 (the Jacobian
+    # of the circular part is rho rho' R = R A^2 / (2 (1 + VMEC_HOLLOW)));
+    # chi' = iota phi' with the rotational transform iota(s) of VMEC_IOTA
+    dphi = VMEC_B0 * VMEC_A ** 2 / (2.0 * (1.0 + VMEC_HOLLOW))
+    iota0, iota1 = VMEC_IOTA
+    chi = -dphi * (iota0 * s_full + 0.5 * iota1 * s_full ** 2)
+    return dict(s_full=s_full, s_half=s_half, chi=chi, rmnc=rmnc,
+                zmns=zmns, lmns=lmns, xm=xm, xn=xn, signj=-1.0, dphi=dphi)
+
+
+def vmec_mode_numbers():
+    """The reference file's 86 modes (VMEC's order): m = 0 with
+    n = 0..4, then m = 1..9 with n = -4..4; xn = VMEC_NFP n."""
+    pairs = [(0, n) for n in range(5)] + [
+        (m, n) for m in range(1, 10) for n in range(-4, 5)]
+    m, n = np.array(pairs, dtype=np.float64).T
+    return m, VMEC_NFP * n
+
+
+def synthetic_vmec(dtype, device, knots=VMEC_KNOTS, **options):
+    """The synthetic stellarator on ``device``; ``options``: those of
+    ``models.vmec.vmec_from_tables`` (``fused_mode_sums``, ...)."""
+    return vmec_from_tables(vmec_tables(**synthetic_vmec_samples(knots)),
+                            dtype=dtype, device=device, **options)
+
+
+def vmec_launch_arrays(n, seed=SEED):
+    """The VMEC launch of n rays as float64 numpy arrays (the leaves of a
+    RayState, kx unsolved): s and u normal around the launch."""
+    rng = np.random.default_rng(seed)
+    full = np.ones(n)
+    return dict(t=0.0 * full, w=VMEC_W0 * full,
+                x=VMEC_S0 + VMEC_S_SPREAD * rng.standard_normal(n),
+                y=VMEC_U0 + VMEC_U_SPREAD * rng.standard_normal(n),
+                z=0.0 * full, kx=VMEC_KX0 * full, ky=0.0 * full,
+                kz=0.0 * full)
+
+
+def vmec_launch(n, dtype, device, seed=SEED):
+    """:func:`vmec_launch_arrays` as a RayState on ``device``."""
+    return make_ray_state(n, dtype=dtype, device=device, **{
+        k: torch.from_numpy(a) for k, a in vmec_launch_arrays(n,
+                                                                seed).items()})
 
 
 def synthetic_equilibrium(dtype, device, grid=GRID, **axis):
@@ -333,6 +470,21 @@ def profile_kernel(fn, kernel=("efit_window_kernel",)):
     return per_launch, counts[0], start.elapsed_time(stop)
 
 
+def device_work(fn):
+    """Run fn once under torch.profiler: (the device operations the CUDA
+    trace holds - kernels, copies, fills - and their summed device ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(events), sum(e.device_time_total for e in events) / 1000.0
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -354,20 +506,23 @@ def ptxas_summary(log):
     METHOD, COMPENSATED> (K1: f32/rk2/plain, ...), of
     efit_window_bwd_kernel<T, METHOD, TAB> (K2 f32/rk2 without the table
     cotangents, K3 f32/rk2 with them), of slab_push_kernel<T> (K5 f32,
-    K5 f64) or of deposit_partial_kernel<T> and deposit_reduce_kernel<T>
-    (K6 pass 1 f32, K6 pass 2 f32, ...)."""
+    K5 f64), of deposit_partial_kernel<T> and deposit_reduce_kernel<T>
+    (K6 pass 1 f32, K6 pass 2 f32, ...), or of vmec_geom_kernel<T> and
+    vmec_modes_kernel<T> (K4 f32, K7 f64, ...)."""
     out, variant = {}, None
     for line in log.splitlines():
         m = re.search(
             r"efit_window_(bwd_)?kernelI([fd])Li([24])ELb([01])", line)
         p = re.search(
-            r"(slab_push|deposit_partial|deposit_reduce)_kernelI([fd])E",
-            line)
+            r"(slab_push|deposit_partial|deposit_reduce|vmec_geom|"
+            r"vmec_modes)_kernelI([fd])E", line)
         if p and "Compiling entry function" in line:
             dtype = "f32" if p[2] == "f" else "f64"
             variant = {"slab_push": f"K5 {dtype}",
                        "deposit_partial": f"K6 pass 1 {dtype}",
-                       "deposit_reduce": f"K6 pass 2 {dtype}"}[p[1]]
+                       "deposit_reduce": f"K6 pass 2 {dtype}",
+                       "vmec_geom": f"K4 {dtype}",
+                       "vmec_modes": f"K7 {dtype}"}[p[1]]
             out[variant] = []
         elif m:
             dtype = "f32" if m[2] == "f" else "f64"
@@ -1284,6 +1439,342 @@ def particle_kernel_records(slab, pic):
     return records
 
 
+# -- the VMEC path: K4 (the fused geometry jet) and K7 (the mode sums) --------
+# K4 against its plain version at 4099 rays over s in [-1.1, 1.1] (both
+# clamps, extrapolation past either end, the cell edges of both grids): per
+# jet sum, max |kernel - plain| over max |plain|, the worst sum against the
+# limit; the VJP of FusedGeometry against autograd of the plain jet the same
+# way, per coordinate.  The two differ only in rounding (FMA contraction,
+# the order of the sums over 90 slots).  Each limit sits 25-30x above what
+# the card read (NVIDIA H100 80GB HBM3, 700.00 W): jet f32 7.7e-7, f64
+# 1.6e-15; VJP f32 3.7e-7, f64 6.2e-16.  On the plain version a kernel
+# that drops the last mode slot shows 1.4e-2, one that reads lmns on the
+# full grid 4.6e-2, a VJP with two rows of JVP_IDX swapped 1.3 (asserted
+# SEPARATION above the limit).
+K4_TOL = {torch.float32: 2.0e-5, torch.float64: 5.0e-14}
+# K7 against its plain version (4099 rays x 86 modes): per sum, likewise
+# (the warp's shuffle tree sums in another order); the card read f32
+# 1.5e-7, f64 2.4e-16 (VJP, the plain adjoint, 2.2e-7 / 3.6e-16); a kernel
+# one mode short shows 1.0e-3, a VJP that swaps two cotangents 2.2.
+K7_TOL = {torch.float32: 2.0e-5, torch.float64: 5.0e-14}
+# Phase 16: the fused trace against the unfused plain path over a few
+# recorded steps, per leaf relative to max(1, its scale):
+# test_pallas_vmec_geom.py's test_fused_trace_matches_default tolerance,
+# also held by the frozen-radial trace against the fused one.
+VMEC_TRACE_TOL = 1.0e-4
+# Wall seconds phase 16 spends on its main run (at least 100 recorded
+# steps, at most 1000: bench.py's endtime 0.025).
+VMEC_MAIN_SECONDS = 45.0
+
+
+def bound_sides(ops, nbytes, dtype=torch.float32):
+    """Both sides of :func:`bound`, as text."""
+    return (f"{ops} operations: {1e3 * ops / PEAK_OPS[dtype]:.4f} ms; "
+            f"{nbytes} bytes: {1e3 * nbytes / PEAK_BYTES:.4f} ms")
+
+
+def relative_rows(got, want):
+    """Per row of (k, n) tensors: max |got - want| / max |want|."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs().amax(1)
+            / want.abs().amax(1).clamp_min(1e-300)).tolist()
+
+
+def drop_last_slot(tables):
+    """K4's tables without their last mode slot (a wrong kernel)."""
+    g = tables.lm.shape[-1]
+    rz = torch.cat([tables.rz[..., :g - 1], tables.rz[..., g:2 * g - 1]],
+                   dim=-1)
+    return tables._replace(rz=rz.contiguous(),
+                           lm=tables.lm[..., :-1].contiguous(),
+                           xm=tables.xm[:-1].contiguous(),
+                           xn=tables.xn[:-1].contiguous())
+
+
+def k4_inputs(n, dtype, device, seed):
+    """The synthetic stellarator's K4 tables and n rays (s, u, v): s
+    uniform on [-1.1, 1.1] with the first rays on the knots of both grids
+    and past both ends of the tables, u and v uniform on [0, 2 pi]."""
+    eq = synthetic_vmec(dtype, device)
+    tables = vmec_geom.jet_tables(eq)
+    rng = np.random.default_rng(seed)
+    s = rng.uniform(-1.1, 1.1, n)
+    edges = np.concatenate([
+        eq.sminf + eq.ds * np.arange(0, VMEC_KNOTS, 7),
+        eq.sminh + eq.ds * np.arange(0, VMEC_KNOTS - 1, 11),
+        [-1.25, -1.0 - 1e-3, 1.0 + 1e-3, 1.25]])
+    s[:edges.size] = edges
+    u, v = rng.uniform(0.0, 2 * np.pi, (2, n))
+    return eq, tables, [torch.from_numpy(a).to(dtype=dtype, device=device)
+                        for a in (s, u, v)]
+
+
+def phase_k4_vs_plain(device, n=4099):
+    """Phase 14: K4 against its plain version, all 27 sums, f32 and f64,
+    with what wrong kernels show on the plain version; the VJP of
+    FusedGeometry against autograd of the plain jet, seeded cotangents."""
+    rows = {}
+    swapped = list(vmec_geom.JVP_IDX)
+    swapped[3], swapped[4] = swapped[4], swapped[3]
+    for dtype in (torch.float32, torch.float64):
+        eq, tables, coords = k4_inputs(n, dtype, device, SEED + 7)
+        want = vmec_geom.reference_jet(*coords, tables)
+        devs = relative_rows(vmec_geom.geometry_jet(*coords, tables), want)
+        worst = int(np.argmax(devs))
+        row = {"dev": devs[worst], "worst sum": vmec_geom.JET_NAMES[worst],
+               "limit": K4_TOL[dtype],
+               "last mode dropped": max(relative_rows(
+                   vmec_geom.reference_jet(*coords, drop_last_slot(tables)),
+                   want)),
+               "lmns on the full grid": max(relative_rows(
+                   vmec_geom.reference_jet(*coords, tables._replace(
+                       sminh=tables.sminf)), want))}
+        rng = np.random.default_rng(SEED + 8)
+        cts = [torch.from_numpy(rng.standard_normal(n)).to(coords[0])
+               for _ in range(10)]
+        leaves = [a.clone().requires_grad_(True) for a in coords]
+
+        def vjp(fn):
+            return torch.stack(torch.autograd.grad(fn(), leaves, cts))
+
+        want_vjp = vjp(lambda: vmec_geom.reference_jet(
+            *leaves, tables)[:10].unbind(0))
+        row["vjp"] = max(relative_rows(vjp(lambda: vmec_geom.FusedGeometry
+                                           .apply(*leaves, tables)),
+                                       want_vjp))
+        with mock.patch.object(vmec_geom, "JVP_IDX", swapped):
+            row["vjp, dru and drv rows swapped"] = max(relative_rows(
+                vjp(lambda: vmec_geom.FusedGeometry.apply(*leaves, tables)),
+                want_vjp))
+        lim = row["limit"]
+        row["fail"] = [k for k in ("dev", "vjp") if not row[k] <= lim] + [
+            k for k in ("last mode dropped", "lmns on the full grid",
+                        "vjp, dru and drv rows swapped")
+            if not row[k] >= SEPARATION * lim]
+        rows[str(dtype)[6:]] = row
+    print(f"[14 K4 vs plain, {n} rays, s in [-1.1, 1.1] with the clamps "
+          f"and the cell edges] worst relative deviation of the 27 jet sums "
+          f"and of the VJP against the limit, and what wrong kernels show: "
+          f"{json.dumps(rows)}")
+    failed = {key: row for key, row in rows.items() if row["fail"]}
+    if failed:
+        raise AssertionError(f"vmec_geom vs plain: {failed}")
+
+
+def k7_inputs(n, dtype, device, seed):
+    """n rays' K7 inputs from the synthetic stellarator: u, v uniform on
+    [0, 2 pi], the five per-mode radial blocks at s uniform on [0.05,
+    0.95] (``VmecEquilibrium.radial_modes``), and the 86 modes' numbers."""
+    eq = synthetic_vmec(dtype, device)
+    rng = np.random.default_rng(seed)
+    s, u, v = [torch.from_numpy(a).to(dtype=dtype, device=device) for a in (
+        rng.uniform(0.05, 0.95, n), *rng.uniform(0.0, 2 * np.pi, (2, n)))]
+    blocks = [b.contiguous() for b in eq.radial_modes(s)]
+    return u, v, blocks, eq.xm, eq.xn
+
+
+def phase_k7_vs_plain(device, n=4099):
+    """Phase 15: K7 against its plain version, f32 and f64, forward and
+    the first-order VJP of make_mode_sums (against autograd of the plain
+    forward), with what a kernel one mode short and a VJP that swaps the
+    dl/du and dl/dv cotangents show."""
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        u, v, blocks, xm, xn = k7_inputs(n, dtype, device, SEED + 9)
+        want = torch.stack(vmec_modes.reference_forward(u, v, *blocks, xm,
+                                                        xn))
+        row = {"dev": max(relative_rows(torch.stack(vmec_modes.mode_sums(
+                   u, v, *blocks, xm, xn)), want)),
+               "limit": K7_TOL[dtype],
+               "last mode dropped": max(relative_rows(torch.stack(
+                   vmec_modes.reference_forward(
+                       u, v, *[b[:, :-1] for b in blocks], xm[:-1],
+                       xn[:-1])), want))}
+        rng = np.random.default_rng(SEED + 10)
+        cts = [torch.from_numpy(rng.standard_normal(n)).to(u)
+               for _ in range(10)]
+        leaves = [a.clone().requires_grad_(True) for a in (u, v, *blocks)]
+        f = vmec_modes.make_mode_sums(xm, xn)
+
+        def vjp(fn, c):
+            return torch.cat([g.reshape(-1, n) for g in torch.autograd.grad(
+                fn(*leaves), leaves, c)])
+
+        want_vjp = vjp(lambda *a: vmec_modes.reference_forward(*a, xm, xn),
+                       cts)
+        row["vjp"] = max(relative_rows(vjp(f, cts), want_vjp))
+        row["vjp, dl/du and dl/dv cotangents swapped"] = max(relative_rows(
+            vjp(f, cts[:8] + [cts[9], cts[8]]), want_vjp))
+        lim = row["limit"]
+        row["fail"] = [k for k in ("dev", "vjp") if not row[k] <= lim] + [
+            k for k in ("last mode dropped",
+                        "vjp, dl/du and dl/dv cotangents swapped")
+            if not row[k] >= SEPARATION * lim]
+        rows[str(dtype)[6:]] = row
+    print(f"[15 K7 vs plain, {n} rays x {xm.shape[0]} modes] worst relative "
+          f"deviation of the ten sums and of the VJP against the limit, and "
+          f"what wrong kernels show: {json.dumps(rows)}")
+    failed = {key: row for key, row in rows.items() if row["fail"]}
+    if failed:
+        raise AssertionError(f"vmec_modes vs plain: {failed}")
+
+
+def vmec_solver(eq, **frozen):
+    return Solver(cold_plasma, eq, method="rk2", dt=VMEC_DT,
+                  sub_steps=VMEC_SUB_STEPS, **frozen)
+
+
+def in_flux_domain(state):
+    """Rays whose state is finite and whose s lies in (0, 1)."""
+    finite = torch.stack([torch.isfinite(l) for l in state]).all(dim=0)
+    return finite & (state.x > 0.0) & (state.x < 1.0)
+
+
+def trace_deviation(got, want):
+    """Worst leaf deviation relative to max(1, the leaf's scale)."""
+    return max(float((a.double() - b.double()).abs().max())
+               / max(1.0, float(b.double().abs().max()))
+               for a, b in zip(got, want))
+
+
+def phase_vmec_main(device, n=100_000, steps_check=3, steps_frozen=20):
+    """Phase 16: the VMEC ray trace at full width, bench.py's fused_rk2
+    leg: n rays f32 through init_k and Solver.run with fused_mode_sums
+    (K4), rk2, 10 substeps of dt 2.5e-6, as many recorded steps (100 to
+    1000) as fit in VMEC_MAIN_SECONDS; K4's launches against 2 x substeps
+    and init_k's evaluations; validity, max D^2 and ray-steps/s.  Then the
+    fused trace against the unfused plain path, and the frozen-radial rk2
+    path (K = 10, plain torch) against the fused one, over a few steps."""
+    eq = synthetic_vmec(torch.float32, device, fused_mode_sums=True)
+    vmec_geom.vmec_geom_launches = 0
+    (st, diag), init_s = timed(
+        lambda: init_k(vmec_launch(n, torch.float32, device), cold_plasma,
+                       eq, return_diagnostics=True),
+        pick=lambda out: out[0])
+    init_launches = vmec_geom.vmec_geom_launches
+    sol = vmec_solver(eq)
+    _, probe_s = timed(lambda: sol.run(st, 5))
+    steps = int(min(1000, max(100, VMEC_MAIN_SECONDS * 5 / probe_s)))
+    vmec_geom.vmec_geom_launches = 0
+    final, seconds = timed(lambda: sol.run(st, steps))
+    launches = vmec_geom.vmec_geom_launches
+    expected = 2 * steps * VMEC_SUB_STEPS
+    frac = float(in_flux_domain(final).double().mean())
+    res = float(residual_fn(cold_plasma, eq)(final).max())
+    rate = n * steps * VMEC_SUB_STEPS / seconds
+    print(f"[16a VMEC main f32 rk2 fused (K4)] {n} rays x {steps} x "
+          f"{VMEC_SUB_STEPS} (dt {VMEC_DT}): init_k {init_s:.3f} s "
+          f"({diag.iterations} Newton iterations, {init_launches} K4 "
+          f"launches, expected {diag.iterations + 2}); run {seconds:.3f} s = "
+          f"{rate:.6e} ray-steps/s; {launches} K4 launches (2 x "
+          f"{steps * VMEC_SUB_STEPS} substeps = {expected}); finite with 0 < "
+          f"s < 1: {frac}; s from {float(final.x.min()):.4f} to "
+          f"{float(final.x.max()):.4f}; max D^2 {res:.3e}")
+    if (launches != expected or init_launches != diag.iterations + 2
+            or frac != 1.0 or not np.isfinite(res)):
+        raise AssertionError(f"VMEC main path: launches {launches} / "
+                             f"{init_launches}, in domain {frac}, D^2 {res}")
+    ops, dev_ms = device_work(lambda: sol.run(st, 2))
+    step_ms = 1e3 * seconds / steps
+    print(f"[16b VMEC where the time goes] 2 recorded steps under the "
+          f"profiler: {ops} device operations ({ops / (2 * VMEC_SUB_STEPS):.1f} "
+          f"a substep), {dev_ms / 2:.3f} ms of device time a recorded step "
+          f"against {step_ms:.3f} ms of wall a step in the run above: busy "
+          f"share {dev_ms / 2 / step_ms:.4f}")
+
+    unfused = dataclasses.replace(eq, fused_mode_sums=False)
+    fused_short = sol.run(st, steps_check)
+    (plain_short, plain_s) = timed(
+        lambda: vmec_solver(unfused).run(st, steps_check))
+    dev_plain = trace_deviation(fused_short, plain_short)
+    fused_frozen_ref = sol.run(st, steps_frozen)
+    vmec_geom.vmec_geom_launches = 0
+    frozen, frozen_s = timed(lambda: vmec_solver(
+        eq, frozen_cells=True, freeze_every=VMEC_SUB_STEPS).run(
+            st, steps_frozen))
+    frozen_launches = vmec_geom.vmec_geom_launches
+    dev_frozen = trace_deviation(frozen, fused_frozen_ref)
+    print(f"[16c VMEC checks] fused vs unfused plain path over "
+          f"{steps_check} recorded steps: {dev_plain:.3e} (limit "
+          f"{VMEC_TRACE_TOL}; unfused {n * steps_check * VMEC_SUB_STEPS / plain_s:.6e} "
+          f"ray-steps/s); frozen-radial rk2 K={VMEC_SUB_STEPS} (plain torch, "
+          f"{frozen_launches} K4 launches) over {steps_frozen} steps: "
+          f"{n * steps_frozen * VMEC_SUB_STEPS / frozen_s:.6e} ray-steps/s, "
+          f"against the fused trace {dev_frozen:.3e} (limit "
+          f"{VMEC_TRACE_TOL}); finite with 0 < s < 1: "
+          f"{float(in_flux_domain(frozen).double().mean())}")
+    if not (dev_plain <= VMEC_TRACE_TOL and dev_frozen <= VMEC_TRACE_TOL
+            and frozen_launches == 0
+            and bool(in_flux_domain(frozen).all())):
+        raise AssertionError(f"VMEC checks: unfused {dev_plain}, frozen "
+                             f"{dev_frozen}, {frozen_launches} launches")
+    return dict(eq=eq, state=final, launches=launches)
+
+
+def vmec_kernel_records(main):
+    """Phase 17: the K4 and K7 lines at the main path's shapes (100k rays
+    f32, the final state of phase 16; K7 over the same rays' 86-mode
+    blocks): milliseconds per wrapper call by CUDA events and on the device
+    by the profiler, the plain version's, the error and the bound."""
+    eq, st = main["eq"], main["state"]
+    n = st.x.shape[0]
+    tables = vmec_geom.jet_tables(eq)
+    coords = [a.contiguous() for a in (st.x, st.y, st.z)]
+    err = float((vmec_geom.geometry_jet(*coords, tables).double()
+                 - vmec_geom.reference_jet(*coords, tables).double())
+                .abs().max())
+    ms = event_ms(lambda: vmec_geom.geometry_jet(*coords, tables), 50)
+    plain_ms = event_ms(lambda: vmec_geom.reference_jet(*coords, tables), 5)
+    dev_ms, _, _ = profile_kernel(
+        lambda: [vmec_geom.geometry_jet(*coords, tables) for _ in range(20)],
+        kernel=("vmec_geom_kernel",))
+    g = tables.lm.shape[-1]
+    ops = n * (vmec_geom.JET_OPS["per_ray_fixed"]
+               + vmec_geom.JET_OPS["per_mode"] * g)
+    nbytes = 4 * (n * (3 + len(vmec_geom.JET_NAMES)) + tables.rz.numel()
+                  + tables.lm.numel() + 2 * g)
+    b_ms, b_by = bound(ops, nbytes, torch.float32)
+    print(f"[17 vmec_geom time] {n} rays x {g} mode slots f32: {ms:.4f} ms "
+          f"per call (CUDA events, wrapper included); kernel on the device "
+          f"{dev_ms} ms (profiler); plain version {plain_ms:.4f} ms; bound "
+          f"{b_ms:.4f} ms, by {b_by} ({bound_sides(ops, nbytes)}); max "
+          f"abs error {err:.3e}")
+    records = [{"name": "vmec_geom", "route": "cuda",
+                "source": "graph_framework_tpu_torch/csrc/vmec_geom.cu",
+                "replaces": "graph_framework_tpu/pallas/vmec_geom.py:163",
+                "launches": main["launches"], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}]
+
+    blocks = [b.contiguous() for b in eq.radial_modes(coords[0])]
+    args = (coords[1], coords[2], *blocks, eq.xm, eq.xn)
+    m = eq.xm.shape[0]
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(
+        vmec_modes.mode_sums(*args), vmec_modes.reference_forward(*args)))
+    ms = event_ms(lambda: vmec_modes.mode_sums(*args), 50)
+    plain_ms = event_ms(lambda: vmec_modes.reference_forward(*args), 5)
+    dev_ms, _, _ = profile_kernel(
+        lambda: [vmec_modes.mode_sums(*args) for _ in range(20)],
+        kernel=("vmec_modes_kernel",))
+    ops = n * (vmec_modes.MODE_SUM_OPS["per_ray_fixed"]
+               + vmec_modes.MODE_SUM_OPS["per_mode"] * m)
+    nbytes = 4 * (n * (2 + 5 * m + len(vmec_modes.SUM_NAMES)) + 2 * m)
+    b_ms, b_by = bound(ops, nbytes, torch.float32)
+    print(f"[17 vmec_modes time] {n} rays x {m} modes f32: {ms:.4f} ms per "
+          f"call (CUDA events, wrapper included); kernel on the device "
+          f"{dev_ms} ms (profiler); plain version {plain_ms:.4f} ms; bound "
+          f"{b_ms:.4f} ms, by {b_by} ({bound_sides(ops, nbytes)}); max "
+          f"abs error {err:.3e}; launches on the main path 0 (no path calls "
+          f"K7)")
+    records.append({"name": "vmec_modes", "route": "cuda",
+                    "source": "graph_framework_tpu_torch/csrc/vmec_modes.cu",
+                    "replaces": "graph_framework_tpu/pallas/vmec_modes.py:35",
+                    "launches": 0, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None})
+    return records
+
+
 def main():
     name, _ = phase_device()
     device = torch.device("cuda", 0)
@@ -1306,6 +1797,9 @@ def main():
     phase_deposit_vs_plain(device)
     pic = phase_pic(device)
     records += particle_kernel_records(slab, pic)
+    phase_k4_vs_plain(device)
+    phase_k7_vs_plain(device)
+    records += vmec_kernel_records(phase_vmec_main(device))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,8 +2,8 @@
 
 The port imports no ``jax``, so these take the JAX objects duck-typed:
 anything with the right attributes whose arrays ``numpy.asarray`` accepts
-(a ``graph_framework_tpu`` EfitEquilibrium, RayState, ParticleState or
-PicState, or their numpy copies).  The tests use them to feed both
+(a ``graph_framework_tpu`` EfitEquilibrium, VmecEquilibrium, RayState,
+ParticleState or PicState, or their numpy copies).  The tests use them to feed both
 packages the same inputs.  The tensors land on the card unless the caller
 names another ``device``.
 """
@@ -17,6 +17,7 @@ from graph_framework_tpu_torch.models.efit import EfitEquilibrium
 from graph_framework_tpu_torch.models.korc import ParticleState
 from graph_framework_tpu_torch.models.pic import PicState
 from graph_framework_tpu_torch.models.rays import RayState
+from graph_framework_tpu_torch.models.vmec import VmecEquilibrium
 
 _EFIT_TABLES = ("psi_coeffs", "ne_coeffs", "te_coeffs", "pres_coeffs",
                 "fpol_coeffs", "profile_coeffs")
@@ -36,6 +37,28 @@ def efit_from_numpy(eq, *, dtype=torch.float64, device="cuda"):
         **{k: _tensor(getattr(eq, k), dtype, device) for k in _EFIT_TABLES},
         **{k: float(getattr(eq, k)) for k in _EFIT_SCALARS},
         cell_local=bool(eq.cell_local))
+
+
+_VMEC_TABLES = ("chi_coeffs", "rmnc_coeffs", "zmns_coeffs", "lmns_coeffs",
+                "xm", "xn")
+_VMEC_GRID = ("xm_unique", "xn_unique", "xm_grid", "xn_grid")
+_VMEC_SCALARS = ("signj", "dphi", "sminf", "sminh", "ds")
+_VMEC_FLAGS = ("cell_local", "fused_mode_sums", "quirky_chi")
+
+
+def vmec_from_numpy(eq, *, dtype=torch.float64, device="cuda"):
+    """The port's :class:`VmecEquilibrium` holding the same tables, mode
+    and mode-grid metadata, scalars and flags as ``eq`` (the JAX package's
+    VmecEquilibrium)."""
+    grid = {}
+    if eq.grid_scatter is not None:
+        grid = {k: _tensor(getattr(eq, k), dtype, device) for k in _VMEC_GRID}
+        grid["grid_scatter"] = torch.as_tensor(
+            np.array(eq.grid_scatter, dtype=np.int64), device=device)
+    return VmecEquilibrium(
+        **{k: _tensor(getattr(eq, k), dtype, device) for k in _VMEC_TABLES},
+        **{k: float(getattr(eq, k)) for k in _VMEC_SCALARS},
+        **{k: bool(getattr(eq, k)) for k in _VMEC_FLAGS}, **grid)
 
 
 def _fields(cls, state, dtype, device):

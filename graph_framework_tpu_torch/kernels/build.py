@@ -39,7 +39,8 @@ _VOID_P, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PTRS = ctypes.POINTER(_VOID_P)
 
 #: argtypes/restype of every exported function (csrc/efit_window.cu,
-#: csrc/efit_window_bwd.cu, csrc/boris.cu, csrc/deposit.cu).
+#: csrc/efit_window_bwd.cu, csrc/boris.cu, csrc/deposit.cu,
+#: csrc/vmec_geom.cu, csrc/vmec_modes.cu).
 SIGNATURES = {
     "gft_efit_window": (
         [_INT, _INT, _INT, _INT, _LL,                 # dtype method comp K n
@@ -65,6 +66,19 @@ SIGNATURES = {
          _VOID_P, _VOID_P, _VOID_P,                   # x mask grid
          _VOID_P, _VOID_P, _VOID_P,                   # partial n e
          ctypes.POINTER(ctypes.c_double), _VOID_P],   # params stream
+        _INT),
+    "gft_vmec_geom": (
+        [_INT, _LL,                                   # dtype n
+         _VOID_P, _VOID_P, _VOID_P,                   # s u v
+         _VOID_P, _VOID_P, _VOID_P, _VOID_P,          # rz lm xm xn
+         _INT, _INT, _INT,                            # ns_f ns_h g
+         ctypes.POINTER(ctypes.c_double),             # params
+         _VOID_P, _VOID_P],                           # out stream
+        _INT),
+    "gft_vmec_modes": (
+        [_INT, _LL, _INT,                             # dtype n m
+         _VOID_P, _VOID_P, _PTRS,                     # u v blocks
+         _VOID_P, _VOID_P, _VOID_P, _VOID_P],         # xm xn out stream
         _INT),
     "gft_error_string": ([_INT], ctypes.c_char_p),
 }

@@ -7,7 +7,8 @@ component axis LEADING (as in the JAX package), fields come back the same
 way.  The analytic equilibria (``NoMagneticField``, ``Slab``,
 ``SlabDensity``, ``SlabField``, ``GaussianDensity``; equilibrium.hpp:
 482-1104) live here; EFIT (:mod:`graph_framework_tpu_torch.models.efit`)
-implements the same protocol.
+and VMEC (:mod:`graph_framework_tpu_torch.models.vmec`, flux coordinates
+with a non-identity basis) implement the same protocol.
 
 Units are the reference's: densities in 1/m^3, temperatures in eV,
 magnetic fields in T, positions in m.
@@ -85,14 +86,21 @@ class Equilibrium:
         equilibrium.hpp get_characteristic_field)."""
         raise NotImplementedError
 
+    def esup(self, pos):
+        """Contravariant basis vectors as the rows of a (3, 3) matrix
+        (e^1; e^2; e^3).  Cartesian default: the identity
+        (equilibrium.hpp:383-440)."""
+        return torch.eye(3, dtype=pos.dtype, device=pos.device)
+
     def kvec(self, kcov, pos):
         """Physical wave vector from covariant components:
-        k = kx e^1 + ky e^2 + kz e^3 (dispersion.hpp:1387-1389).  The
-        cartesian basis is the identity."""
+        k = kx e^1 + ky e^2 + kz e^3 (dispersion.hpp:1387-1389).  Batched:
+        ``kcov``/``pos`` are (3,) or (3, num_rays), and the rows of
+        ``esup(pos)`` broadcast against the covariant components."""
         if self.is_cartesian():
-            return kcov
-        raise NotImplementedError(
-            "non-cartesian bases are not ported yet")
+            return kcov        # identity basis: skip the contraction
+        esup = self.esup(pos)  # (3 basis, 3 components[, rays])
+        return kcov[0] * esup[0] + kcov[1] * esup[1] + kcov[2] * esup[2]
 
     def is_cartesian(self) -> bool:
         """True when the contravariant basis is the identity everywhere."""

@@ -5,15 +5,20 @@ dispersion.hpp:1319-1448):
 
     dx/dt = -D_k / D_w,        dk/dt = D_x / D_w
 
-For a cartesian (batched) equilibrium the seven per-ray derivatives
-(D_w, D_x, D_y, D_z, D_kx, D_ky, D_kz) come from ONE reverse pass of
+For a batched equilibrium the seven per-ray derivatives (D_w, D_x, D_y,
+D_z, D_kx, D_ky, D_kz) come from ONE reverse pass of
 ``torch.autograd.grad`` over sum(D): the rays are independent, so the
 gradient of the sum is the per-ray gradient.  The CUDA window kernel
 gets the same seven numbers by forward mode on dual numbers instead
 (csrc/efit_window.cu).
 
-Only the batched path is ported; the per-ray path for non-cartesian
-coordinates and ``reference_correction`` wait for the VMEC port.
+In flux coordinates (VMEC) the position is (s, u, v) and the wave vector
+covariant: D is evaluated at kvec = sum_i k_i e^i of the point-bound view,
+and the x-derivatives are total ones, through the basis too - the
+canonical form of the JAX package, which keeps rays on D = 0.  VMEC is
+batched, so the same RHS serves it.  Not ported: the per-ray (vmapped)
+path, which only the reference's literal ``reference_correction`` form
+needs in the JAX package.
 """
 
 from __future__ import annotations

@@ -12,7 +12,10 @@ Reverse mode runs through every plain path by autograd - the gradients of
 trace endpoints with respect to the launch state (through ``init_k``'s
 implicit root gradient) and to the spline tables - and through the window
 kernel by its backward kernels; ``remat_substeps`` checkpoints the plain
-path.  The compensated window kernel is forward-only.
+path.  The compensated window kernel is forward-only.  The equilibrium
+may be EFIT or VMEC (flux coordinates; frozen cells through its
+``freeze_cells``, the fused geometry kernel K4 through its
+``fused_mode_sums``); the window kernel is EFIT's.
 Not ported yet: ``split_symplectic``, ``adaptive_rk4``, ``remat_policy``,
 ``block_rays`` and ``pad_rays`` (the kernel masks a ragged last block, so
 the ray count needs no padding).
@@ -136,7 +139,10 @@ class Solver:
             if not self.frozen_cells:
                 raise ValueError("window_kernel needs frozen_cells=True")
             if not isinstance(self.eq, EfitEquilibrium):
-                raise ValueError("window_kernel needs an EfitEquilibrium")
+                raise ValueError(
+                    "window_kernel needs an EfitEquilibrium: the window "
+                    "kernel is EFIT's, as pallas_window is in the JAX "
+                    "package (VMEC steps its frozen windows in plain torch)")
             if self.dispersion is not cold_plasma:
                 raise ValueError(
                     "window_kernel implements cold_plasma only")

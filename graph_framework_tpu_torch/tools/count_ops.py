@@ -7,8 +7,8 @@ a stand-in ``cuda_runtime.h`` maps the CUDA keywords to C++, and each
 ``kernel<<<grid, block, 0, stream>>>(...)`` launch becomes a plain call)
 and instantiated over ``Counted``, a scalar type whose every addition,
 subtraction, multiplication, division, square root, exp, min and max adds
-one to a global count (negation adds none: the card folds it into the next
-instruction).  Running one thread of a kernel over one work item then
+one to a global count, and a sincos two (negation adds none: the card
+folds it into the next instruction).  Running one thread of a kernel over one work item then
 counts exactly the operations the source asks for on that item - the
 forward-mode dual numbers of the window kernels included - before the
 compiler contracts any pair into an FMA.
@@ -17,9 +17,12 @@ Prints one JSON object: operations per ray and window of K substeps for
 the window kernels K1 (rk2/rk4, plain/compensated), K2 and K3 (rk2/rk4),
 at K = 10 (the main path's freeze window) and per substep; per particle
 and step for the slab push K5; per (particle, grid point) pair for the
-deposit K6.  ``chip_smoke.py`` takes the window kernels' counts for their
-``bound_ms``; ``kernels.boris.SLAB_PUSH_OPS`` and
-``kernels.deposit.DEPOSIT_OPS_PER_PAIR`` must equal the counts here
+deposit K6; per ray, as a fixed part and a part per mode slot, for the
+VMEC geometry jet K4 and the mode sums K7 (a sincos counts two).
+``chip_smoke.py`` takes the window kernels' counts for their
+``bound_ms``; ``kernels.boris.SLAB_PUSH_OPS``,
+``kernels.deposit.DEPOSIT_OPS_PER_PAIR``, ``kernels.vmec_geom.JET_OPS``
+and ``kernels.vmec_modes.MODE_SUM_OPS`` must equal the counts here
 (tests/test_torch_common.py checks all of them where g++ is present).
 """
 
@@ -68,7 +71,12 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline double __dadd_rn(double a, double b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline void sincosf(float a, float* s, float* c) { *s = std::sin(a); *c = std::cos(a); }
 template <class T> T __ldg(const T* p) { return *p; }
+// a lane's own value: the count needs the additions, not the sums
+template <class T> T __shfl_down_sync(unsigned, T v, int) { return v; }
 template <class F> void host_launch(dim3, dim3, F f) { f(); }
 
 // the counting scalar
@@ -79,6 +87,7 @@ struct Counted {
   Counted(double a) : v(a) {}
   explicit operator int() const { return static_cast<int>(v); }
   Counted& operator+=(Counted b) { ++g_ops; v += b.v; return *this; }
+  Counted& operator-=(Counted b) { ++g_ops; v -= b.v; return *this; }
   friend Counted operator+(Counted a, Counted b) { ++g_ops; return a.v + b.v; }
   friend Counted operator-(Counted a, Counted b) { ++g_ops; return a.v - b.v; }
   friend Counted operator*(Counted a, Counted b) { ++g_ops; return a.v * b.v; }
@@ -92,6 +101,11 @@ struct Counted {
   friend Counted gmin(Counted a, Counted b) { ++g_ops; return std::fmin(a.v, b.v); }
   friend Counted mul_rn(Counted a, Counted b) { ++g_ops; return a.v * b.v; }
   friend Counted add_rn(Counted a, Counted b) { ++g_ops; return a.v + b.v; }
+  friend Counted sub_rn(Counted a, Counted b) { ++g_ops; return a.v - b.v; }
+  // one sine and one cosine
+  friend void gsincos(Counted a, Counted* s, Counted* c) {
+    g_ops += 2; *s = std::sin(a.v); *c = std::cos(a.v);
+  }
 };
 """
 
@@ -158,6 +172,45 @@ extern "C" long long count_slab(int steps) {
 }
 """
 
+_VMEC_GEOM_HARNESS = r"""
+extern "C" long long count_vmec_geom(int g) {
+  using namespace gft;
+  static Counted s[1] = {0.5}, u[1] = {0.3}, v[1] = {0.2}, out[27];
+  static Counted rz[2 * 8 * 128], lm[2 * 4 * 128], xm[128], xn[128];
+  for (int k = 0; k < 2 * 8 * 128; ++k) rz[k] = 0.01 * (k % 7);
+  for (int k = 0; k < 2 * 4 * 128; ++k) lm[k] = 0.01 * (k % 5);
+  for (int k = 0; k < g; ++k) { xm[k] = k % 10; xn[k] = 5.0 * (k % 9) - 20.0; }
+  g_ops = 0;
+  vmec_geom_kernel<Counted>(s, u, v, rz, lm, xm, xn, out, 1, 2, 2, g,
+                            -1.0, -0.99, 0.01);
+  return g_ops;
+}
+"""
+
+_VMEC_MODES_HARNESS = r"""
+extern "C" long long count_vmec_modes(int m) {
+  using namespace gft;
+  static Counted u[1] = {0.3}, v[1] = {0.2}, rows[5][128], xm[128], xn[128],
+      out[10];
+  ModeBlocks<Counted> b;
+  for (int k = 0; k < 5; ++k) {
+    for (int j = 0; j < m; ++j) rows[k][j] = 0.01 * (j + k);
+    b.p[k] = rows[k];
+  }
+  for (int j = 0; j < m; ++j) { xm[j] = j % 10; xn[j] = 5.0 * (j % 9) - 20.0; }
+  g_ops = 0;
+  // the 32 lanes of the ray's warp, one after another
+  blockDim.x = 32;
+  for (unsigned lane = 0; lane < 32; ++lane) {
+    threadIdx.x = lane;
+    vmec_modes_kernel<Counted>(u, v, b, xm, xn, out, 1, m);
+  }
+  threadIdx.x = 0;
+  blockDim.x = 1;
+  return g_ops;
+}
+"""
+
 _DEPOSIT_HARNESS = r"""
 extern "C" long long count_deposit(int particles) {
   using namespace gft;
@@ -194,7 +247,7 @@ def _host_source(src: str) -> str:
 
 
 def _build(tmp: pathlib.Path) -> pathlib.Path:
-    """Compile the three host programs into one shared library."""
+    """Compile the host programs into one shared library."""
     (tmp / "cuda_runtime.h").write_text(_RUNTIME)
     for src in list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")):
         (tmp / src.name).write_text(_host_source(src.read_text()))
@@ -209,6 +262,13 @@ def _build(tmp: pathlib.Path) -> pathlib.Path:
         "deposit.cpp": ('#include "cuda_runtime.h"\n'
                         'namespace gft { using ::Counted; using ::g_ops; }\n'
                         '#include "deposit.cu"\n' + _DEPOSIT_HARNESS),
+        "vmec_geom.cpp": ('#include "cuda_runtime.h"\n'
+                          'namespace gft { using ::Counted; using ::g_ops; }\n'
+                          '#include "vmec_geom.cu"\n' + _VMEC_GEOM_HARNESS),
+        "vmec_modes.cpp": ('#include "cuda_runtime.h"\n'
+                           'namespace gft { using ::Counted; using ::g_ops; }'
+                           '\n#include "vmec_modes.cu"\n'
+                           + _VMEC_MODES_HARNESS),
     }
     for name, text in units.items():
         (tmp / name).write_text(text)
@@ -229,7 +289,8 @@ def count() -> dict:
         raise RuntimeError("count_ops needs g++")
     with tempfile.TemporaryDirectory() as tmpdir:
         lib = ctypes.CDLL(str(_build(pathlib.Path(tmpdir))))
-        for name in ("count_window", "count_slab", "count_deposit"):
+        for name in ("count_window", "count_slab", "count_deposit",
+                     "count_vmec_geom", "count_vmec_modes"):
             getattr(lib, name).restype = ctypes.c_longlong
         out = {}
         for fwd, flag_name in ((1, ("plain", "comp")), (0, ("K2", "K3"))):
@@ -246,6 +307,10 @@ def count() -> dict:
                      lib.count_slab(2) - lib.count_slab(1)}
         out["K6"] = {"per_pair": (lib.count_deposit(2048)
                                   - lib.count_deposit(1024)) // 1024}
+        for key, fn in (("K4", lib.count_vmec_geom),
+                        ("K7", lib.count_vmec_modes)):
+            one, two = fn(1), fn(2)
+            out[key] = {"per_mode": two - one, "per_ray_fixed": 2 * one - two}
     return {"window": WINDOW, "ops": out}
 
 

@@ -1,17 +1,19 @@
-"""Build EFIT spline-coefficient tables from raw grid samples (numpy).
+"""Build EFIT and VMEC spline-coefficient tables from raw grid samples.
 
 Counterpart of ``graph_framework_tpu.tools.make_splines`` (the pure-numpy
 replacement of the reference's Mathematica notebooks,
-utilities/BiCubicSplines.nb): natural cubic splines of the 1D profiles and
-a tensor-product bicubic of psi(R, Z), stored as per-cell polynomial
+utilities/BiCubicSplines.nb and VMECSplines.nb): natural cubic splines of
+the 1D profiles and per-mode radial Fourier coefficients, and a
+tensor-product bicubic of psi(R, Z), stored as per-cell polynomial
 coefficients **in the global normalized coordinate** u = (x - offset)/scale
 (the format ``build_1D_spline`` evaluates, equilibrium.hpp:1120-1131).
 
-:func:`efit_tables` returns the tables as the dict that
-:func:`graph_framework_tpu_torch.models.efit.efit_from_tables` takes, so a
+:func:`efit_tables` and :func:`vmec_tables` return the tables as the dicts
+that :func:`graph_framework_tpu_torch.models.efit.efit_from_tables` and
+:func:`graph_framework_tpu_torch.models.vmec.vmec_from_tables` take, so a
 caller can build an equilibrium in memory without a file (and without
-``h5py``); :func:`write_efit_file` writes the same dict in the reference's
-file format.
+``h5py``); :func:`write_efit_file` and :func:`write_vmec_file` write the
+same dicts in the reference's file format.
 
 All coefficient algebra runs in ``np.longdouble``: the local->global
 monomial rebase is ill-conditioned at large cell indices.
@@ -163,6 +165,62 @@ def efit_tables(*, r, z, psi, psi_profile, ne, te, pressure, fpol):
             tables[scale_key] = scale
         tables[name] = cubic_spline_coeffs(samples / scale)
     return tables
+
+
+def vmec_tables(*, s_full, s_half, chi, rmnc, zmns, lmns, xm, xn, signj,
+                dphi):
+    """VMEC spline tables of raw uniform-grid samples, in file format.
+
+    ``s_full``/``s_half``: uniform radial grids (full and half mesh, one
+    step ds); ``chi``: poloidal-flux samples on the full grid;
+    ``rmnc``/``zmns``: (num_modes, ns_full) Fourier-coefficient samples on
+    the full grid; ``lmns``: (num_modes, ns_half) on the half grid;
+    ``xm``/``xn``: mode numbers; ``signj``: Jacobian sign; ``dphi``:
+    toroidal-flux derivative.  Each mode gets a natural cubic spline in s.
+
+    Returns a dict: ``chi`` (4, ns_full-1), ``rmnc``/``zmns``
+    (4, num_modes, ns_full-1) and ``lmns`` (4, num_modes, ns_half-1)
+    global-coordinate tables, ``xm``/``xn``, and the float scalars signj,
+    dphi, sminf, sminh, ds.
+    """
+    s_full = np.asarray(s_full, dtype=np.float64)
+    s_half = np.asarray(s_half, dtype=np.float64)
+    ds = _uniform_step(s_full, "s_full")
+    if not np.isclose(ds, _uniform_step(s_half, "s_half"), rtol=1e-10):
+        raise ValueError("full and half mesh must share the step ds")
+
+    def mode_tables(samples):
+        # (num_modes, ns) -> (4, num_modes, ns-1): one spline in s per mode
+        c = cubic_spline_coeffs(np.asarray(samples, dtype=np.float64).T)
+        return np.moveaxis(c, 2, 1)
+
+    return dict(
+        signj=float(signj), dphi=float(dphi), sminf=float(s_full[0]),
+        sminh=float(s_half[0]), ds=ds,
+        xm=np.asarray(xm, dtype=np.float64),
+        xn=np.asarray(xn, dtype=np.float64),
+        chi=cubic_spline_coeffs(np.asarray(chi, dtype=np.float64)),
+        rmnc=mode_tables(rmnc), zmns=mode_tables(zmns),
+        lmns=mode_tables(lmns))
+
+
+def write_vmec_file(path, **samples):
+    """Write :func:`vmec_tables` of ``samples`` as a VMEC spline file in
+    the reference's format (make_vmec loader keys,
+    equilibrium.hpp:2424-2651), which both packages' ``make_vmec`` read.
+    Needs ``h5py``."""
+    import h5py
+
+    tables = vmec_tables(**samples)
+    with h5py.File(path, "w") as h:
+        for key in ("signj", "dphi", "sminf", "sminh", "ds"):
+            h.create_dataset(key, data=np.float64(tables[key]))
+        h.create_dataset("xm", data=tables["xm"])
+        h.create_dataset("xn", data=tables["xn"])
+        for name in ("chi", "rmnc", "zmns", "lmns"):
+            for k in range(4):
+                h.create_dataset(f"{name}_c{k}", data=tables[name][k])
+    return path
 
 
 def write_efit_file(path, **samples):

@@ -16,7 +16,9 @@ by ``chip_smoke.check_window_bwd`` the same way (``chip_smoke.BWD_TOL``;
 the wrong backwards: v_w dropped, the other order's transpose).  The slab
 push K5 and the deposit K6 are held to their plain versions within
 ``chip_smoke.K5_TOL`` and ``chip_smoke.K6_TOL`` (rounding: FMA contraction
-and another order of the sums), at ragged counts.
+and another order of the sums), at ragged counts; the VMEC geometry jet K4
+and the mode sums K7 within ``chip_smoke.K4_TOL`` and ``chip_smoke.K7_TOL``
+(the order of the sums over the modes, FMA contraction).
 """
 
 import dataclasses
@@ -26,13 +28,14 @@ import pytest
 import torch
 
 import chip_smoke
-from graph_framework_tpu_torch.kernels import boris, efit_step
+from graph_framework_tpu_torch.kernels import (
+    boris, efit_step, vmec_geom, vmec_modes)
 from graph_framework_tpu_torch.kernels import deposit as k6
 from graph_framework_tpu_torch.models.dispersion import cold_plasma
 from graph_framework_tpu_torch.models.pic import run_pic
 from graph_framework_tpu_torch.models.rays import RayState
 from graph_framework_tpu_torch.ops.compensated import init_comp_carry
-from graph_framework_tpu_torch.solver import init_k
+from graph_framework_tpu_torch.solver import Solver, init_k
 
 pytestmark = pytest.mark.gpu
 
@@ -188,3 +191,40 @@ def test_run_pic_launches_once_a_step(device):
     assert k6.deposit_launches == 3
     assert all(bool(torch.isfinite(a).all()) for a in st)
     assert float(st.n.max()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_vmec_geom_matches_plain_version(device, dtype):
+    _, tables, coords = chip_smoke.k4_inputs(RAGGED, dtype, device, seed=11)
+    vmec_geom.vmec_geom_launches = 0
+    got = vmec_geom.geometry_jet(*coords, tables)
+    assert vmec_geom.vmec_geom_launches == 1
+    want = vmec_geom.reference_jet(*coords, tables)
+    devs = chip_smoke.relative_rows(got, want)
+    assert max(devs) <= chip_smoke.K4_TOL[dtype], devs
+
+
+def test_vmec_fused_trace_launches_k4(device):
+    eq = chip_smoke.synthetic_vmec(torch.float32, device,
+                                   fused_mode_sums=True)
+    st = init_k(chip_smoke.vmec_launch(RAGGED, torch.float32, device),
+                cold_plasma, eq)
+    vmec_geom.vmec_geom_launches = 0
+    out = Solver(cold_plasma, eq, method="rk2", dt=chip_smoke.VMEC_DT,
+                 sub_steps=chip_smoke.VMEC_SUB_STEPS).run(st, 2)
+    assert vmec_geom.vmec_geom_launches == 2 * 2 * chip_smoke.VMEC_SUB_STEPS
+    assert bool(chip_smoke.in_flux_domain(out).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_vmec_modes_matches_plain_version(device, dtype):
+    u, v, blocks, xm, xn = chip_smoke.k7_inputs(RAGGED, dtype, device,
+                                                seed=12)
+    vmec_modes.vmec_modes_launches = 0
+    got = torch.stack(vmec_modes.mode_sums(u, v, *blocks, xm, xn))
+    assert vmec_modes.vmec_modes_launches == 1
+    want = torch.stack(vmec_modes.reference_forward(u, v, *blocks, xm, xn))
+    devs = chip_smoke.relative_rows(got, want)
+    assert max(devs) <= chip_smoke.K7_TOL[dtype], devs

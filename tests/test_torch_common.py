@@ -101,6 +101,15 @@ out = Solver(cold_plasma, eq, method="rk2", dt=1e-4, sub_steps=2,
 assert bool(torch.isfinite(out.x).all())
 from graph_framework_tpu_torch.models.pic import run_pic
 assert bool(torch.isfinite(run_pic(64, 16, 1, device="cpu").x).all())
+from graph_framework_tpu_torch.kernels import vmec_modes
+veq = chip_smoke.synthetic_vmec(torch.float32, "cpu", knots=11,
+                                fused_mode_sums=True)
+vst = init_k(chip_smoke.vmec_launch(4, torch.float32, "cpu"), cold_plasma,
+             veq)
+vout = Solver(cold_plasma, veq, method="rk2", dt=2.5e-6, sub_steps=2,
+              frozen_cells=True, freeze_every=2).run(
+    Solver(cold_plasma, veq, method="rk2", dt=2.5e-6).run(vst, 1), 1)
+assert bool(torch.isfinite(vout.kx).all())
 print(sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "graph_framework_tpu"
@@ -137,13 +146,19 @@ def test_port_sources_import_no_jax(name):
 def _entry_points(tmp_path_factory):
     """Each entry point of the port that makes tensors, called without a
     device (so on the card), as a zero-argument callable."""
+    from graph_framework_tpu.tools.make_splines import write_vmec_file
     from graph_framework_tpu_torch import convert
-    from graph_framework_tpu_torch.models import efit, korc, pic
+    from graph_framework_tpu_torch.models import efit, korc, pic, vmec
     from graph_framework_tpu_torch.solver import make_ray_state
-    from graph_framework_tpu_torch.tools.make_splines import efit_tables
+    from graph_framework_tpu_torch.tools.make_splines import (
+        efit_tables, vmec_tables)
 
     samples = chip_smoke.synthetic_samples(grid=9)
     cpu_eq = chip_smoke.synthetic_equilibrium(torch.float64, "cpu", grid=9)
+    vmec_samples = chip_smoke.synthetic_vmec_samples(knots=11)
+    cpu_vmec = chip_smoke.synthetic_vmec(torch.float64, "cpu", knots=11)
+    vmec_path = tmp_path_factory.mktemp("vmec") / "synthetic_vmec.nc"
+    write_vmec_file(vmec_path, **vmec_samples)
     ray = types.SimpleNamespace(**{f: np.zeros(2) for f in (
         "t", "w", "x", "y", "z", "kx", "ky", "kz")})
     particle = types.SimpleNamespace(**{f: np.zeros(2) for f in (
@@ -157,6 +172,10 @@ def _entry_points(tmp_path_factory):
         "make_efit": lambda: efit.make_efit(
             efit_path("synthetic", tmp_path_factory)),
         "efit_from_numpy": lambda: convert.efit_from_numpy(cpu_eq),
+        "vmec_from_tables": lambda: vmec.vmec_from_tables(
+            vmec_tables(**vmec_samples)),
+        "make_vmec": lambda: vmec.make_vmec(vmec_path),
+        "vmec_from_numpy": lambda: convert.vmec_from_numpy(cpu_vmec),
         "ray_state_from_numpy": lambda: convert.ray_state_from_numpy(ray),
         "particle_state_from_numpy":
             lambda: convert.particle_state_from_numpy(particle),
@@ -170,7 +189,8 @@ def _entry_points(tmp_path_factory):
 
 
 ENTRY_POINTS = ["make_ray_state", "efit_from_tables", "make_efit",
-                "efit_from_numpy", "ray_state_from_numpy",
+                "efit_from_numpy", "vmec_from_tables", "make_vmec",
+                "vmec_from_numpy", "ray_state_from_numpy",
                 "particle_state_from_numpy", "pic_state_from_numpy",
                 "run_korc", "make_deposit", "pic_start", "run_pic"]
 
@@ -218,8 +238,8 @@ def test_ptxas_summary_names_each_variant():
     nvcc's -Xptxas -v output (the format of CUDA 12): K1's
     efit_window_kernel<T, METHOD, COMPENSATED>, the backward kernels'
     efit_window_bwd_kernel<T, METHOD, TAB> (K2 without the table
-    cotangents, K3 with them), K5's slab_push_kernel<T> and K6's two
-    passes."""
+    cotangents, K3 with them), K5's slab_push_kernel<T>, K6's two
+    passes, K4's vmec_geom_kernel<T> and K7's vmec_modes_kernel<T>."""
     log = "\n".join([
         "ptxas info    : 0 bytes gmem",
         "ptxas info    : Compiling entry function '_ZN3gft18efit_window_"
@@ -263,6 +283,14 @@ def test_ptxas_summary_names_each_variant():
         "ptxas info    : Compiling entry function '_ZN3gft12_GLOBAL__N_121"
         "deposit_reduce_kernelIfEEvPKT_PS2_S5_ii' for 'sm_90a'",
         "ptxas info    : Used 32 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN3gft12_GLOBAL__N_116"
+        "vmec_geom_kernelIfEEvPKT_S4_S4_S4_S4_S4_S4_PS2_xiiiS2_S2_S2_' for "
+        "'sm_90a'",
+        "ptxas info    : Used 72 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN3gft12_GLOBAL__N_117"
+        "vmec_modes_kernelIdEEvPKT_S4_NS0_10ModeBlocksIS2_EES4_S4_PS2_xi' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 37 registers, used 0 barriers",
     ])
     assert chip_smoke.ptxas_summary(log) == {
         "K5 f32": "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
@@ -270,6 +298,8 @@ def test_ptxas_summary_names_each_variant():
         "K6 pass 1 f64": "Used 40 registers, used 1 barriers, 16384 bytes "
                          "smem",
         "K6 pass 2 f32": "Used 32 registers, used 0 barriers",
+        "K4 f32": "Used 72 registers, used 0 barriers",
+        "K7 f64": "Used 37 registers, used 0 barriers",
         "K2 f32/rk4": "6096 bytes stack frame, 7864 bytes spill stores, "
                       "10484 bytes spill loads; Used 168 registers, used 0 "
                       "barriers, 6096 bytes cumulative stack size",
@@ -284,11 +314,13 @@ def test_ptxas_summary_names_each_variant():
 def test_op_counts_match_the_sources():
     """The operation counts behind the kernels' bounds (chip_smoke's
     WINDOW_OPS, kernels.boris.SLAB_PUSH_OPS,
-    kernels.deposit.DEPOSIT_OPS_PER_PAIR) are what tools/count_ops.py
-    counts over the CUDA sources as they stand."""
+    kernels.deposit.DEPOSIT_OPS_PER_PAIR, kernels.vmec_geom.JET_OPS,
+    kernels.vmec_modes.MODE_SUM_OPS) are what tools/count_ops.py counts
+    over the CUDA sources as they stand."""
     if shutil.which("g++") is None:
         pytest.skip("count_ops needs g++")
-    from graph_framework_tpu_torch.kernels import boris, deposit
+    from graph_framework_tpu_torch.kernels import (
+        boris, deposit, vmec_geom, vmec_modes)
     from graph_framework_tpu_torch.tools import count_ops
 
     counted = count_ops.count()
@@ -298,6 +330,8 @@ def test_op_counts_match_the_sources():
         assert ops[kernel]["per_ray_window"] == value, kernel
     assert ops["K5"]["per_particle_step"] == boris.SLAB_PUSH_OPS
     assert ops["K6"]["per_pair"] == deposit.DEPOSIT_OPS_PER_PAIR
+    assert ops["K4"] == vmec_geom.JET_OPS
+    assert ops["K7"] == vmec_modes.MODE_SUM_OPS
 
 
 def test_synthetic_equilibrium_matches_file(tmp_path_factory):

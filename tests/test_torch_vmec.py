@@ -1,0 +1,269 @@
+"""The port's VMEC equilibrium and ray trace against the JAX package's.
+
+Both packages load the same synthetic stellarator (``chip_smoke``'s
+86-mode W7-X-like map, cut to ``KNOTS`` radial knots): the JAX package
+reads the file its own ``write_vmec_file`` writes, the port takes the JAX
+equilibrium through ``vmec_from_numpy`` or builds its own in memory from
+``vmec_tables`` (no file).  The reference's ``vmec.nc`` is not used: no
+machine of this project has it.
+
+Tolerances: the tables are built by the same numpy arithmetic, so they
+must be bit-equal.  Geometry, fields, the ray RHS, ``init_k`` and short
+traces in float64 differ only by the order in which two eager frameworks
+round the same arithmetic (reductions over 90 modes, the trig): 1e-10
+relative to each quantity's scale leaves a margin of some 1e4 over what
+the comparison reads.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from graph_framework_tpu.models import dispersion as jax_disp
+from graph_framework_tpu.models.rays import make_ray_rhs as jax_make_ray_rhs
+from graph_framework_tpu.models.vmec import make_vmec as jax_make_vmec
+from graph_framework_tpu.solver import Solver as JaxSolver
+from graph_framework_tpu.solver import init_k as jax_init_k
+from graph_framework_tpu.tools.make_splines import write_vmec_file
+from graph_framework_tpu_torch.convert import vmec_from_numpy
+from graph_framework_tpu_torch.models.dispersion import cold_plasma
+from graph_framework_tpu_torch.models.rays import make_ray_rhs, residual_fn
+from graph_framework_tpu_torch.models.vmec import (
+    make_vmec, vmec_from_tables)
+from graph_framework_tpu_torch.solver import Solver, init_k
+from graph_framework_tpu_torch.tools.make_splines import (
+    vmec_tables, write_vmec_file as port_write_vmec_file)
+from test_torch_common import both_states, leaf_errors
+
+KNOTS = 21          # full-grid knots on s in [-1, 1] (ds = 0.1)
+TOL = 1.0e-10
+NUM_RAYS = 8
+
+TABLES = ("chi_coeffs", "rmnc_coeffs", "zmns_coeffs", "lmns_coeffs", "xm",
+          "xn", "grid_scatter", "xm_unique", "xn_unique", "xm_grid",
+          "xn_grid")
+SCALARS = ("signj", "dphi", "sminf", "sminh", "ds", "cell_local",
+           "fused_mode_sums", "quirky_chi")
+
+
+def vmec_file(tmp_path_factory, knots=KNOTS):
+    path = tmp_path_factory.mktemp("vmec") / "synthetic_vmec.nc"
+    write_vmec_file(path, **chip_smoke.synthetic_vmec_samples(knots))
+    return path
+
+
+@pytest.fixture(scope="module")
+def path(tmp_path_factory):
+    return vmec_file(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def eqs(path):
+    """(JAX equilibrium, port equilibrium), float64, from one file."""
+    jeq = jax_make_vmec(path, dtype=jnp.float64)
+    return jeq, vmec_from_numpy(jeq, device="cpu")
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+def _points(n=64, seed=3):
+    """(3, n) flux-space points: s in [0.05, 0.95], u and v in [0, 2 pi]."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(0.05, 0.95, n),
+                     rng.uniform(0.0, 2 * np.pi, n),
+                     rng.uniform(0.0, 2 * np.pi, n)])
+
+
+def _launch(jeq, peq, n=NUM_RAYS, seed=1):
+    """The smoke's VMEC launch through both init_k's: (JAX root, port
+    root)."""
+    jst, pst = both_states(chip_smoke.vmec_launch_arrays(n, seed))
+    return (jax_init_k(jst, jax_disp.cold_plasma, jeq, "kx"),
+            init_k(pst, cold_plasma, peq))
+
+
+@pytest.mark.parametrize("build", ["vmec_from_numpy", "make_vmec",
+                                   "vmec_from_tables",
+                                   "port write_vmec_file"])
+def test_tables_bit_equal(build, eqs, path, tmp_path):
+    """Every way the port builds the equilibrium holds the JAX package's
+    tables, mode grid and scalars bit for bit."""
+    jeq, from_numpy = eqs
+    samples = chip_smoke.synthetic_vmec_samples(KNOTS)
+    if build == "vmec_from_numpy":
+        peq = from_numpy
+    elif build == "make_vmec":
+        peq = make_vmec(path, device="cpu")
+    elif build == "vmec_from_tables":
+        peq = vmec_from_tables(vmec_tables(**samples), device="cpu")
+    else:
+        port_write_vmec_file(tmp_path / "port.nc", **samples)
+        peq = vmec_from_numpy(jax_make_vmec(tmp_path / "port.nc"),
+                              device="cpu")
+    for name in TABLES:
+        np.testing.assert_array_equal(getattr(peq, name).numpy(),
+                                      np.asarray(getattr(jeq, name)), name)
+    for name in SCALARS:
+        assert getattr(peq, name) == getattr(jeq, name), name
+
+
+@pytest.mark.parametrize("quantity", ["rzl", "rzl per mode", "esup",
+                                      "magnetic_field", "jacobian",
+                                      "to_xyz", "profiles", "one point"])
+def test_geometry_matches_jax(quantity, eqs):
+    jeq, peq = eqs
+    pts = _points()
+    jp, pp = jnp.asarray(pts), torch.from_numpy(pts)
+    if quantity == "rzl":
+        got, want = peq._rzl(*pp), jeq._rzl(*jp)
+    elif quantity == "rzl per mode":
+        # the direct per-mode trig, without the mode grid
+        got = dataclasses.replace(peq, grid_scatter=None)._rzl(*pp)
+        want = dataclasses.replace(jeq, grid_scatter=None)._rzl(*jp)
+    elif quantity == "esup":
+        got, want = [peq.esup(pp)], [jeq.esup(jp)]
+    elif quantity == "magnetic_field":
+        got, want = [peq.magnetic_field(pp)], [jeq.magnetic_field(jp)]
+    elif quantity == "jacobian":
+        got, want = [peq._geometry(pp)["jac"]], [jeq._geometry(jp)["jac"]]
+    elif quantity == "to_xyz":
+        got, want = [peq.to_xyz(pp)], [jeq.to_xyz(jp)]
+    elif quantity == "profiles":
+        got = [peq.electron_density(pp), peq.electron_temperature(pp),
+               peq.ion_density(0, pp), peq.ion_temperature(0, pp)]
+        want = [jeq.electron_density(jp), jeq.electron_temperature(jp),
+                jeq.ion_density(0, jp), jeq.ion_temperature(0, jp)]
+    else:
+        got = [peq.magnetic_field(pp[:, 0]), peq.esup(pp[:, 0])]
+        want = [jeq.magnetic_field(jp[:, 0]), jeq.esup(jp[:, 0])]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _rel(g, w) < TOL, quantity
+
+
+def test_characteristic_field_and_quirky_chi(eqs, path):
+    jeq, peq = eqs
+    assert _rel(peq.characteristic_field(), jeq.characteristic_field()) < TOL
+    s = np.linspace(-0.9, 0.9, 7)
+    jq = jax_make_vmec(path, quirky_chi=True)
+    pq = vmec_from_numpy(jq, device="cpu")
+    assert pq.quirky_chi
+    for j, p in ((jeq, peq), (jq, pq)):
+        assert _rel(p.chi(torch.from_numpy(s)), j.chi(jnp.asarray(s))) < TOL
+    assert _rel(pq.magnetic_field(torch.tensor([0.4, 0.2, 0.1],
+                                               dtype=torch.float64)),
+                jq.magnetic_field(jnp.asarray([0.4, 0.2, 0.1]))) < TOL
+
+
+def test_freeze_cells_geometry(eqs):
+    """The frozen view's geometry at a point near the window base against
+    JAX's, and exact at the base itself."""
+    jeq, peq = eqs
+    pts = _points(n=32, seed=4)
+    base = pts.copy()
+    base[0] -= 0.003                    # the window base, a little away
+    jf = jeq.freeze_cells(jnp.asarray(base))
+    pf = peq.freeze_cells(torch.from_numpy(base))
+    jg, pg = jf._geometry(jnp.asarray(pts)), pf._geometry(
+        torch.from_numpy(pts))
+    for key in ("esup", "bvec", "jac", "r", "z"):
+        assert _rel(pg[key], jg[key]) < TOL, key
+    at_base = pf._geometry(torch.from_numpy(base))
+    full = peq._geometry(torch.from_numpy(base))
+    for key in ("bvec", "jac"):
+        assert _rel(at_base[key], full[key]) < TOL, key
+    with pytest.raises(ValueError, match="quirky_chi"):
+        dataclasses.replace(peq, quirky_chi=True).freeze_cells(
+            torch.from_numpy(base))
+
+
+def test_ray_rhs_matches_jax(eqs):
+    jeq, peq = eqs
+    jst, pst = _launch(jeq, peq)
+    jst = jst._replace(ky=jst.ky + 3.0, kz=jst.kz - 2.0)
+    pst = pst._replace(ky=pst.ky + 3.0, kz=pst.kz - 2.0)
+    got = make_ray_rhs(cold_plasma, peq)(pst)
+    want = jax_make_ray_rhs(jax_disp.cold_plasma, jeq)(jst)
+    for g, w, name in zip(got, want, got._fields):
+        assert _rel(g, w) < TOL, name
+
+
+def test_init_k_matches_jax(eqs):
+    jeq, peq = eqs
+    jst, pst = _launch(jeq, peq)
+    assert _rel(pst.kx, jst.kx) < TOL
+    assert float(residual_fn(cold_plasma, peq)(pst).max()) < 1e-18
+
+
+@pytest.mark.parametrize("method, frozen", [("rk4", False), ("rk2", True)],
+                         ids=["rk4", "frozen rk2 K=5"])
+def test_short_trace_matches_jax(method, frozen, eqs):
+    """test_vmec.py's trace (rk4, dt 2e-5, 5 substeps, 4 recorded steps)
+    and the frozen-radial rk2 trace with a window of K = 5 substeps."""
+    jeq, peq = eqs
+    jst, pst = _launch(jeq, peq)
+    kw = dict(method=method, dt=2e-5, sub_steps=5, frozen_cells=frozen,
+              freeze_every=5 if frozen else 1)
+    jfin = JaxSolver(jax_disp.cold_plasma, jeq, **kw).run(jst, 4)
+    pfin = Solver(cold_plasma, peq, **kw).run(pst, 4)
+    errs = leaf_errors(pfin, jfin)
+    assert max(errs.values()) < TOL, errs
+    assert float(residual_fn(cold_plasma, peq)(pfin).max()) < 1e-18
+    assert abs(float(pfin.x[0] - pst.x[0])) > 1e-7
+
+
+def test_gradient_wrt_rmnc_matches_jax(eqs):
+    """Reverse mode through the whole geometry with respect to the rmnc
+    tables (test_vmec.py's loss |B|^2 at one point) against jax.grad."""
+    jeq, peq = eqs
+    pos = np.array([0.4, 0.2, 0.1])
+
+    def jax_loss(rmnc):
+        b = dataclasses.replace(jeq, rmnc_coeffs=rmnc).magnetic_field(
+            jnp.asarray(pos))
+        return jnp.sum(b * b)
+
+    rmnc = peq.rmnc_coeffs.clone().requires_grad_(True)
+    b = dataclasses.replace(peq, rmnc_coeffs=rmnc).magnetic_field(
+        torch.from_numpy(pos))
+    (got,) = torch.autograd.grad((b * b).sum(), [rmnc])
+    want = jax.grad(jax_loss)(jeq.rmnc_coeffs)
+    assert got.shape == want.shape
+    assert np.any(got.numpy() != 0)
+    assert _rel(got, want) < TOL
+
+
+@pytest.mark.parametrize("invariant", ["basis duality", "div B",
+                                       "|B| physical"])
+def test_invariants(invariant, eqs):
+    """test_vmec.py's invariants, on the port: e^i . e_j = delta_ij with e_j
+    from central differences of to_xyz; div B = 0 by the chain rule
+    through esup; |B| between 0.2 and 2 T over s in [0.1, 0.9]."""
+    _, peq = eqs
+    if invariant == "basis duality":
+        pos0 = torch.tensor([0.3, 0.7, 0.4], dtype=torch.float64)
+        eps = 1e-6
+        esub = torch.stack([
+            (peq.to_xyz(pos0 + eps * e) - peq.to_xyz(pos0 - eps * e))
+            / (2 * eps) for e in torch.eye(3, dtype=torch.float64)])
+        np.testing.assert_allclose((peq.esup(pos0) @ esub.T).numpy(),
+                                   np.eye(3), atol=1e-6)
+    elif invariant == "div B":
+        pos = torch.tensor([0.4, 0.5, 0.3], dtype=torch.float64)
+        jac = torch.autograd.functional.jacobian(peq.magnetic_field, pos)
+        esup = peq.esup(pos)
+        div = sum(torch.dot(jac[i], esup[:, i]) for i in range(3))
+        assert abs(float(div)) < 1e-8
+    else:
+        for s in (0.1, 0.3, 0.6, 0.9):
+            b = peq.magnetic_field(torch.tensor([s, 0.3, 0.2],
+                                                dtype=torch.float64))
+            assert 0.2 < float(b.norm()) < 2.0, s
