@@ -1445,12 +1445,14 @@ def particle_kernel_records(slab, pic):
 # jet sum, max |kernel - plain| over max |plain|, the worst sum against the
 # limit; the VJP of FusedGeometry against autograd of the plain jet the same
 # way, per coordinate.  The two differ only in rounding (FMA contraction,
-# the order of the sums over 90 slots).  Each limit sits 25-30x above what
-# the card read (NVIDIA H100 80GB HBM3, 700.00 W): jet f32 7.7e-7, f64
-# 1.6e-15; VJP f32 3.7e-7, f64 6.2e-16.  On the plain version a kernel
-# that drops the last mode slot shows 1.4e-2, one that reads lmns on the
-# full grid 4.6e-2, a VJP with two rows of JVP_IDX swapped 1.3 (asserted
-# SEPARATION above the limit).
+# the order of the sums over 86 modes).  Each limit sits 25-30x above
+# what the card read (NVIDIA H100 80GB HBM3, 700.00 W): jet f32 7.7e-7,
+# f64 1.6e-15; VJP f32 3.2e-7, f64 6.9e-16.
+# On the plain version a kernel that drops the last mode shows 1.4e-2, one
+# that reads lmns on the full grid 4.6e-2, a VJP with two rows of JVP_IDX
+# swapped 1.3 (asserted SEPARATION above the limit).  Phase 17 holds K4
+# and K7 to the same limits at the main path's 100k rays, each sum
+# relative to its scale over these rays (wide_scales).
 K4_TOL = {torch.float32: 2.0e-5, torch.float64: 5.0e-14}
 # K7 against its plain version (4099 rays x 86 modes): per sum, likewise
 # (the warp's shuffle tree sums in another order); the card read f32
@@ -1460,7 +1462,9 @@ K7_TOL = {torch.float32: 2.0e-5, torch.float64: 5.0e-14}
 # Phase 16: the fused trace against the unfused plain path over a few
 # recorded steps, per leaf relative to max(1, its scale):
 # test_pallas_vmec_geom.py's test_fused_trace_matches_default tolerance,
-# also held by the frozen-radial trace against the fused one.
+# also held by the frozen-radial trace against the fused one.  Over three
+# steps it checks the routing, not K4's arithmetic (phases 14 and 17 do):
+# phase 16c prints what the wrong kernels of phase 14 read against it.
 VMEC_TRACE_TOL = 1.0e-4
 # Wall seconds phase 16 spends on its main run (at least 100 recorded
 # steps, at most 1000: bench.py's endtime 0.025).
@@ -1473,15 +1477,31 @@ def bound_sides(ops, nbytes, dtype=torch.float32):
             f"{nbytes} bytes: {1e3 * nbytes / PEAK_BYTES:.4f} ms")
 
 
-def relative_rows(got, want):
-    """Per row of (k, n) tensors: max |got - want| / max |want|."""
+def relative_rows(got, want, scale=None):
+    """Per row of (k, n) tensors: max |got - want| over max |want|, or over
+    ``scale`` (k,), the rows' scales taken from other inputs."""
     got, want = got.double(), want.double()
+    if scale is None:
+        scale = want.abs().amax(1)
     return ((got - want).abs().amax(1)
-            / want.abs().amax(1).clamp_min(1e-300)).tolist()
+            / scale.double().clamp_min(1e-300)).tolist()
 
 
-def drop_last_slot(tables):
-    """K4's tables without their last mode slot (a wrong kernel)."""
+def wide_scales(device):
+    """The K4 jet's and the K7 sums' scales per row (max |plain|) over
+    phase 14's and phase 15's rays, which span the tables.  Phase 17 holds
+    the kernels at the main path's rays to these: there every ray lies
+    near one launch, where some sums cancel to 1e-3 of their terms, while
+    a sum's f32 rounding follows its terms."""
+    _, tables, coords = k4_inputs(4099, torch.float32, device, SEED + 7)
+    u, v, blocks, xm, xn = k7_inputs(4099, torch.float32, device, SEED + 9)
+    return (vmec_geom.reference_jet(*coords, tables).abs().amax(1),
+            torch.stack(vmec_modes.reference_forward(u, v, *blocks, xm, xn))
+            .abs().amax(1))
+
+
+def drop_last_mode(tables):
+    """K4's tables without their last mode (a wrong kernel)."""
     g = tables.lm.shape[-1]
     rz = torch.cat([tables.rz[..., :g - 1], tables.rz[..., g:2 * g - 1]],
                    dim=-1)
@@ -1524,7 +1544,7 @@ def phase_k4_vs_plain(device, n=4099):
         row = {"dev": devs[worst], "worst sum": vmec_geom.JET_NAMES[worst],
                "limit": K4_TOL[dtype],
                "last mode dropped": max(relative_rows(
-                   vmec_geom.reference_jet(*coords, drop_last_slot(tables)),
+                   vmec_geom.reference_jet(*coords, drop_last_mode(tables)),
                    want)),
                "lmns on the full grid": max(relative_rows(
                    vmec_geom.reference_jet(*coords, tables._replace(
@@ -1694,6 +1714,15 @@ def phase_vmec_main(device, n=100_000, steps_check=3, steps_frozen=20):
             st, steps_frozen))
     frozen_launches = vmec_geom.vmec_geom_launches
     dev_frozen = trace_deviation(frozen, fused_frozen_ref)
+    tables = vmec_geom.jet_tables(eq)
+    wrong = {}
+    for name, bad in (("last mode dropped", drop_last_mode(tables)),
+                      ("lmns on the full grid",
+                       tables._replace(sminh=tables.sminf))):
+        eq_bad = dataclasses.replace(eq)
+        eq_bad._cache["jet"] = bad
+        wrong[name] = trace_deviation(
+            vmec_solver(eq_bad).run(st, steps_check), plain_short)
     print(f"[16c VMEC checks] fused vs unfused plain path over "
           f"{steps_check} recorded steps: {dev_plain:.3e} (limit "
           f"{VMEC_TRACE_TOL}; unfused {n * steps_check * VMEC_SUB_STEPS / plain_s:.6e} "
@@ -1702,7 +1731,9 @@ def phase_vmec_main(device, n=100_000, steps_check=3, steps_frozen=20):
           f"{n * steps_frozen * VMEC_SUB_STEPS / frozen_s:.6e} ray-steps/s, "
           f"against the fused trace {dev_frozen:.3e} (limit "
           f"{VMEC_TRACE_TOL}); finite with 0 < s < 1: "
-          f"{float(in_flux_domain(frozen).double().mean())}")
+          f"{float(in_flux_domain(frozen).double().mean())}; the wrong "
+          f"kernels of phase 14 against the unfused path over "
+          f"{steps_check} steps: {json.dumps(wrong)}")
     if not (dev_plain <= VMEC_TRACE_TOL and dev_frozen <= VMEC_TRACE_TOL
             and frozen_launches == 0
             and bool(in_flux_domain(frozen).all())):
@@ -1714,31 +1745,45 @@ def phase_vmec_main(device, n=100_000, steps_check=3, steps_frozen=20):
 def vmec_kernel_records(main):
     """Phase 17: the K4 and K7 lines at the main path's shapes (100k rays
     f32, the final state of phase 16; K7 over the same rays' 86-mode
-    blocks): milliseconds per wrapper call by CUDA events and on the device
-    by the profiler, the plain version's, the error and the bound."""
+    blocks): each held to its plain version (K4_TOL, K7_TOL, per sum
+    relative to its scale over the tables, ``wide_scales``; what phase
+    14's dropped mode reads there beside it), milliseconds per wrapper
+    call by CUDA events and on the device by the profiler, the plain
+    version's, the error and the bound."""
     eq, st = main["eq"], main["state"]
     n = st.x.shape[0]
     tables = vmec_geom.jet_tables(eq)
     coords = [a.contiguous() for a in (st.x, st.y, st.z)]
-    err = float((vmec_geom.geometry_jet(*coords, tables).double()
-                 - vmec_geom.reference_jet(*coords, tables).double())
-                .abs().max())
+    jet_scale, sum_scale = wide_scales(st.x.device)
+    got = vmec_geom.geometry_jet(*coords, tables)
+    want = vmec_geom.reference_jet(*coords, tables)
+    err = float((got.double() - want.double()).abs().max())
+    devs = relative_rows(got, want, jet_scale)
+    worst = int(np.argmax(devs))
+    dev, dropped = devs[worst], max(relative_rows(vmec_geom.reference_jet(
+        *coords, drop_last_mode(tables)), want, jet_scale))
+    del got, want
     ms = event_ms(lambda: vmec_geom.geometry_jet(*coords, tables), 50)
     plain_ms = event_ms(lambda: vmec_geom.reference_jet(*coords, tables), 5)
     dev_ms, _, _ = profile_kernel(
         lambda: [vmec_geom.geometry_jet(*coords, tables) for _ in range(20)],
         kernel=("vmec_geom_kernel",))
     g = tables.lm.shape[-1]
-    ops = n * (vmec_geom.JET_OPS["per_ray_fixed"]
-               + vmec_geom.JET_OPS["per_mode"] * g)
+    jet_ops = vmec_geom.JET_OPS
+    ops = (n * (jet_ops["per_ray_fixed"] + jet_ops["per_mode"] * g)
+           + jet_ops["table_fixed"] + jet_ops["table_per_mode"] * g)
     nbytes = 4 * (n * (3 + len(vmec_geom.JET_NAMES)) + tables.rz.numel()
                   + tables.lm.numel() + 2 * g)
     b_ms, b_by = bound(ops, nbytes, torch.float32)
-    print(f"[17 vmec_geom time] {n} rays x {g} mode slots f32: {ms:.4f} ms "
+    print(f"[17 vmec_geom time] {n} rays x {g} modes f32: {ms:.4f} ms "
           f"per call (CUDA events, wrapper included); kernel on the device "
           f"{dev_ms} ms (profiler); plain version {plain_ms:.4f} ms; bound "
           f"{b_ms:.4f} ms, by {b_by} ({bound_sides(ops, nbytes)}); max "
-          f"abs error {err:.3e}")
+          f"abs error {err:.3e}; worst sum's deviation relative to its "
+          f"scale {dev:.3e} ({vmec_geom.JET_NAMES[worst]}; limit "
+          f"{K4_TOL[torch.float32]}; the last mode dropped {dropped:.3e})")
+    if not dev <= K4_TOL[torch.float32]:
+        raise AssertionError(f"vmec_geom vs plain at {n} rays: {dev}")
     records = [{"name": "vmec_geom", "route": "cuda",
                 "source": "graph_framework_tpu_torch/csrc/vmec_geom.cu",
                 "replaces": "graph_framework_tpu/pallas/vmec_geom.py:163",
@@ -1749,8 +1794,11 @@ def vmec_kernel_records(main):
     blocks = [b.contiguous() for b in eq.radial_modes(coords[0])]
     args = (coords[1], coords[2], *blocks, eq.xm, eq.xn)
     m = eq.xm.shape[0]
-    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(
-        vmec_modes.mode_sums(*args), vmec_modes.reference_forward(*args)))
+    got = torch.stack(vmec_modes.mode_sums(*args))
+    want = torch.stack(vmec_modes.reference_forward(*args))
+    err = float((got.double() - want.double()).abs().max())
+    dev = max(relative_rows(got, want, sum_scale))
+    del got, want
     ms = event_ms(lambda: vmec_modes.mode_sums(*args), 50)
     plain_ms = event_ms(lambda: vmec_modes.reference_forward(*args), 5)
     dev_ms, _, _ = profile_kernel(
@@ -1764,8 +1812,11 @@ def vmec_kernel_records(main):
           f"call (CUDA events, wrapper included); kernel on the device "
           f"{dev_ms} ms (profiler); plain version {plain_ms:.4f} ms; bound "
           f"{b_ms:.4f} ms, by {b_by} ({bound_sides(ops, nbytes)}); max "
-          f"abs error {err:.3e}; launches on the main path 0 (no path calls "
-          f"K7)")
+          f"abs error {err:.3e}; worst sum's deviation relative to its "
+          f"scale {dev:.3e} (limit {K7_TOL[torch.float32]}); launches on "
+          f"the main path 0 (no path calls K7)")
+    if not dev <= K7_TOL[torch.float32]:
+        raise AssertionError(f"vmec_modes vs plain at {n} rays: {dev}")
     records.append({"name": "vmec_modes", "route": "cuda",
                     "source": "graph_framework_tpu_torch/csrc/vmec_modes.cu",
                     "replaces": "graph_framework_tpu/pallas/vmec_modes.py:35",

@@ -13,8 +13,10 @@
 //   * the 27 sums of the second-order jet, in the order of
 //     kernels/vmec_geom.py JET_NAMES: 10 first-order and 17 second-order.
 //
-//   * One thread per ray loops over all G mode slots (any G; per grid slot
-//     or per mode) with its 27 sums in registers.  The tables are the
+//   * One thread per ray loops over the G modes (any G; kernels/
+//     vmec_geom.py passes the equilibrium's per-mode tables, 86 modes for
+//     the reference's shape, not the TPU's 90-slot mode grid with its four
+//     empty slots) with its 27 sums in registers.  The tables are the
 //     whole cell-major tables, rz (ns_f, 4, 2G) = [rmnc | zmns] per Horner
 //     coefficient and lm (ns_h, 4, G), read through the read-only cache:
 //     neighbouring rays lie in the same or the next cell, so a warp's
@@ -30,12 +32,15 @@
 // --use_fast_math).
 //
 // What bounds it on this card: per ray and mode a sincos, 12 coefficient
-// loads and some 70 multiplies and adds (kernels/vmec_geom.py and
+// loads and some 100 multiplies and adds (kernels/vmec_geom.py and
 // tools/count_ops.py count them); the bytes - s, u, v in and 27 sums out a
 // ray, the tables once - are few beside that, so it is compute-bound.  The
-// design keeps every intermediate in registers; the trig of the grid's
-// unique mode numbers (2 (n_xm + n_xn) transcendentals instead of 2 G) is
-// what a faster version would do first.
+// design keeps every intermediate in registers.  A few operations a mode
+// depend on the tables alone (the products of the mode numbers, the
+// doubled coefficients): the bound counts them once, the kernel redoes
+// them per ray, where a multiply costs less than the load of a table that
+// held them.  The trig of the unique mode numbers (2 (n_xm + n_xn)
+// transcendentals instead of 2 G) is what a faster version would do first.
 //
 // The mode angle is rounded as eager PyTorch rounds it (mul_rn / add_rn,
 // no FMA), so the kernel and its plain version take the trig of the same
@@ -97,6 +102,7 @@ vmec_geom_kernel(const T* __restrict__ s_in, const T* __restrict__ u_in,
   T acc[kJet];
 #pragma unroll
   for (int k = 0; k < kJet; ++k) acc[k] = T(0);
+  const T tf3 = T(3) * tf, tf6 = T(6) * tf, th3 = T(3) * th;
   for (int m = 0; m < g; ++m) {
     const T r0 = __ldg(blk + m), r1 = __ldg(blk + 2 * g + m);
     const T r2 = __ldg(blk + 4 * g + m), r3 = __ldg(blk + 6 * g + m);
@@ -105,13 +111,13 @@ vmec_geom_kernel(const T* __restrict__ s_in, const T* __restrict__ u_in,
     const T l0 = __ldg(lblk + m), l1 = __ldg(lblk + g + m);
     const T l2 = __ldg(lblk + 2 * g + m), l3 = __ldg(lblk + 3 * g + m);
     const T rm = r0 + tf * (r1 + tf * (r2 + tf * r3));
-    const T rms = r1 + tf * (T(2) * r2 + T(3) * tf * r3);
-    const T rmss = T(2) * r2 + T(6) * tf * r3;
+    const T rms = r1 + tf * (T(2) * r2 + tf3 * r3);
+    const T rmss = T(2) * r2 + tf6 * r3;
     const T zm = z0 + tf * (z1 + tf * (z2 + tf * z3));
-    const T zms = z1 + tf * (T(2) * z2 + T(3) * tf * z3);
-    const T zmss = T(2) * z2 + T(6) * tf * z3;
+    const T zms = z1 + tf * (T(2) * z2 + tf3 * z3);
+    const T zmss = T(2) * z2 + tf6 * z3;
     const T lv = l0 + th * (l1 + th * (l2 + th * l3));
-    const T lms = l1 + th * (T(2) * l2 + T(3) * th * l3);
+    const T lms = l1 + th * (T(2) * l2 + th3 * l3);
 
     const T a = __ldg(xm + m), b = __ldg(xn + m);
     T sa, ca;
@@ -119,7 +125,7 @@ vmec_geom_kernel(const T* __restrict__ s_in, const T* __restrict__ u_in,
     const T rm_sa = rm * sa, rm_ca = rm * ca;
     const T zm_sa = zm * sa, zm_ca = zm * ca;
     const T lm_sa = lv * sa, lm_ca = lv * ca;
-    const T rms_sa = rms * sa, zms_ca = zms * ca;
+    const T rms_sa = rms * sa, zms_ca = zms * ca, lms_ca = lms * ca;
     const T aa = a * a, ab = a * b, bb = b * b;
     acc[0] += rm_ca;               // r
     acc[1] += zm_sa;               // z
@@ -143,8 +149,8 @@ vmec_geom_kernel(const T* __restrict__ s_in, const T* __restrict__ u_in,
     acc[19] -= aa * zm_sa;         // dzuu
     acc[20] += ab * zm_sa;         // dzuv
     acc[21] -= bb * zm_sa;         // dzvv
-    acc[22] += a * lms * ca;       // dlus (/ ds)
-    acc[23] -= b * lms * ca;       // dlvs (/ ds)
+    acc[22] += a * lms_ca;         // dlus (/ ds)
+    acc[23] -= b * lms_ca;         // dlvs (/ ds)
     acc[24] -= aa * lm_sa;         // dluu
     acc[25] += ab * lm_sa;         // dluv
     acc[26] -= bb * lm_sa;         // dlvv

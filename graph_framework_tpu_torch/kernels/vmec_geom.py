@@ -2,7 +2,7 @@
 
 Counterpart of ``graph_framework_tpu.pallas.vmec_geom`` (the TPU kernel
 ``_jet_kernel`` over ``_jet_sums``, built by ``make_fused_geometry``).  Per
-ray (s, u, v) it computes, over the mode-grid tables of a VMEC
+ray (s, u, v) it computes, over the per-mode tables of a VMEC
 equilibrium, the clamped radial cell on the full and on the half grid, the
 cell-local Horner value, d/ds and d2/ds2 of every mode's spline, per-mode
 cos/sin of (xm u - xn v), and the 27 sums of the geometry's second-order
@@ -26,9 +26,10 @@ dl/du, dl/dv) and the 17 unique second partials (``JET_NAMES``).
   that requires grad is refused.
 
 Not carried over (TPU artifacts): the one-hot MXU fetch and the bf16
-word split of the tables, the 128-cell radial cut, the 128-mode padding
-and the (n, 48) duplicated output, and the Cody-Waite reduction before the
-trig (CUDA's sincos reduces the range itself).
+word split of the tables, the 128-cell radial cut, the dense mode grid
+(90 slots for 86 modes) and its 128-slot padding, the (n, 48) duplicated
+output, and the Cody-Waite reduction before the trig (CUDA's sincos
+reduces the range itself).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ JET_NAMES = (
 
 #: d(output o)/d(s, u, v) = jet[JVP_IDX[o]] for the first 10 sums (Hessian
 #: symmetry reuses the off-diagonal partials; the JAX package's _JVP_IDX).
+#: FusedGeometry's backward reads it at each call.
 JVP_IDX = (
     (2, 3, 4),      # r
     (5, 6, 7),      # z
@@ -65,22 +67,25 @@ JVP_IDX = (
     (23, 25, 26),   # dlv
 )
 
-#: Floating point operations a ray: a fixed part (the two radial cells, the
-#: final 1/ds factors) and a part per mode slot (the Horner jets, the
-#: angle, a sincos counted as two, the 27 sums), counted over
-#: csrc/vmec_geom.cu by tools/count_ops.py (a CPU test holds them to it).
-JET_OPS = {"per_ray_fixed": 21, "per_mode": 114}
+#: Floating point operations, counted over csrc/vmec_geom.cu by
+#: tools/count_ops.py (a CPU test holds them to it): per ray a fixed part
+#: (the two radial cells, the final 1/ds factors) and a part per mode (the
+#: Horner jets, the angle, a sincos counted as two, the 27 sums); and the
+#: operations on the tables alone (products of mode numbers, doubled
+#: coefficients, ds^2), which the function needs once, not once a ray.
+JET_OPS = {"per_ray_fixed": 23, "per_mode": 100, "table_fixed": 1,
+           "table_per_mode": 8}
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 
 class JetTables(NamedTuple):
-    """K4's inputs besides (s, u, v): the mode-grid tables, cell-major.
+    """K4's inputs besides (s, u, v): the per-mode tables, cell-major.
 
     ``rz`` (ns_f, 4, 2 G): per cell and Horner coefficient, the G rmnc
-    then the G zmns grid slots; ``lm`` (ns_h, 4, G) the lmns slots on the
-    half grid; ``xm``/``xn`` (G,) each slot's mode numbers (per grid slot
-    or per mode: the kernel loops over any G); the grid scalars."""
+    then the G zmns modes; ``lm`` (ns_h, 4, G) the lmns modes on the half
+    grid; ``xm``/``xn`` (G,) each mode's numbers (the kernel loops over any
+    G); the grid scalars."""
     rz: torch.Tensor
     lm: torch.Tensor
     xm: torch.Tensor
@@ -91,17 +96,17 @@ class JetTables(NamedTuple):
 
 
 def jet_tables(eq) -> JetTables:
-    """The :class:`JetTables` of a VMEC equilibrium with a mode grid,
-    built once per equilibrium object (a replaced table makes a new
-    object, and with it new tables)."""
+    """The :class:`JetTables` of a VMEC equilibrium: its own per-mode
+    tables (not the dense mode grid, whose empty slots hold zeros), built
+    once per equilibrium object (a replaced table makes a new object, and
+    with it new tables)."""
     tables = eq._cache.get("jet")
     if tables is None:
         with torch.no_grad():
-            rz = torch.cat([eq._grid_table(eq.rmnc_coeffs),
-                            eq._grid_table(eq.zmns_coeffs)], dim=-1)
+            rz = torch.cat([eq.rmnc_coeffs, eq.zmns_coeffs], dim=-1)
             tables = JetTables(
-                rz.contiguous(), eq._grid_table(eq.lmns_coeffs).contiguous(),
-                eq.xm_grid.contiguous(), eq.xn_grid.contiguous(),
+                rz.contiguous(), eq.lmns_coeffs.detach().contiguous(),
+                eq.xm.contiguous(), eq.xn.contiguous(),
                 float(eq.sminf), float(eq.sminh), float(eq.ds))
         eq._cache["jet"] = tables
     return tables
@@ -243,14 +248,24 @@ class FusedGeometry(torch.autograd.Function):
                 "the fused VMEC geometry (K4) is differentiable once: a "
                 "second derivative (create_graph=True) needs "
                 "fused_mode_sums=False")
+        # (autograd hands zeros, not None, for outputs that got no gradient)
         (partials,) = ctx.saved_tensors
-        d = [torch.zeros_like(partials[0]) for _ in range(3)]
-        for o, (ct, idx) in enumerate(zip(cts, JVP_IDX)):
-            if ct is None:
-                continue
-            for k in range(3):
-                d[k] = d[k] + partials[idx[k] - 2] * ct
+        d = (partials[_jvp_rows(partials.device)]
+             * torch.stack(cts)[:, None]).sum(0)
         return d[0], d[1], d[2], None
+
+
+_JVP_ROWS: dict = {}
+
+
+def _jvp_rows(device):
+    """JVP_IDX as a (10, 3) index into the saved partials (jet rows 2..26),
+    made once per device and index table: a copy to the card at every
+    backward would wait for the stream."""
+    key = (str(device), tuple(map(tuple, JVP_IDX)))
+    if key not in _JVP_ROWS:
+        _JVP_ROWS[key] = torch.tensor(key[1], device=device) - 2
+    return _JVP_ROWS[key]
 
 
 def fused_geometry(eq, s, u, v):

@@ -38,9 +38,9 @@ vmec_modes_launches = 0
 
 #: Floating point operations a ray: per mode the angle, a sincos counted as
 #: two and the ten sums' products and adds; per ray the additions of the
-#: warp's shuffle tree (32 lanes x 5 levels x 10 sums).  Counted over
+#: warp's shuffle tree whose results reach lane 0 (31 a sum).  Counted over
 #: csrc/vmec_modes.cu by tools/count_ops.py (a CPU test holds them to it).
-MODE_SUM_OPS = {"per_ray_fixed": 1600, "per_mode": 28}
+MODE_SUM_OPS = {"per_ray_fixed": 310, "per_mode": 28}
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 

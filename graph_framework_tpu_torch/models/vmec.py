@@ -27,7 +27,8 @@ factors come from outer products of per-unique-mode cos/sin
 ``fused_mode_sums=True`` routes the batched f32 geometry through the
 hand-written kernel K4 (:mod:`graph_framework_tpu_torch.kernels.
 vmec_geom`), under the JAX package's condition: cell-local tables, (rays,)
-coordinates, float32.  There the tables are constants: table gradients
+coordinates, float32.  The kernel loops over the per-mode tables, not the
+grid.  There the tables are constants: table gradients
 need ``fused_mode_sums=False``, and ``l`` and dl/ds come back as zeros
 (the geometry reads neither).
 

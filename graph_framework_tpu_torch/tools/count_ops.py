@@ -17,8 +17,12 @@ Prints one JSON object: operations per ray and window of K substeps for
 the window kernels K1 (rk2/rk4, plain/compensated), K2 and K3 (rk2/rk4),
 at K = 10 (the main path's freeze window) and per substep; per particle
 and step for the slab push K5; per (particle, grid point) pair for the
-deposit K6; per ray, as a fixed part and a part per mode slot, for the
-VMEC geometry jet K4 and the mode sums K7 (a sincos counts two).
+deposit K6; per ray, as a fixed part and a part per mode, for the VMEC
+geometry jet K4 and the mode sums K7 (a sincos counts two).  K4's
+operations that depend on its tables alone (products of mode numbers,
+doubled coefficients, ds^2) are counted apart, as ``table_fixed`` and
+``table_per_mode``: the function needs them once, not once a ray.  K7's
+shuffle tree counts the 31 adds a sum whose results reach lane 0.
 ``chip_smoke.py`` takes the window kernels' counts for their
 ``bound_ms``; ``kernels.boris.SLAB_PUSH_OPS``,
 ``kernels.deposit.DEPOSIT_OPS_PER_PAIR``, ``kernels.vmec_geom.JET_OPS``
@@ -75,38 +79,57 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline double __dsub_rn(double a, double b) { return a - b; }
 inline void sincosf(float a, float* s, float* c) { *s = std::sin(a); *c = std::cos(a); }
 template <class T> T __ldg(const T* p) { return *p; }
-// a lane's own value: the count needs the additions, not the sums
 template <class T> T __shfl_down_sync(unsigned, T v, int) { return v; }
 template <class F> void host_launch(dim3, dim3, F f) { f(); }
 
-// the counting scalar
-inline long long g_ops = 0;
+// the counting scalar.  With g_split set, a value carries whether it
+// depends on the work item (`ray`, set by the harness on its inputs), and
+// an operation none of whose operands does goes to g_table_ops instead:
+// it depends on the tables alone, and a table could hold its result.
+inline long long g_ops = 0, g_table_ops = 0;
+inline bool g_split = false;
 struct Counted {
   double v;
-  Counted() : v(0) {}
-  Counted(double a) : v(a) {}
+  bool ray;
+  Counted() : v(0), ray(false) {}
+  Counted(double a) : v(a), ray(false) {}
+  Counted(double a, bool r) : v(a), ray(r) {}
   explicit operator int() const { return static_cast<int>(v); }
-  Counted& operator+=(Counted b) { ++g_ops; v += b.v; return *this; }
-  Counted& operator-=(Counted b) { ++g_ops; v -= b.v; return *this; }
-  friend Counted operator+(Counted a, Counted b) { ++g_ops; return a.v + b.v; }
-  friend Counted operator-(Counted a, Counted b) { ++g_ops; return a.v - b.v; }
-  friend Counted operator*(Counted a, Counted b) { ++g_ops; return a.v * b.v; }
-  friend Counted operator/(Counted a, Counted b) { ++g_ops; return a.v / b.v; }
-  friend Counted operator-(Counted a) { return -a.v; }
-  friend Counted gsqrt(Counted a) { ++g_ops; return std::sqrt(a.v); }
-  friend Counted bsqrt(Counted a) { ++g_ops; return std::sqrt(a.v); }
-  friend Counted dexp(Counted a) { ++g_ops; return std::exp(a.v); }
-  friend Counted recip(Counted a) { ++g_ops; return 1.0 / a.v; }
-  friend Counted gmax(Counted a, Counted b) { ++g_ops; return std::fmax(a.v, b.v); }
-  friend Counted gmin(Counted a, Counted b) { ++g_ops; return std::fmin(a.v, b.v); }
-  friend Counted mul_rn(Counted a, Counted b) { ++g_ops; return a.v * b.v; }
-  friend Counted add_rn(Counted a, Counted b) { ++g_ops; return a.v + b.v; }
-  friend Counted sub_rn(Counted a, Counted b) { ++g_ops; return a.v - b.v; }
+  static Counted op(double r, bool ray, int n = 1) {
+    (g_split && !ray ? g_table_ops : g_ops) += n;
+    return Counted(r, ray);
+  }
+  Counted& operator+=(Counted b) { return *this = op(v + b.v, ray || b.ray); }
+  Counted& operator-=(Counted b) { return *this = op(v - b.v, ray || b.ray); }
+  friend Counted operator+(Counted a, Counted b) { return op(a.v + b.v, a.ray || b.ray); }
+  friend Counted operator-(Counted a, Counted b) { return op(a.v - b.v, a.ray || b.ray); }
+  friend Counted operator*(Counted a, Counted b) { return op(a.v * b.v, a.ray || b.ray); }
+  friend Counted operator/(Counted a, Counted b) { return op(a.v / b.v, a.ray || b.ray); }
+  friend Counted operator-(Counted a) { return Counted(-a.v, a.ray); }
+  friend Counted gsqrt(Counted a) { return op(std::sqrt(a.v), a.ray); }
+  friend Counted bsqrt(Counted a) { return op(std::sqrt(a.v), a.ray); }
+  friend Counted dexp(Counted a) { return op(std::exp(a.v), a.ray); }
+  friend Counted recip(Counted a) { return op(1.0 / a.v, a.ray); }
+  friend Counted gmax(Counted a, Counted b) { return op(std::fmax(a.v, b.v), a.ray || b.ray); }
+  friend Counted gmin(Counted a, Counted b) { return op(std::fmin(a.v, b.v), a.ray || b.ray); }
+  friend Counted mul_rn(Counted a, Counted b) { return op(a.v * b.v, a.ray || b.ray); }
+  friend Counted add_rn(Counted a, Counted b) { return op(a.v + b.v, a.ray || b.ray); }
+  friend Counted sub_rn(Counted a, Counted b) { return op(a.v - b.v, a.ray || b.ray); }
   // one sine and one cosine
   friend void gsincos(Counted a, Counted* s, Counted* c) {
-    g_ops += 2; *s = std::sin(a.v); *c = std::cos(a.v);
+    op(0.0, a.ray, 2);
+    *s = Counted(std::sin(a.v), a.ray);
+    *c = Counted(std::cos(a.v), a.ray);
   }
 };
+
+// A warp's shuffle tree: at offset o only the sums of lanes below o reach
+// lane 0, so the add that takes a shuffled value on any other lane (the
+// kernels write `acc += __shfl_down_sync(...)`) is taken back here.
+inline Counted __shfl_down_sync(unsigned, Counted v, int offset) {
+  if (threadIdx.x % 32 >= static_cast<unsigned>(offset)) --g_ops;
+  return v;
+}
 """
 
 _WINDOW_HARNESS = r"""
@@ -173,17 +196,22 @@ extern "C" long long count_slab(int steps) {
 """
 
 _VMEC_GEOM_HARNESS = r"""
-extern "C" long long count_vmec_geom(int g) {
+extern "C" void count_vmec_geom(int g, long long* ops, long long* table_ops) {
   using namespace gft;
-  static Counted s[1] = {0.5}, u[1] = {0.3}, v[1] = {0.2}, out[27];
+  // the ray's coordinates are its own; the tables and mode numbers are not
+  static Counted s[1] = {{0.5, true}}, u[1] = {{0.3, true}},
+      v[1] = {{0.2, true}}, out[27];
   static Counted rz[2 * 8 * 128], lm[2 * 4 * 128], xm[128], xn[128];
   for (int k = 0; k < 2 * 8 * 128; ++k) rz[k] = 0.01 * (k % 7);
   for (int k = 0; k < 2 * 4 * 128; ++k) lm[k] = 0.01 * (k % 5);
   for (int k = 0; k < g; ++k) { xm[k] = k % 10; xn[k] = 5.0 * (k % 9) - 20.0; }
-  g_ops = 0;
+  g_ops = g_table_ops = 0;
+  g_split = true;
   vmec_geom_kernel<Counted>(s, u, v, rz, lm, xm, xn, out, 1, 2, 2, g,
                             -1.0, -0.99, 0.01);
-  return g_ops;
+  g_split = false;
+  *ops = g_ops;
+  *table_ops = g_table_ops;
 }
 """
 
@@ -290,7 +318,7 @@ def count() -> dict:
     with tempfile.TemporaryDirectory() as tmpdir:
         lib = ctypes.CDLL(str(_build(pathlib.Path(tmpdir))))
         for name in ("count_window", "count_slab", "count_deposit",
-                     "count_vmec_geom", "count_vmec_modes"):
+                     "count_vmec_modes"):
             getattr(lib, name).restype = ctypes.c_longlong
         out = {}
         for fwd, flag_name in ((1, ("plain", "comp")), (0, ("K2", "K3"))):
@@ -307,11 +335,23 @@ def count() -> dict:
                      lib.count_slab(2) - lib.count_slab(1)}
         out["K6"] = {"per_pair": (lib.count_deposit(2048)
                                   - lib.count_deposit(1024)) // 1024}
-        for key, fn in (("K4", lib.count_vmec_geom),
-                        ("K7", lib.count_vmec_modes)):
-            one, two = fn(1), fn(2)
-            out[key] = {"per_mode": two - one, "per_ray_fixed": 2 * one - two}
+        one, two = lib.count_vmec_modes(1), lib.count_vmec_modes(2)
+        out["K7"] = {"per_mode": two - one, "per_ray_fixed": 2 * one - two}
+        (one, one_t), (two, two_t) = _vmec_geom(lib, 1), _vmec_geom(lib, 2)
+        out["K4"] = {"per_mode": two - one, "per_ray_fixed": 2 * one - two,
+                     "table_per_mode": two_t - one_t,
+                     "table_fixed": 2 * one_t - two_t}
     return {"window": WINDOW, "ops": out}
+
+
+def _vmec_geom(lib, g):
+    """K4's operations over g modes for one ray: (those that depend on the
+    ray, those that depend on the tables alone)."""
+    import ctypes
+
+    ops, table_ops = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.count_vmec_geom(g, ctypes.byref(ops), ctypes.byref(table_ops))
+    return ops.value, table_ops.value
 
 
 if __name__ == "__main__":
