@@ -18,7 +18,9 @@ failed check raises and the script exits non-zero):
 1. device: the card's name and, on its own line, ``nvidia-smi``'s
    name and power limit; no CUDA card is a failure, never a CPU run;
 2. build: ``nvcc`` builds ``csrc/*.cu`` (one process per source);
-   registers and spills of every kernel variant;
+   registers and spills of every kernel variant, the eight backward ones
+   (K2, K3 x f32, f64 x rk2, rk4) required, and none spilled for K2 f32
+   rk2, the main path's backward;
 3. K1 vs plain PyTorch version at 4099 rays (a ragged count): rk2/rk4
    x plain/compensated x f32/f64, one recorded step at K = 10 and K = 5,
    each within a limit that lies well below what a wrong kernel shows;
@@ -38,7 +40,8 @@ failed check raises and the script exits non-zero):
 5. ``trace_segmented``: 32 recorded rows of 100k rays kept in memory;
 6. the plain version's ray-steps/s on the card beside the kernel's;
 7. each kernel's milliseconds per window beside its plain version's and
-   its bound.
+   its bound, and K3's scatter into the tables (``index_add_``) timed
+   apart.
 
 The particle paths follow (``xkorc``'s Boris push, ``xpic``'s PIC loop),
 with the hand-written kernels K5 (the slab push, ``csrc/boris.cu``) and K6
@@ -234,11 +237,12 @@ GAP_TOL = {"f32 root": 5.0e-7, "own root": 1.0e-5}
 # the largest magnitude of that leaf (table) in the plain version, over one
 # recorded step from seeded normal cotangents at 4099 rays.  The plain
 # version is torch.autograd of frozen_window (reverse over reverse); the
-# kernels transpose by hand and take the Hessian-vector products by
-# forward over forward mode, and the table scatter adds with atomics, so
-# the two round differently.  Each limit sits about 20x above what the
-# card read (NVIDIA H100 80GB HBM3, 700.00 W):
-#   f32 state  read 8.3e-7;   f32 tables read 4.2e-6;
+# kernels transpose by hand and take the Hessian-vector products forward
+# over a hand-written reverse sweep, and the table scatter adds with
+# atomics, so the two round differently.  Each limit sits about 20x above
+# what the card read (NVIDIA H100 80GB HBM3, 700.00 W):
+#   f32 state  read 8.3e-7;   f32 tables read 4.2e-6 (5.4e-6 since the
+#   sweep is the hand-written reverse one);
 #   f64 state  read 9.3e-16;  f64 tables read 1.2e-14.
 # Phase 3a also measures on the plain version what a wrong backward shows
 # and asserts that each limit lies SEPARATION times below it: the transpose
@@ -537,6 +541,15 @@ def ptxas_summary(log):
     return {k: "; ".join(v) for k, v in sorted(out.items())}
 
 
+def spill_bytes(info):
+    """Spill stores + loads in bytes of one ptxas_summary entry; raises if
+    ptxas printed no spill line for it."""
+    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+    if m is None:
+        raise AssertionError(f"no spill line in ptxas's summary: {info!r}")
+    return int(m[1]) + int(m[2])
+
+
 def phase_build():
     t0 = time.perf_counter()
     build.load()
@@ -544,8 +557,17 @@ def phase_build():
     print(f"[2 build] {seconds:.2f} s ({len(list(build.CSRC.glob('*.cu')))}"
           f" nvcc processes in parallel, then a link); ptxas per kernel "
           f"variant:")
-    for variant, info in ptxas_summary(build.build_log).items():
+    summary = ptxas_summary(build.build_log)
+    for variant, info in summary.items():
         print(f"    {variant}: {info}")
+    bwd = [f"{k} {t}/rk{m}" for k in ("K2", "K3") for t in ("f32", "f64")
+           for m in (2, 4)]
+    missing = [v for v in bwd if v not in summary]
+    if missing:
+        raise AssertionError(f"ptxas printed nothing for {missing}")
+    # the main path's backward keeps its whole live set in registers
+    if spill_bytes(summary["K2 f32/rk2"]) != 0:
+        raise AssertionError(f"K2 f32/rk2 spills: {summary['K2 f32/rk2']}")
 
 
 def run_windows(eq, carry, method, k, compensated, kernel):
@@ -1061,12 +1083,21 @@ def bwd_kernel_records(eq, state, launches, launches_tab):
         kernel_ms, _, _ = profile_kernel(
             lambda: [kern_call() for _ in range(10)],
             kernel=("efit_window_bwd_kernel",))
+        scatter = ""
+        if tables:
+            # EfitWindow's backward adds K3's blocks into the tables after
+            # the kernel: two zeroed tables and two index_add_
+            scatter_ms = event_ms(
+                lambda: efit_step.scatter_block_cotangents(eq, got), 10)
+            scatter = (f"; the scatter into the tables "
+                       f"(scatter_block_cotangents) {scatter_ms:.4f} ms "
+                       f"apart (CUDA events)")
         print(f"[7 {name} time] {state.x.shape[0]} rays, f32 rk2 "
               f"K={FREEZE_EVERY}: {ms:.4f} ms per window call (CUDA "
               f"events, wrapper included); kernel on the device "
               f"{kernel_ms} ms (profiler); plain version "
               f"(autograd of frozen_window) {plain_ms:.4f} ms; max abs "
-              f"error {err:.3e}")
+              f"error {err:.3e}{scatter}")
         b_ms, b_by = window_bound(eq, state.x.shape[0],
                                   "K3 rk2" if tables else "K2 rk2")
         print(f"[7 {name} bound] {b_ms:.4f} ms ({b_by})")
@@ -1109,7 +1140,7 @@ PIC_TOL = 1.0e-5
 # kernels on the main path (rk2), counted over the kernels' own source by
 # graph_framework_tpu_torch/tools/count_ops.py (tests/test_torch_common.py
 # holds these to it).
-WINDOW_OPS = {"K1 rk2 comp": 44892, "K2 rk2": 225677, "K3 rk2": 349677}
+WINDOW_OPS = {"K1 rk2 comp": 44892, "K2 rk2": 38065, "K3 rk2": 47105}
 # Peak rates of one H100 SXM (NVIDIA's data sheet): f32 and f64 outside the
 # tensor cores, and the HBM rate.  bound_ms is the larger of ops / peak and
 # bytes / rate.

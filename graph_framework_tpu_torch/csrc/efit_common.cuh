@@ -8,15 +8,14 @@
 //   * T (float or double) for a plain value;
 //   * Dual<T, 7> - forward-mode dual numbers whose seven tangents are seeded
 //     on (w, x, y, z, kx, ky, kz) - for the gradient of D, which gives the
-//     ray right-hand side (K1);
-//   * Dual<Dual<T, NI>, 1> - forward over forward: the outer tangent is
-//     seeded with a direction v, so the outer tangent of the inner gradient
-//     is the Hessian-vector product H v of D (K2, K3).
+//     ray right-hand side (K1).
+// The backward kernels K2 and K3 take D's gradient by a reverse sweep
+// written by hand instead (efit_adjoint.cuh), in the same operation order,
+// on T or on Dual<T, 1>.
 //
-// Dual is generic in its scalar and its tangent count and mixes with plain
-// T coefficients (scalar_t<S>), so nesting needs no other code.  Only
-// templates and inline functions live here: every .cu that includes it
-// compiles on its own, and they link into one library.
+// Dual is generic in its tangent count and mixes with plain T coefficients
+// (scalar_t<S>).  Only templates and inline functions live here: every .cu
+// that includes it compiles on its own, and they link into one library.
 //
 // Numerics: no --use_fast_math (IEEE division and square root).  FMA
 // contraction is left on in the arithmetic, so f32 results differ from the
@@ -52,8 +51,8 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 // ---------------------------------------------------------------------------
-// forward-mode dual numbers: value + N directional derivatives, over any
-// scalar T (a float type or another Dual)
+// forward-mode dual numbers: value + N directional derivatives of a float
+// type T
 // ---------------------------------------------------------------------------
 
 template <typename T, int N>
@@ -62,33 +61,17 @@ struct Dual {
   T d[N];
 };
 
-// the plain float type under any nesting of Duals
-template <typename T>
+// the float type of a scalar S (S itself, or T under a Dual<T, N>)
+template <typename S>
 struct ScalarOf {
-  using type = T;
+  using type = S;
 };
 template <typename T, int N>
 struct ScalarOf<Dual<T, N>> {
-  using type = typename ScalarOf<T>::type;
+  using type = T;
 };
-template <typename T>
-using scalar_t = typename ScalarOf<T>::type;
-
-// a constant of type S (all tangents zero)
 template <typename S>
-struct Lift {
-  static __device__ __forceinline__ S of(S c) { return c; }
-};
-template <typename T, int N>
-struct Lift<Dual<T, N>> {
-  static __device__ __forceinline__ Dual<T, N> of(scalar_t<T> c) {
-    Dual<T, N> r;
-    r.v = Lift<T>::of(c);
-#pragma unroll
-    for (int i = 0; i < N; ++i) r.d[i] = Lift<T>::of(scalar_t<T>(0));
-    return r;
-  }
-};
+using scalar_t = typename ScalarOf<S>::type;
 
 // a variable: value v, tangent k seeded with 1
 template <typename T, int N>
@@ -245,6 +228,17 @@ struct Frozen {
   long long pcell; // row of the profile block in the (npsi, 16) table
 };
 
+// Coefficient k of a ray's psi block and of its profile block, for code
+// that takes other views of the blocks too (efit_window_bwd.cuh).
+template <typename T>
+__device__ __forceinline__ T psi_coef(const Frozen<T>& f, int k) {
+  return f.psi[k];
+}
+template <typename T>
+__device__ __forceinline__ T prof_coef(const Frozen<T>& f, int k) {
+  return f.prof[k];
+}
+
 template <typename T>
 struct Params {
   T rmin, dr, zmin, dz, psimin, dpsi, ne_scale, te_scale;
@@ -270,31 +264,17 @@ __device__ __forceinline__ int table_index(T x, T scale, T offset, int length) {
 }
 
 // ---------------------------------------------------------------------------
-// D, once, for any scalar type S (T, Dual<T, N>, Dual<Dual<T, N>, 1>)
+// D, once, for any scalar type S (T, Dual<T, N>)
 // ---------------------------------------------------------------------------
-
-// Table-gradient hooks of cold_plasma_D (TAB = true): inj[6] is added to
-// the six quantities through which D depends on the coefficient blocks -
-// the bicubic value and its u and v derivatives, then the ne, te and fpol
-// profile values - right after each is evaluated.  inj has value zero, so
-// D is unchanged; its tangents give D's derivatives with respect to those
-// quantities.  uvp[3] receives the cell-local coordinates (u, v, up) on
-// which the coefficient weights u^a v^b and up^k depend.
-template <typename S>
-struct TableHooks {
-  const S* inj;
-  S* uvp;
-};
 
 // models/dispersion.py cold_plasma over models/efit.py
 // FrozenCellEfit.plasma_quantities; the operation order follows the
 // PyTorch (and JAX) expressions.  Pressure and the ion temperature do not
 // enter cold-plasma D and are not evaluated.
-template <typename S, typename T, bool TAB = false>
+template <typename S, typename T>
 __device__ __forceinline__ S cold_plasma_D(const S& w, const S kvec[3],
                                            const S pos[3], const Frozen<T>& f,
-                                           const Params<T>& p,
-                                           TableHooks<S> hooks = {}) {
+                                           const Params<T>& p) {
   const S& x = pos[0];
   const S& y = pos[1];
   const S& z = pos[2];
@@ -322,28 +302,15 @@ __device__ __forceinline__ S cold_plasma_D(const S& w, const S kvec[3],
       dval_dv = cb + u * dval_dv;
     }
   }
-  if constexpr (TAB) {
-    val = val + hooks.inj[0];
-    dval_du = dval_du + hooks.inj[1];
-    dval_dv = dval_dv + hooks.inj[2];
-  }
   const S psi_r = dval_du / p.dr;
   const S psi_z = dval_dv / p.dz;
 
   // profiles (ops/spline.py eval_cubic_multi_block) at the frozen cell
   const S up = (val - p.psimin) / p.dpsi - f.pidx;
   const T* q = f.prof;
-  S ne_v = q[0] + up * (q[1] + up * (q[2] + up * q[3]));
-  S te_v = q[4] + up * (q[5] + up * (q[6] + up * q[7]));
-  S fpol = q[12] + up * (q[13] + up * (q[14] + up * q[15]));
-  if constexpr (TAB) {
-    ne_v = ne_v + hooks.inj[3];
-    te_v = te_v + hooks.inj[4];
-    fpol = fpol + hooks.inj[5];
-    hooks.uvp[0] = u;
-    hooks.uvp[1] = v;
-    hooks.uvp[2] = up;
-  }
+  const S ne_v = q[0] + up * (q[1] + up * (q[2] + up * q[3]));
+  const S te_v = q[4] + up * (q[5] + up * (q[6] + up * q[7]));
+  const S fpol = q[12] + up * (q[13] + up * (q[14] + up * q[15]));
   const S ne = p.ne_scale * ne_v;
   const S te = p.te_scale * te_v;
 
@@ -427,12 +394,28 @@ __device__ __forceinline__ void rhs_from_grad(const T g[7], T out[6]) {
   out[5] = g[3] / dw;
 }
 
-template <typename T>
-__device__ __forceinline__ void ray_rhs(const T s[8], const Frozen<T>& f,
+// How the stepping templates below take the RHS: ForwardGrad by ray_grad
+// and rhs_from_grad (K1); the backward kernels use AdjointGrad
+// (efit_adjoint.cuh), over their own view of the blocks (the templates' F).
+struct ForwardGrad {
+  template <typename T>
+  static __device__ __forceinline__ void grad(const T s[8],
+                                              const Frozen<T>& f,
+                                              const Params<T>& p, T g[7]) {
+    ray_grad(s, f, p, g);
+  }
+  template <typename T>
+  static __device__ __forceinline__ void rhs(const T g[7], T out[6]) {
+    rhs_from_grad(g, out);
+  }
+};
+
+template <typename T, typename G = ForwardGrad, typename F>
+__device__ __forceinline__ void ray_rhs(const T s[8], const F& f,
                                         const Params<T>& p, T out[6]) {
   T g[7];
-  ray_grad(s, f, p, g);
-  rhs_from_grad(g, out);
+  G::grad(s, f, p, g);
+  G::rhs(g, out);
 }
 
 // state + h * derivs on the six integrated leaves (ops/integrators.py
@@ -447,26 +430,26 @@ __device__ __forceinline__ void shift(const T s[8], const T d[6], T h, T o[8]) {
 
 // the unfolded rk2/rk4 increments of the six integrated leaves
 // (ops/integrators.py _rk2_sum/_rk4_sum)
-template <typename T, int METHOD>
-__device__ __forceinline__ void increment(const T s[8], const Frozen<T>& f,
+template <typename T, int METHOD, typename G = ForwardGrad, typename F>
+__device__ __forceinline__ void increment(const T s[8], const F& f,
                                           const Params<T>& p, T inc[6]) {
   T d1[6], d2[6], st[8];
-  ray_rhs(s, f, p, d1);
+  ray_rhs<T, G>(s, f, p, d1);
   if (METHOD == 2) {
     shift(s, d1, p.dt, st);
-    ray_rhs(st, f, p, d2);
+    ray_rhs<T, G>(st, f, p, d2);
 #pragma unroll
     for (int j = 0; j < 6; ++j) inc[j] = p.half * (d1[j] + d2[j]);
   } else {
     T d3[6];
     shift(s, d1, p.half, st);
-    ray_rhs(st, f, p, d2);
+    ray_rhs<T, G>(st, f, p, d2);
     shift(s, d2, p.half, st);
-    ray_rhs(st, f, p, d3);
+    ray_rhs<T, G>(st, f, p, d3);
 #pragma unroll
     for (int j = 0; j < 6; ++j) d2[j] = d2[j] + d3[j];
     shift(s, d3, p.dt, st);
-    ray_rhs(st, f, p, d3);   // d4
+    ray_rhs<T, G>(st, f, p, d3);   // d4
 #pragma unroll
     for (int j = 0; j < 6; ++j)
       inc[j] = p.sixth * (d1[j] + T(2) * d2[j] + d3[j]);
@@ -474,11 +457,11 @@ __device__ __forceinline__ void increment(const T s[8], const Frozen<T>& f,
 }
 
 // one plain substep in place (t advances by dt, w stays)
-template <typename T, int METHOD>
-__device__ __forceinline__ void substep(T s[8], const Frozen<T>& f,
+template <typename T, int METHOD, typename G = ForwardGrad, typename F>
+__device__ __forceinline__ void substep(T s[8], const F& f,
                                         const Params<T>& p) {
   T inc[6];
-  increment<T, METHOD>(s, f, p, inc);
+  increment<T, METHOD, G>(s, f, p, inc);
   s[ST_T] = s[ST_T] + p.dt;
 #pragma unroll
   for (int j = 0; j < 6; ++j) s[ST_X + j] = s[ST_X + j] + inc[j];

@@ -24,8 +24,8 @@
 //     in efit_common.cuh), and evaluated on Dual<T, 7> numbers whose seven
 //     tangents are seeded on (w, x, y, z, kx, ky, kz).  The TPU kernel
 //     traced jax.grad of D instead; CUDA has no autodiff.  The backward
-//     kernels (efit_window_bwd.cu) evaluate the same template on nested
-//     duals.
+//     kernels (efit_window_bwd.cu) take D's gradient by a reverse sweep
+//     written by hand (efit_adjoint.cuh).
 //
 // What bounds it on this card: per ray and window it moves 64 B of state
 // in and out (128 B compensated) in f32 and gathers 128 B of coefficients,

@@ -22,33 +22,49 @@
 //      the rest from the nearest one;
 //   2. reverse sweep: the VJP of one substep at a time, from the last.
 //      The rk2/rk4 stage algebra is transposed by hand; at each stage
-//      point p with cotangent c (6 values) on the RHS F = (-D_k, D_x)/D_w
+//      point with cotangent c (6 values) on the RHS F = (-D_k, D_x)/D_w
 //      and g = grad D over (w, x, y, z, kx, ky, kz):
 //        v   = (dF/dg)^T c:  v_k = -c_x / D_w,  v_x = c_k / D_w,
 //              v_w = -(c . F) / D_w;
-//        the state cotangent is then H v, H the Hessian of D, from ONE
-//        evaluation of cold_plasma_D over Dual<Dual<T, 7>, 1> whose outer
-//        tangent is seeded with v (forward over forward; the 7 x 7 Hessian
-//        is never formed).  t's cotangent passes through unchanged; w is
-//        not integrated but D depends on it, so it collects H v's w part.
-//   3. K3 adds six inner tangents on the quantities through which D
-//      depends on the blocks (cold_plasma_D's TableHooks: the bicubic
-//      value and its u, v derivatives; the ne, te, fpol profile values).
-//      Each is linear in its block with weights u^a v^b (and their u, v
-//      derivatives) or up^k, so with A = the derivative along v of dD/dq
-//      and B = dD/dq, a coefficient's cotangent is A W + B (dW along v).
+//        the state cotangent is then H v, H the Hessian of D: forward over
+//        reverse, the hand-written reverse sweep of D (efit_adjoint.cuh)
+//        run once on Dual<T, 1> with the inputs' tangents seeded with v.
+//        t's cotangent passes through unchanged; w is not integrated but D
+//        depends on it, so it collects H v's w part.
+//   3. K3 also needs the six quantities through which D depends on the
+//      blocks (the bicubic value and its u, v derivatives; the ne, te, fpol
+//      profile values): the same sweep gives their adjoints B = dD/dq and,
+//      as their tangents, A = the derivative of B along v.  Each quantity
+//      is linear in its block with weights W = u^a v^b (and their u, v
+//      derivatives) or up^k, so a coefficient's cotangent is A W + B (dW
+//      along v).
 //
-// What bounds it on this card: arithmetic and registers.  Per ray and
-// window it moves 128 B of state and cotangent in, 64 B out (plus 256 B of
-// block cotangents for K3) in f32, against K x stages x (one 7-tangent RHS
-// and one nested evaluation of about three times its cost).  A nested dual
-// scalar holds 16 values (28 with the six table tangents), far past the
-// registers a thread has, so the live set spills to local memory (L1); the
-// ptxas summary in chip_smoke.py shows how much.  Simple and right first:
-// no tangent sparsity, no shared-memory staging yet.
+// What bounds it on this card: arithmetic.  Per ray and window it moves
+// 128 B of state and cotangent in and 64 B out (plus 256 B of block
+// cotangents for K3) in f32, against 38 065 operations (K3 47 105) at
+// K = 10, rk2 (tools/count_ops.py).  The design before this one evaluated
+// cold_plasma_D on nested duals, Dual<Dual<T, 7>, 1> (28 values a scalar
+// in K3), recomputed each stage's gradient with 7 forward tangents and
+// spilled 1.3-33 KB a thread: 225 677 operations (K3 349 677).  Now:
+//   * the stage VJP is one scalar sweep of D for g (391 operations, 2.2
+//     times D's 175) and one on Dual<T, 1> for H v (1109 in all; K3 1561
+//     with its weights), against 2196 and 7062 (K3 13 262) before, and
+//     the forward sweep advances with the same adjoint gradient (827 a
+//     rk2 substep against K1's 4435);
+//   * the sweep divides by five reciprocals (1/r, 1/w, 1/|B|, 1/den per
+//     species) and the RHS by one: an IEEE division is a sequence of
+//     instructions, and the sweep on Dual<T, 1> had about 140;
+//   * the 32 coefficients of a ray's blocks sit in shared memory (16 KB a
+//     block in f32), not in registers through both sweeps: f32 K2 takes
+//     157 registers (rk2) with no spills, 3 blocks an SM.
+// More blocks an SM (__launch_bounds__ minimum 3 or 4) spill and run
+// slower; tools/bench_bwd_variants.py builds and times such variants.
 //
-// Numerics: as K1 (efit_common.cuh).  The forward sweep runs K1's own
-// substep code, so the recomputed states are K1's.
+// Numerics: as K1 (efit_common.cuh): IEEE division and square root, FMA
+// contraction on.  The states the sweeps recompute differ from K1's in
+// rounding only (the adjoint gradient and reciprocals); the kernels are held
+// to autograd of the plain window.  tests/test_torch_efit_bwd_host.py runs
+// this source on the host, against the plain versions.
 //
 // Build: each of the four launch_bwd<T, TAB> is instantiated in a source
 // of its own (efit_window_bwd.cu: K2 float, with the C interface;
@@ -58,11 +74,30 @@
 
 #pragma once
 
-#include "efit_common.cuh"
+#include "efit_adjoint.cuh"
 
 namespace gft {
 
 constexpr int kSlots = 16;   // stored substep inputs per thread
+
+// A ray's two coefficient blocks in shared memory: column threadIdx.x of
+// its thread block's [32][kThreads] array (psi rows 0-15, profile rows
+// 16-31), so that the 32 values hold no registers through the sweeps and
+// neighbouring threads read neighbouring words.  The loads are volatile:
+// the compiler may not hoist them out of the loops into registers again.
+template <typename T>
+struct SharedBlocks {
+  const volatile T* col;
+  T iu, jv, pidx;   // frozen cell indices (as floats)
+};
+template <typename T>
+__device__ __forceinline__ T psi_coef(const SharedBlocks<T>& f, int k) {
+  return f.col[k * kThreads];
+}
+template <typename T>
+__device__ __forceinline__ T prof_coef(const SharedBlocks<T>& f, int k) {
+  return f.col[(16 + k) * kThreads];
+}
 
 // The VJP at one stage point s (8 leaves) with the partials g and the RHS
 // F there, for the cotangent c on F: adds H v to acc[7] (w, x, y, z, kx,
@@ -70,12 +105,10 @@ constexpr int kSlots = 16;   // stored substep inputs per thread
 template <typename T, bool TAB>
 __device__ __forceinline__ void stage_vjp(const T s[8], const T g[7],
                                           const T F[6], const T c[6],
-                                          const Frozen<T>& f,
+                                          const SharedBlocks<T>& f,
                                           const Params<T>& p, T acc[7],
                                           T dpsi[16], T dprof[16]) {
-  constexpr int NI = TAB ? kTangents + 6 : kTangents;
-  using In = Dual<T, NI>;
-  using S = Dual<In, 1>;
+  using D1 = Dual<T, 1>;
 
   const T inv = T(1) / g[0];
   T dir[7];
@@ -89,48 +122,31 @@ __device__ __forceinline__ void stage_vjp(const T s[8], const T g[7],
     dir[4 + i] = -c[i] * inv;
   }
 
-  // leaf q: value s_q with inner tangent q; outer tangent dir_q
-  S leaf[7];
+  // forward over reverse: the adjoint sweep on one tangent seeded with dir
+  D1 st[7], gv[7], bv[6], uvp[3];
   const int from[7] = {ST_W, ST_X, ST_Y, ST_Z, ST_KX, ST_KY, ST_KZ};
 #pragma unroll
   for (int q = 0; q < 7; ++q) {
-    leaf[q].v = Lift<In>::of(s[from[q]]);
-    leaf[q].v.d[q] = T(1);
-    leaf[q].d[0] = Lift<In>::of(dir[q]);
+    st[q].v = s[from[q]];
+    st[q].d[0] = dir[q];
   }
-  const S pos[3] = {leaf[1], leaf[2], leaf[3]};
-  const S kvec[3] = {leaf[4], leaf[5], leaf[6]};
-
-  S inj[6], uvp[3];
-  if constexpr (TAB) {
+  cold_plasma_adjoint(st, f, p, gv, bv, uvp);
 #pragma unroll
-    for (int m = 0; m < 6; ++m) {
-      inj[m] = Lift<S>::of(T(0));
-      inj[m].v.d[kTangents + m] = T(1);
-    }
-  }
-  const S d = cold_plasma_D<S, T, TAB>(leaf[0], kvec, pos, f, p,
-                                       TableHooks<S>{inj, uvp});
-#pragma unroll
-  for (int q = 0; q < 7; ++q) acc[q] += d.d[0].d[q];
+  for (int q = 0; q < 7; ++q) acc[q] += gv[q].d[0];
 
   if constexpr (TAB) {
-    using D1 = Dual<T, 1>;
     D1 pw[3][4];   // powers of u, v, up with their derivatives along dir
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      D1 x1;
-      x1.v = uvp[k].v.v;
-      x1.d[0] = uvp[k].d[0].v;
-      pw[k][0] = Lift<D1>::of(T(1));
+      pw[k][0] = D1{T(1), {T(0)}};
 #pragma unroll
-      for (int e = 1; e < 4; ++e) pw[k][e] = pw[k][e - 1] * x1;
+      for (int e = 1; e < 4; ++e) pw[k][e] = pw[k][e - 1] * uvp[k];
     }
     T A[6], B[6];
 #pragma unroll
     for (int m = 0; m < 6; ++m) {
-      A[m] = d.d[0].d[kTangents + m];
-      B[m] = d.v.d[kTangents + m];
+      A[m] = bv[m].d[0];
+      B[m] = bv[m].v;
     }
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
@@ -161,24 +177,25 @@ __device__ __forceinline__ void stage_vjp(const T s[8], const T g[7],
   }
 }
 
-// Transpose of one plain substep (substep<T, METHOD>) at its input s:
-// ct (8) holds the cotangent of the substep's output and becomes that of
-// its input.
+// Transpose of one plain substep (substep<T, METHOD, AdjointGrad>) at its
+// input s: ct (8) holds the cotangent of the substep's output and becomes
+// that of its input.
 template <typename T, int METHOD, bool TAB>
-__device__ __forceinline__ void substep_vjp(const T s[8], const Frozen<T>& f,
+__device__ __forceinline__ void substep_vjp(const T s[8],
+                                            const SharedBlocks<T>& f,
                                             const Params<T>& p, T ct[8],
                                             T dpsi[16], T dprof[16]) {
   T acc[7];
 #pragma unroll
   for (int q = 0; q < 7; ++q) acc[q] = T(0);
   T g1[7], d1[6], s2[8], g2[7], d2[6], c[6];
-  ray_grad(s, f, p, g1);
-  rhs_from_grad(g1, d1);
+  AdjointGrad::grad(s, f, p, g1);
+  AdjointGrad::rhs(g1, d1);
   if (METHOD == 2) {
     // inc = dt/2 (d1 + d2), d2 = F(s + dt d1)
     shift(s, d1, p.dt, s2);
-    ray_grad(s2, f, p, g2);
-    rhs_from_grad(g2, d2);
+    AdjointGrad::grad(s2, f, p, g2);
+    AdjointGrad::rhs(g2, d2);
 #pragma unroll
     for (int j = 0; j < 6; ++j) c[j] = p.half * ct[ST_X + j];
     stage_vjp<T, TAB>(s2, g2, d2, c, f, p, acc, dpsi, dprof);
@@ -189,14 +206,14 @@ __device__ __forceinline__ void substep_vjp(const T s[8], const Frozen<T>& f,
     // d3 = F(s + dt/2 d2), d4 = F(s + dt d3)
     T s3[8], g3[7], d3[6], s4[8], g4[7], d4[6], a[7];
     shift(s, d1, p.half, s2);
-    ray_grad(s2, f, p, g2);
-    rhs_from_grad(g2, d2);
+    AdjointGrad::grad(s2, f, p, g2);
+    AdjointGrad::rhs(g2, d2);
     shift(s, d2, p.half, s3);
-    ray_grad(s3, f, p, g3);
-    rhs_from_grad(g3, d3);
+    AdjointGrad::grad(s3, f, p, g3);
+    AdjointGrad::rhs(g3, d3);
     shift(s, d3, p.dt, s4);
-    ray_grad(s4, f, p, g4);
-    rhs_from_grad(g4, d4);
+    AdjointGrad::grad(s4, f, p, g4);
+    AdjointGrad::rhs(g4, d4);
     const T third = T(2) * p.sixth;
 #pragma unroll
     for (int q = 0; q < 7; ++q) a[q] = T(0);
@@ -244,7 +261,14 @@ efit_window_bwd_kernel(StatePtrs<T> in, StatePtrs<T> ct_in,
   T base[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) base[k] = in.p[k][i];
-  const Frozen<T> f = freeze(base, psi_tab, prof_tab, p);
+  __shared__ T blocks[32][kThreads];
+  const Frozen<T> fz = freeze(base, psi_tab, prof_tab, p);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    blocks[k][threadIdx.x] = fz.psi[k];
+    blocks[16 + k][threadIdx.x] = fz.prof[k];
+  }
+  const SharedBlocks<T> f{&blocks[0][threadIdx.x], fz.iu, fz.jv, fz.pidx};
 
   // forward sweep: the input of every stride-th substep
   const int stride = (steps + kSlots - 1) / kSlots;
@@ -258,7 +282,7 @@ efit_window_bwd_kernel(StatePtrs<T> in, StatePtrs<T> ct_in,
 #pragma unroll
         for (int j = 0; j < 6; ++j) slot[k / stride][j] = s[ST_X + j];
       }
-      if (k + 1 < steps) substep<T, METHOD>(s, f, p);
+      if (k + 1 < steps) substep<T, METHOD, AdjointGrad>(s, f, p);
     }
   }
 
@@ -276,7 +300,8 @@ efit_window_bwd_kernel(StatePtrs<T> in, StatePtrs<T> ct_in,
     s[ST_W] = base[ST_W];
 #pragma unroll
     for (int j = 0; j < 6; ++j) s[ST_X + j] = slot[k / stride][j];
-    for (int r = (k / stride) * stride; r < k; ++r) substep<T, METHOD>(s, f, p);
+    for (int r = (k / stride) * stride; r < k; ++r)
+      substep<T, METHOD, AdjointGrad>(s, f, p);
     substep_vjp<T, METHOD, TAB>(s, f, p, ct, dpsi, dprof);
   }
 
@@ -288,8 +313,8 @@ efit_window_bwd_kernel(StatePtrs<T> in, StatePtrs<T> ct_in,
       dpsi_out[k * n + i] = dpsi[k];
       dprof_out[k * n + i] = dprof[k];
     }
-    cell_out[i] = f.cell;
-    pcell_out[i] = f.pcell;
+    cell_out[i] = fz.cell;
+    pcell_out[i] = fz.pcell;
   }
 }
 

@@ -28,6 +28,10 @@ shuffle tree counts the 31 adds a sum whose results reach lane 0.
 ``kernels.deposit.DEPOSIT_OPS_PER_PAIR``, ``kernels.vmec_geom.JET_OPS``
 and ``kernels.vmec_modes.MODE_SUM_OPS`` must equal the counts here
 (tests/test_torch_common.py checks all of them where g++ is present).
+
+:func:`host_library` is the host build itself; with ``every_thread`` it
+runs a launch over every block and thread, so a kernel's C interface runs
+on host memory (tests/test_torch_efit_bwd_host.py runs K2 and K3 so).
 """
 
 from __future__ import annotations
@@ -80,7 +84,24 @@ inline double __dsub_rn(double a, double b) { return a - b; }
 inline void sincosf(float a, float* s, float* c) { *s = std::sin(a); *c = std::cos(a); }
 template <class T> T __ldg(const T* p) { return *p; }
 template <class T> T __shfl_down_sync(unsigned, T v, int) { return v; }
+#ifdef GFT_EVERY_THREAD
+// a launch runs the kernel body once for every (block, thread), in order
+template <class F> void host_launch(dim3 grid, dim3 block, F f) {
+  gridDim = grid;
+  blockDim = block;
+  for (unsigned b = 0; b < grid.x; ++b)
+    for (unsigned t = 0; t < block.x; ++t) {
+      blockIdx = dim3(b, 0, 0);
+      threadIdx = dim3(t, 0, 0);
+      f();
+    }
+  blockIdx = threadIdx = dim3(0, 0, 0);
+  blockDim = gridDim = dim3(1);
+}
+#else
+// the counter's launch: one call, for the one work item it sets up
 template <class F> void host_launch(dim3, dim3, F f) { f(); }
+#endif
 
 // the counting scalar.  With g_split set, a value carries whether it
 // depends on the work item (`ray`, set by the harness on its inputs), and
@@ -94,6 +115,8 @@ struct Counted {
   Counted() : v(0), ray(false) {}
   Counted(double a) : v(a), ray(false) {}
   Counted(double a, bool r) : v(a), ray(r) {}
+  // a read through a volatile pointer (shared memory that stays there)
+  Counted(const volatile Counted& a) : v(a.v), ray(a.ray) {}
   explicit operator int() const { return static_cast<int>(v); }
   static Counted op(double r, bool ray, int n = 1) {
     (g_split && !ray ? g_table_ops : g_ops) += n;
@@ -274,11 +297,31 @@ def _host_source(src: str) -> str:
     return "".join(out)
 
 
-def _build(tmp: pathlib.Path) -> pathlib.Path:
-    """Compile the host programs into one shared library."""
-    (tmp / "cuda_runtime.h").write_text(_RUNTIME)
+def host_library(tmp: pathlib.Path, units: dict, *, every_thread=False,
+                 flags=("-O0",)) -> pathlib.Path:
+    """Compile ``units`` ({file name: C++ source}) with ``g++`` into one
+    shared library in ``tmp``, over the stand-in ``cuda_runtime.h`` and
+    every source of ``csrc/`` with its launches rewritten (a unit includes
+    them by name).  With ``every_thread`` a launch runs the kernel once for
+    each (block, thread), as the card would, so the C interfaces run on
+    host memory; otherwise once, for the counter."""
+    (tmp / "cuda_runtime.h").write_text(
+        ("#define GFT_EVERY_THREAD\n" if every_thread else "") + _RUNTIME)
     for src in list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")):
         (tmp / src.name).write_text(_host_source(src.read_text()))
+    for name, text in units.items():
+        (tmp / name).write_text(text)
+    lib = tmp / "libhost.so"
+    cmd = ["g++", "-std=c++17", *flags, "-fPIC", "-shared", "-w", "-I",
+           str(tmp), "-o", str(lib), *[str(tmp / n) for n in units]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed:\n{proc.stderr[-4000:]}")
+    return lib
+
+
+def _build(tmp: pathlib.Path) -> pathlib.Path:
+    """Compile the counting programs into one shared library."""
     units = {
         "window.cpp": ('#include "cuda_runtime.h"\n'
                        'namespace gft { using ::Counted; using ::g_ops; }\n'
@@ -298,15 +341,7 @@ def _build(tmp: pathlib.Path) -> pathlib.Path:
                            '\n#include "vmec_modes.cu"\n'
                            + _VMEC_MODES_HARNESS),
     }
-    for name, text in units.items():
-        (tmp / name).write_text(text)
-    lib = tmp / "libcount.so"
-    cmd = ["g++", "-std=c++17", "-O0", "-fPIC", "-shared", "-w", "-I",
-           str(tmp), "-o", str(lib), *[str(tmp / n) for n in units]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed:\n{proc.stderr[-4000:]}")
-    return lib
+    return host_library(tmp, units)
 
 
 def count() -> dict:
