@@ -41,13 +41,17 @@
 //
 // What bounds it on this card: arithmetic.  Per ray and window it moves
 // 128 B of state and cotangent in and 64 B out (plus 256 B of block
-// cotangents for K3) in f32, against 38 065 operations (K3 47 105) at
-// K = 10, rk2 (tools/count_ops.py).  The design before this one evaluated
-// cold_plasma_D on nested duals, Dual<Dual<T, 7>, 1> (28 values a scalar
-// in K3), recomputed each stage's gradient with 7 forward tangents and
-// spilled 1.3-33 KB a thread: 225 677 operations (K3 349 677).  Now:
+// cotangents for K3) in f32.  The function needs 22 892 operations (K3
+// 26 212) at K = 10, rk2, each once (tools/count_ops.py); this source
+// does 38 065 (K3 41 385), because it takes each stage's gradient of D
+// three times: in the forward sweep, again in substep_vjp, and as the
+// value part of the Dual<T, 1> sweep.  Storing them would cost registers
+// or local memory.  The design before this one evaluated cold_plasma_D on
+// nested duals, Dual<Dual<T, 7>, 1> (28 values a scalar in K3),
+// recomputed each stage's gradient with 7 forward tangents and spilled
+// 1.3-33 KB a thread: 225 677 operations (K3 349 677).  Now:
 //   * the stage VJP is one scalar sweep of D for g (391 operations, 2.2
-//     times D's 175) and one on Dual<T, 1> for H v (1109 in all; K3 1561
+//     times D's 175) and one on Dual<T, 1> for H v (1109 in all; K3 1275
 //     with its weights), against 2196 and 7062 (K3 13 262) before, and
 //     the forward sweep advances with the same adjoint gradient (827 a
 //     rk2 substep against K1's 4435);
@@ -57,8 +61,8 @@
 //   * the 32 coefficients of a ray's blocks sit in shared memory (16 KB a
 //     block in f32), not in registers through both sweeps: f32 K2 takes
 //     157 registers (rk2) with no spills, 3 blocks an SM.
-// More blocks an SM (__launch_bounds__ minimum 3 or 4) spill and run
-// slower; tools/bench_bwd_variants.py builds and times such variants.
+// A __launch_bounds__ minimum of 3 or 4 blocks an SM spilled and ran
+// slower on the card.
 //
 // Numerics: as K1 (efit_common.cuh): IEEE division and square root, FMA
 // contraction on.  The states the sweeps recompute differ from K1's in
@@ -135,44 +139,51 @@ __device__ __forceinline__ void stage_vjp(const T s[8], const T g[7],
   for (int q = 0; q < 7; ++q) acc[q] += gv[q].d[0];
 
   if constexpr (TAB) {
-    D1 pw[3][4];   // powers of u, v, up with their derivatives along dir
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      pw[k][0] = D1{T(1), {T(0)}};
-#pragma unroll
-      for (int e = 1; e < 4; ++e) pw[k][e] = pw[k][e - 1] * uvp[k];
-    }
+    // Coefficient (a, b) of the psi block weighs val by P = u^a v^b,
+    // dval_du by P_u and dval_dv by P_v; its cotangent is
+    //   A0 P + B0 P' + A1 P_u + B1 P_u' + A2 P_v + B2 P_v'
+    // (' along dir: P' = P_u du + P_v dv).  With U = u^a, V = v^b and their
+    // derivatives that is X_a V + Y_a V_v + Z_a V_vv, where
+    //   X_a = A0 U + (B0 du + A1) U_u + B1 du U_uu,
+    //   Y_a = (B0 dv + A2) U + (B1 dv + B2 du) U_u,   Z_a = B2 dv U.
+    // Written out power by power, with no product by a constant 0 or 1.
+    const T u = uvp[0].v, v = uvp[1].v, up = uvp[2].v;
+    const T du = uvp[0].d[0], dv = uvp[1].d[0], dup = uvp[2].d[0];
     T A[6], B[6];
 #pragma unroll
     for (int m = 0; m < 6; ++m) {
       A[m] = bv[m].d[0];
       B[m] = bv[m].v;
     }
+    const T u2 = u * u, v2 = v * v;
+    const T xs = B[0] * du + A[1], xt = B[1] * du;
+    const T ys = B[0] * dv + A[2], yt = B[1] * dv + B[2] * du;
+    const T zs = B[2] * dv;
+    const T X[4] = {A[0], A[0] * u + xs,
+                    A[0] * u2 + T(2) * (xs * u + xt),
+                    A[0] * (u2 * u) + T(3) * (xs * u2) + T(6) * (xt * u)};
+    const T Y[4] = {ys, ys * u + yt, ys * u2 + T(2) * (yt * u),
+                    ys * (u2 * u) + T(3) * (yt * u2)};
+    const T Z[4] = {zs, zs * u, zs * u2, zs * (u2 * u)};
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const D1 wv = pw[0][a] * pw[1][b];
-        T sum = A[0] * wv.v + B[0] * wv.d[0];
-        if (a > 0) {
-          const D1 wu = T(a) * (pw[0][a - 1] * pw[1][b]);
-          sum += A[1] * wu.v + B[1] * wu.d[0];
-        }
-        if (b > 0) {
-          const D1 wz = T(b) * (pw[0][a] * pw[1][b - 1]);
-          sum += A[2] * wz.v + B[2] * wz.d[0];
-        }
-        dpsi[a * 4 + b] += sum;
-      }
+      dpsi[a * 4] += X[a];
+      dpsi[a * 4 + 1] += X[a] * v + Y[a];
+      dpsi[a * 4 + 2] += X[a] * v2 + T(2) * (Y[a] * v + Z[a]);
+      dpsi[a * 4 + 3] += X[a] * (v2 * v) + T(3) * (Y[a] * v2) +
+                         T(6) * (Z[a] * v);
     }
-    // profile rows ne, te, fpol (pressure does not enter D)
+    // profile rows ne, te, fpol (pressure does not enter D): weights up^k
+    const T up2 = up * up;
     const int row[3] = {0, 1, 3};
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        dprof[row[m] * 4 + k] += A[3 + m] * pw[2][k].v +
-                                 B[3 + m] * pw[2][k].d[0];
+      const T a = A[3 + m], bd = B[3 + m] * dup;
+      T* d = dprof + row[m] * 4;
+      d[0] += a;
+      d[1] += a * up + bd;
+      d[2] += a * up2 + T(2) * (bd * up);
+      d[3] += a * (up2 * up) + T(3) * (bd * up2);
     }
   }
 }

@@ -15,7 +15,10 @@ compiler contracts any pair into an FMA.
 
 Prints one JSON object: operations per ray and window of K substeps for
 the window kernels K1 (rk2/rk4, plain/compensated), K2 and K3 (rk2/rk4),
-at K = 10 (the main path's freeze window) and per substep; per particle
+at K = 10 (the main path's freeze window) and per substep.  K2 and K3
+count each operation of the function once (``_window_needed``): their
+source repeats the primal work, and its own count stands beside as
+``source_per_ray_window``.  Then per particle
 and step for the slab push K5; per (particle, grid point) pair for the
 deposit K6; per ray, as a fixed part and a part per mode, for the VMEC
 geometry jet K4 and the mode sums K7 (a sincos counts two).  K4's
@@ -104,45 +107,47 @@ template <class F> void host_launch(dim3, dim3, F f) { f(); }
 #endif
 
 // the counting scalar.  With g_split set, a value carries whether it
-// depends on the work item (`ray`, set by the harness on its inputs), and
-// an operation none of whose operands does goes to g_table_ops instead:
-// it depends on the tables alone, and a table could hold its result.
-inline long long g_ops = 0, g_table_ops = 0;
+// depends on an input the harness tags (`tag`), and an operation none of
+// whose operands does goes to g_untagged_ops instead.  K4's harness tags
+// the ray's coordinates: an untagged operation depends on the tables
+// alone, and a table could hold its result.  K2/K3's tags the cotangents:
+// an untagged operation is primal work.
+inline long long g_ops = 0, g_untagged_ops = 0;
 inline bool g_split = false;
 struct Counted {
   double v;
-  bool ray;
-  Counted() : v(0), ray(false) {}
-  Counted(double a) : v(a), ray(false) {}
-  Counted(double a, bool r) : v(a), ray(r) {}
+  bool tag;
+  Counted() : v(0), tag(false) {}
+  Counted(double a) : v(a), tag(false) {}
+  Counted(double a, bool r) : v(a), tag(r) {}
   // a read through a volatile pointer (shared memory that stays there)
-  Counted(const volatile Counted& a) : v(a.v), ray(a.ray) {}
+  Counted(const volatile Counted& a) : v(a.v), tag(a.tag) {}
   explicit operator int() const { return static_cast<int>(v); }
-  static Counted op(double r, bool ray, int n = 1) {
-    (g_split && !ray ? g_table_ops : g_ops) += n;
-    return Counted(r, ray);
+  static Counted op(double r, bool tag, int n = 1) {
+    (g_split && !tag ? g_untagged_ops : g_ops) += n;
+    return Counted(r, tag);
   }
-  Counted& operator+=(Counted b) { return *this = op(v + b.v, ray || b.ray); }
-  Counted& operator-=(Counted b) { return *this = op(v - b.v, ray || b.ray); }
-  friend Counted operator+(Counted a, Counted b) { return op(a.v + b.v, a.ray || b.ray); }
-  friend Counted operator-(Counted a, Counted b) { return op(a.v - b.v, a.ray || b.ray); }
-  friend Counted operator*(Counted a, Counted b) { return op(a.v * b.v, a.ray || b.ray); }
-  friend Counted operator/(Counted a, Counted b) { return op(a.v / b.v, a.ray || b.ray); }
-  friend Counted operator-(Counted a) { return Counted(-a.v, a.ray); }
-  friend Counted gsqrt(Counted a) { return op(std::sqrt(a.v), a.ray); }
-  friend Counted bsqrt(Counted a) { return op(std::sqrt(a.v), a.ray); }
-  friend Counted dexp(Counted a) { return op(std::exp(a.v), a.ray); }
-  friend Counted recip(Counted a) { return op(1.0 / a.v, a.ray); }
-  friend Counted gmax(Counted a, Counted b) { return op(std::fmax(a.v, b.v), a.ray || b.ray); }
-  friend Counted gmin(Counted a, Counted b) { return op(std::fmin(a.v, b.v), a.ray || b.ray); }
-  friend Counted mul_rn(Counted a, Counted b) { return op(a.v * b.v, a.ray || b.ray); }
-  friend Counted add_rn(Counted a, Counted b) { return op(a.v + b.v, a.ray || b.ray); }
-  friend Counted sub_rn(Counted a, Counted b) { return op(a.v - b.v, a.ray || b.ray); }
+  Counted& operator+=(Counted b) { return *this = op(v + b.v, tag || b.tag); }
+  Counted& operator-=(Counted b) { return *this = op(v - b.v, tag || b.tag); }
+  friend Counted operator+(Counted a, Counted b) { return op(a.v + b.v, a.tag || b.tag); }
+  friend Counted operator-(Counted a, Counted b) { return op(a.v - b.v, a.tag || b.tag); }
+  friend Counted operator*(Counted a, Counted b) { return op(a.v * b.v, a.tag || b.tag); }
+  friend Counted operator/(Counted a, Counted b) { return op(a.v / b.v, a.tag || b.tag); }
+  friend Counted operator-(Counted a) { return Counted(-a.v, a.tag); }
+  friend Counted gsqrt(Counted a) { return op(std::sqrt(a.v), a.tag); }
+  friend Counted bsqrt(Counted a) { return op(std::sqrt(a.v), a.tag); }
+  friend Counted dexp(Counted a) { return op(std::exp(a.v), a.tag); }
+  friend Counted recip(Counted a) { return op(1.0 / a.v, a.tag); }
+  friend Counted gmax(Counted a, Counted b) { return op(std::fmax(a.v, b.v), a.tag || b.tag); }
+  friend Counted gmin(Counted a, Counted b) { return op(std::fmin(a.v, b.v), a.tag || b.tag); }
+  friend Counted mul_rn(Counted a, Counted b) { return op(a.v * b.v, a.tag || b.tag); }
+  friend Counted add_rn(Counted a, Counted b) { return op(a.v + b.v, a.tag || b.tag); }
+  friend Counted sub_rn(Counted a, Counted b) { return op(a.v - b.v, a.tag || b.tag); }
   // one sine and one cosine
   friend void gsincos(Counted a, Counted* s, Counted* c) {
-    op(0.0, a.ray, 2);
-    *s = Counted(std::sin(a.v), a.ray);
-    *c = Counted(std::cos(a.v), a.ray);
+    op(0.0, a.tag, 2);
+    *s = Counted(std::sin(a.v), a.tag);
+    *c = Counted(std::cos(a.v), a.tag);
   }
 };
 
@@ -176,6 +181,17 @@ StatePtrs<Counted> ptrs(Counted* base) {
   for (int k = 0; k < 16; ++k) p.p[k] = base + k;
   return p;
 }
+
+void run_bwd(int method, int tab, int steps, const Params<Counted>& p) {
+  if (method == 2 && !tab)
+    efit_window_bwd_kernel<Counted, 2, false>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
+  if (method == 2 && tab)
+    efit_window_bwd_kernel<Counted, 2, true>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
+  if (method == 4 && !tab)
+    efit_window_bwd_kernel<Counted, 4, false>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
+  if (method == 4 && tab)
+    efit_window_bwd_kernel<Counted, 4, true>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
+}
 }  // namespace gft
 
 extern "C" long long count_window(int fwd, int method, int flag, int steps) {
@@ -192,14 +208,39 @@ extern "C" long long count_window(int fwd, int method, int flag, int steps) {
     if (method == 4 && flag)
       efit_window_kernel<Counted, 4, true>(ptrs(state), ptrs(outs), psi, prof, p, steps, 1);
   } else {
-    if (method == 2 && !flag)
-      efit_window_bwd_kernel<Counted, 2, false>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
-    if (method == 2 && flag)
-      efit_window_bwd_kernel<Counted, 2, true>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
-    if (method == 4 && !flag)
-      efit_window_bwd_kernel<Counted, 4, false>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
-    if (method == 4 && flag)
-      efit_window_bwd_kernel<Counted, 4, true>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
+    run_bwd(method, flag, steps, p);
+  }
+  return g_ops;
+}
+
+// K2 (tab 0) or K3 with the cotangents tagged: *adjoint gets what depends
+// on them, which the kernel does once; *primal the rest, which it repeats
+// (see count_ops.py _window_needed).
+extern "C" void count_window_bwd_split(int method, int tab, int steps,
+                                       long long* adjoint, long long* primal) {
+  using namespace gft;
+  const Params<Counted> p = params();
+  for (int k = 0; k < 16; ++k) cts[k].tag = true;
+  g_ops = g_untagged_ops = 0;
+  g_split = true;
+  run_bwd(method, tab, steps, p);
+  g_split = false;
+  *adjoint = g_ops;
+  *primal = g_untagged_ops;
+}
+
+// The freeze gather and `steps` substeps as the backward kernels' forward
+// sweep takes them (substep<T, METHOD, AdjointGrad>).
+extern "C" long long count_window_primal(int method, int steps) {
+  using namespace gft;
+  const Params<Counted> p = params();
+  Counted s[8];
+  for (int k = 0; k < 8; ++k) s[k] = state[k];
+  g_ops = 0;
+  const Frozen<Counted> f = freeze(s, psi, prof, p);
+  for (int k = 0; k < steps; ++k) {
+    if (method == 2) substep<Counted, 2, AdjointGrad>(s, f, p);
+    else substep<Counted, 4, AdjointGrad>(s, f, p);
   }
   return g_ops;
 }
@@ -228,13 +269,13 @@ extern "C" void count_vmec_geom(int g, long long* ops, long long* table_ops) {
   for (int k = 0; k < 2 * 8 * 128; ++k) rz[k] = 0.01 * (k % 7);
   for (int k = 0; k < 2 * 4 * 128; ++k) lm[k] = 0.01 * (k % 5);
   for (int k = 0; k < g; ++k) { xm[k] = k % 10; xn[k] = 5.0 * (k % 9) - 20.0; }
-  g_ops = g_table_ops = 0;
+  g_ops = g_untagged_ops = 0;
   g_split = true;
   vmec_geom_kernel<Counted>(s, u, v, rz, lm, xm, xn, out, 1, 2, 2, g,
                             -1.0, -0.99, 0.01);
   g_split = false;
   *ops = g_ops;
-  *table_ops = g_table_ops;
+  *table_ops = g_untagged_ops;
 }
 """
 
@@ -352,20 +393,26 @@ def count() -> dict:
         raise RuntimeError("count_ops needs g++")
     with tempfile.TemporaryDirectory() as tmpdir:
         lib = ctypes.CDLL(str(_build(pathlib.Path(tmpdir))))
-        for name in ("count_window", "count_slab", "count_deposit",
-                     "count_vmec_modes"):
+        for name in ("count_window", "count_window_primal", "count_slab",
+                     "count_deposit", "count_vmec_modes"):
             getattr(lib, name).restype = ctypes.c_longlong
         out = {}
-        for fwd, flag_name in ((1, ("plain", "comp")), (0, ("K2", "K3"))):
+        for method in (2, 4):
+            for flag, name in enumerate(("plain", "comp")):
+                one, two, per_window = (lib.count_window(1, method, flag, k)
+                                        for k in (1, 2, WINDOW))
+                out[f"K1 rk{method} {name}"] = {
+                    "per_ray_window": per_window,
+                    "per_ray_substep": two - one}
+        for name, tab in (("K2", 0), ("K3", 1)):
             for method in (2, 4):
-                for flag in (0, 1):
-                    key = (f"K1 rk{method} {flag_name[flag]}" if fwd
-                           else f"{flag_name[flag]} rk{method}")
-                    per_window = lib.count_window(fwd, method, flag, WINDOW)
-                    one = lib.count_window(fwd, method, flag, 1)
-                    two = lib.count_window(fwd, method, flag, 2)
-                    out[key] = {"per_ray_window": per_window,
-                                "per_ray_substep": two - one}
+                one, two, per_window = (_window_needed(lib, method, tab, k)
+                                        for k in (1, 2, WINDOW))
+                out[f"{name} rk{method}"] = {
+                    "per_ray_window": per_window,
+                    "per_ray_substep": two - one,
+                    "source_per_ray_window":
+                        lib.count_window(0, method, tab, WINDOW)}
         out["K5"] = {"per_particle_step":
                      lib.count_slab(2) - lib.count_slab(1)}
         out["K6"] = {"per_pair": (lib.count_deposit(2048)
@@ -377,6 +424,34 @@ def count() -> dict:
                      "table_per_mode": two_t - one_t,
                      "table_fixed": 2 * one_t - two_t}
     return {"window": WINDOW, "ops": out}
+
+
+def _window_needed(lib, method, tab, steps):
+    """The operations a ray over ``steps`` substeps that K2 (tab 0) or K3
+    (tab 1) computes, each counted once.  The kernel repeats primal work:
+    its forward sweep takes each stage's gradient of D, ``substep_vjp``
+    takes it again, and the ``Dual<T, 1>`` sweep of each stage VJP runs it
+    a third time as its value part.  The function needs that work once:
+    the freeze gather and the stages of every substep, as the forward sweep
+    takes them (the last substep's update included, 19 operations in rk2,
+    33 in rk4).  The adjoint work, what depends on the cotangents (the
+    transposed stage algebra, each sweep's tangent part, K3's weights'
+    tangents), the kernel does once.  K3 also needs the values of its
+    blocks' weights u^a v^b and up^k, primal work that K2 does not do: the
+    difference of the two kernels' primal counts."""
+    import ctypes
+
+    def split(t):
+        adjoint, primal = ctypes.c_longlong(), ctypes.c_longlong()
+        lib.count_window_bwd_split(method, t, steps, ctypes.byref(adjoint),
+                                   ctypes.byref(primal))
+        return adjoint.value, primal.value
+
+    adjoint, primal = split(tab)
+    needed = lib.count_window_primal(method, steps) + adjoint
+    if tab:
+        needed += primal - split(0)[1]
+    return needed
 
 
 def _vmec_geom(lib, g):
