@@ -29,12 +29,14 @@ import torch
 #: Kernel launches of the slab push; plain-version calls do not count.
 slab_push_launches = 0
 
-#: Floating point operations per particle and step, counted from the step
-#: below (and csrc/boris.cu): bz 3, gamma 7, h 2, u' 6, tz and tau^2 2,
-#: |u'|^2 5, sigma 2, u*.t 1, gamma' 9, t/gamma' 1, s 3, u_next 10,
-#: larmor dt / gamma' 1, positions 6.  Each square root (3) and division
-#: (5) counts as one operation.
-SLAB_PUSH_OPS = 58
+#: Floating point operations per particle and step the function needs,
+#: counted over csrc/boris.cu by tools/count_ops.py (a CPU test holds it
+#: to it): bz 2 (the quotients folded), 1/gamma and h 8, u' 6, tz and
+#: tau^2 2, |u'|^2 5, sigma 2, u*.t 1, 1/gamma' 9, t/gamma' 1, s 3,
+#: u_next 6 (its z part is u'_z), larmor dt / gamma' 1, positions 6.  A
+#: square root, rsqrt or reciprocal counts one.  The plain version's
+#: algebra below takes 58, with 3 square roots and 5 divisions.
+SLAB_PUSH_OPS = 52
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 

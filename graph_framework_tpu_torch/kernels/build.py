@@ -70,7 +70,7 @@ SIGNATURES = {
     "gft_vmec_geom": (
         [_INT, _LL,                                   # dtype n
          _VOID_P, _VOID_P, _VOID_P,                   # s u v
-         _VOID_P, _VOID_P, _VOID_P, _VOID_P,          # rz lm xm xn
+         _VOID_P, _VOID_P, _VOID_P, _INT,             # rz lm runs n_runs
          _INT, _INT, _INT,                            # ns_f ns_h g
          ctypes.POINTER(ctypes.c_double),             # params
          _VOID_P, _VOID_P],                           # out stream

@@ -5,7 +5,9 @@ Counterpart of ``graph_framework_tpu.pallas.vmec_geom`` (the TPU kernel
 ray (s, u, v) it computes, over the per-mode tables of a VMEC
 equilibrium, the clamped radial cell on the full and on the half grid, the
 cell-local Horner value, d/ds and d2/ds2 of every mode's spline, per-mode
-cos/sin of (xm u - xn v), and the 27 sums of the geometry's second-order
+cos/sin of (xm u - xn v) (the kernel reaches them by rotations from the
+sincos of u and nfp v, over the modes as runs of one m: ``mode_runs``),
+and the 27 sums of the geometry's second-order
 jet: the 10 sums the geometry consumes (R, Z, their (s, u, v) derivatives,
 dl/du, dl/dv) and the 17 unique second partials (``JET_NAMES``).
 
@@ -37,6 +39,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from graph_framework_tpu_torch.ops.tables import table_index_1d
@@ -68,15 +71,55 @@ JVP_IDX = (
 )
 
 #: Floating point operations, counted over csrc/vmec_geom.cu by
-#: tools/count_ops.py (a CPU test holds them to it): per ray a fixed part
-#: (the two radial cells, the final 1/ds factors) and a part per mode (the
-#: Horner jets, the angle, a sincos counted as two, the 27 sums); and the
-#: operations on the tables alone (products of mode numbers, doubled
-#: coefficients, ds^2), which the function needs once, not once a ray.
-JET_OPS = {"per_ray_fixed": 23, "per_mode": 100, "table_fixed": 1,
-           "table_per_mode": 8}
+#: tools/count_ops.py (a CPU test holds them to it) for the reference's 86
+#: modes in 10 runs: per ray a fixed part (the two radial cells, two
+#: sincos counted two each, the rotations to each run's first mode, the
+#: factors m applied once a run, the final 1/ds factors) and a part per
+#: mode (the Horner jets, one rotation, the sums); and the operations on
+#: the mode numbers and tables alone (xn, xn^2, m^2, doubled coefficients,
+#: ds^2), which the function needs once, not once a ray.
+JET_OPS = {"per_ray_fixed": 420, "per_mode": 90, "table_fixed": 27,
+           "table_per_mode": 7}
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+
+
+class ModeRuns(NamedTuple):
+    """The modes as the kernel walks them: ``layout`` the runs (m, n0,
+    len), each len consecutive modes of one m with n = n0, n0 + 1, ..., in
+    the tables' order; ``runs`` the same as an (R, 3) int32 tensor on the
+    tables' device; ``nfp`` the period count, xn = n nfp."""
+    runs: torch.Tensor
+    layout: tuple
+    nfp: int
+
+
+def mode_runs(xm, xn) -> ModeRuns:
+    """The :class:`ModeRuns` of the mode numbers ``xm``, ``xn`` (G,).
+
+    m = xm and n = xn / nfp must be integers, m >= 0, with nfp the
+    greatest common divisor of the nonzero |xn| (1 if there is none): every
+    VMEC file's modes are.  Any other mode set raises.  VMEC's order is
+    m-major with n ascending, one run for each m; any order works, with
+    shorter runs.  One copy of the mode numbers to the host."""
+    m = xm.detach().double().cpu().numpy()
+    xn_ = xn.detach().double().cpu().numpy()
+    if not (np.array_equal(m, np.round(m)) and np.array_equal(
+            xn_, np.round(xn_)) and (m >= 0).all()):
+        raise ValueError("the VMEC geometry kernel takes integer mode "
+                         "numbers xm >= 0 and xn")
+    m, xn_ = m.astype(np.int64), xn_.astype(np.int64)
+    nfp = int(np.gcd.reduce(np.abs(xn_))) or 1
+    n = xn_ // nfp
+    layout = []
+    for mj, nj in zip(m.tolist(), n.tolist()):
+        last = layout[-1] if layout else None
+        if last and last[0] == mj and last[1] + last[2] == nj:
+            layout[-1] = (mj, last[1], last[2] + 1)
+        else:
+            layout.append((mj, nj, 1))
+    runs = torch.tensor(layout, dtype=torch.int32).to(xm.device)
+    return ModeRuns(runs, tuple(layout), nfp)
 
 
 class JetTables(NamedTuple):
@@ -84,8 +127,11 @@ class JetTables(NamedTuple):
 
     ``rz`` (ns_f, 4, 2 G): per cell and Horner coefficient, the G rmnc
     then the G zmns modes; ``lm`` (ns_h, 4, G) the lmns modes on the half
-    grid; ``xm``/``xn`` (G,) each mode's numbers (the kernel loops over any
-    G); the grid scalars."""
+    grid; ``xm``/``xn`` (G,) each mode's numbers (the plain version's); the
+    grid scalars.  The kernel's: ``modes`` the mode numbers as runs
+    (:func:`mode_runs`); ``rz_by_mode`` (ns_f, G, 8) and ``lm_by_mode``
+    (ns_h, G, 4) the same coefficients with a mode's Horner coefficients
+    together (rmnc then zmns).  :func:`make_jet_tables` builds them."""
     rz: torch.Tensor
     lm: torch.Tensor
     xm: torch.Tensor
@@ -93,6 +139,21 @@ class JetTables(NamedTuple):
     sminf: float
     sminh: float
     ds: float
+    modes: ModeRuns
+    rz_by_mode: torch.Tensor
+    lm_by_mode: torch.Tensor
+
+
+def make_jet_tables(rz, lm, xm, xn, sminf, sminh, ds) -> JetTables:
+    """:class:`JetTables` from its tensors and grid scalars, with the
+    kernel's mode runs derived from ``xm``, ``xn`` (a mode set that is not
+    integer raises) and its mode-major copies of the tables."""
+    g = lm.shape[-1]
+    rz_by_mode = torch.cat([rz[..., :g], rz[..., g:]], dim=1)
+    return JetTables(rz, lm, xm, xn, float(sminf), float(sminh), float(ds),
+                     mode_runs(xm, xn),
+                     rz_by_mode.transpose(1, 2).contiguous(),
+                     lm.transpose(1, 2).contiguous())
 
 
 def jet_tables(eq) -> JetTables:
@@ -104,10 +165,10 @@ def jet_tables(eq) -> JetTables:
     if tables is None:
         with torch.no_grad():
             rz = torch.cat([eq.rmnc_coeffs, eq.zmns_coeffs], dim=-1)
-            tables = JetTables(
+            tables = make_jet_tables(
                 rz.contiguous(), eq.lmns_coeffs.detach().contiguous(),
-                eq.xm.contiguous(), eq.xn.contiguous(),
-                float(eq.sminf), float(eq.sminh), float(eq.ds))
+                eq.xm.contiguous(), eq.xn.contiguous(), eq.sminf, eq.sminh,
+                eq.ds)
         eq._cache["jet"] = tables
     return tables
 
@@ -182,6 +243,21 @@ def _check(s, u, v, tables):
             f"tables must be rz (ns_f, 4, 2G), lm (ns_h, 4, G), xm and xn "
             f"(G,); got {tuple(rz.shape)}, {tuple(lm.shape)}, "
             f"{tuple(xm.shape)}, {tuple(xn.shape)}")
+    for a, shape in ((tables.rz_by_mode, (rz.shape[0], g, 8)),
+                     (tables.lm_by_mode, (lm.shape[0], g, 4))):
+        if (a.shape != shape or a.device != s.device or a.dtype != s.dtype
+                or not a.is_contiguous() or a.data_ptr() % 16):
+            raise ValueError("the kernel's mode-major tables do not match "
+                             "rz and lm: build the tables with "
+                             "make_jet_tables")
+    runs = tables.modes.runs
+    if (sum(r[2] for r in tables.modes.layout) != g
+            or runs.device != s.device or runs.dtype != torch.int32
+            or runs.shape != (len(tables.modes.layout), 3)
+            or not runs.is_contiguous()):
+        raise ValueError("the tables' mode runs do not describe their G "
+                         "modes on their device: build the tables with "
+                         "make_jet_tables")
 
 
 def _launch(s, u, v, tables):
@@ -193,14 +269,16 @@ def _launch(s, u, v, tables):
     out = torch.empty((len(JET_NAMES), n), dtype=s.dtype, device=s.device)
     if n == 0:
         return out
-    rz, lm, xm, xn = tables[:4]
+    rz, lm = tables.rz_by_mode, tables.lm_by_mode
+    runs = tables.modes.runs
     lib = build.load()
-    params = (ctypes.c_double * 3)(tables.sminf, tables.sminh, tables.ds)
+    params = (ctypes.c_double * 4)(tables.sminf, tables.sminh, tables.ds,
+                                   tables.modes.nfp)
     with torch.cuda.device(s.device):
         rc = lib.gft_vmec_geom(
             _DTYPE_CODES[s.dtype], n, s.data_ptr(), u.data_ptr(),
-            v.data_ptr(), rz.data_ptr(), lm.data_ptr(), xm.data_ptr(),
-            xn.data_ptr(), rz.shape[0], lm.shape[0], lm.shape[-1], params,
+            v.data_ptr(), rz.data_ptr(), lm.data_ptr(), runs.data_ptr(),
+            runs.shape[0], rz.shape[0], lm.shape[0], lm.shape[1], params,
             out.data_ptr(), build.stream(s))
     if rc != 0:
         raise RuntimeError(f"vmec_geom kernel launch failed ({rc}): "

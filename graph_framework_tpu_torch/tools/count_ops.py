@@ -15,13 +15,15 @@ compiler contracts any pair into an FMA.
 
 Prints one JSON object: operations per ray and window of K substeps for
 the window kernels K1 (rk2/rk4, plain/compensated), K2 and K3 (rk2/rk4),
-at K = 10 (the main path's freeze window) and per substep.  K2 and K3
-count each operation of the function once (``_window_needed``): their
-source repeats the primal work, and its own count stands beside as
-``source_per_ray_window``.  Then per particle
-and step for the slab push K5; per (particle, grid point) pair for the
-deposit K6; per ray, as a fixed part and a part per mode, for the VMEC
-geometry jet K4 and the mode sums K7 (a sincos counts two).  K4's
+at K = 10 (the main path's freeze window) and per substep.  Each counts
+what the function needs (``_k1_needed``, ``_window_needed``): K1's
+source takes D's gradient in forward mode and K2/K3's repeat the primal
+work, and the sources' own counts stand beside as
+``source_per_ray_window``.  Then per particle and step for the slab push
+K5 (a square root, rsqrt or reciprocal counts one); per (particle, grid
+point) pair for the deposit K6; per ray, as a fixed part and a part per
+mode, for the VMEC geometry jet K4 (over the reference's 86 modes in 10
+runs) and the mode sums K7 (a sincos counts two).  K4's
 operations that depend on its tables alone (products of mode numbers,
 doubled coefficients, ds^2) are counted apart, as ``table_fixed`` and
 ``table_per_mode``: the function needs them once, not once a ray.  K7's
@@ -51,6 +53,8 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 
 #: Substeps per window of the main path (chip_smoke.FREEZE_EVERY).
 WINDOW = 10
+#: Modes of the reference's VMEC file, K4's count's layout (10 runs).
+REFERENCE_MODES = 86
 
 _RUNTIME = r"""
 #pragma once
@@ -85,6 +89,12 @@ inline double __dadd_rn(double a, double b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline double __dsub_rn(double a, double b) { return a - b; }
 inline void sincosf(float a, float* s, float* c) { *s = std::sin(a); *c = std::cos(a); }
+// PTX wrappers of the kernels (the card's approximations; here rounded
+// from double)
+inline float rsqrt_approx(float a) { return static_cast<float>(1.0 / std::sqrt(static_cast<double>(a))); }
+inline float rcp_approx(float a) { return static_cast<float>(1.0 / static_cast<double>(a)); }
+struct float4 { float x, y, z, w; };
+struct double2 { double x, y; };
 template <class T> T __ldg(const T* p) { return *p; }
 template <class T> T __shfl_down_sync(unsigned, T v, int) { return v; }
 #ifdef GFT_EVERY_THREAD
@@ -138,6 +148,9 @@ struct Counted {
   friend Counted bsqrt(Counted a) { return op(std::sqrt(a.v), a.tag); }
   friend Counted dexp(Counted a) { return op(std::exp(a.v), a.tag); }
   friend Counted recip(Counted a) { return op(1.0 / a.v, a.tag); }
+  // a reciprocal square root or a reciprocal counts one, as a root does
+  friend Counted brsqrt(Counted a) { return op(1.0 / std::sqrt(a.v), a.tag); }
+  friend Counted brcp(Counted a) { return op(1.0 / a.v, a.tag); }
   friend Counted gmax(Counted a, Counted b) { return op(std::fmax(a.v, b.v), a.tag || b.tag); }
   friend Counted gmin(Counted a, Counted b) { return op(std::fmin(a.v, b.v), a.tag || b.tag); }
   friend Counted mul_rn(Counted a, Counted b) { return op(a.v * b.v, a.tag || b.tag); }
@@ -252,7 +265,7 @@ extern "C" long long count_slab(int steps) {
   static Counted in[6] = {1.7, 0.0, 0.0, 0.0, 7.0, 0.7}, out[6];
   Particles<Counted> p;
   for (int k = 0; k < 6; ++k) { p.in[k] = in + k; p.out[k] = out + k; }
-  const SlabParams<Counted> c{0.5, 1.0, 1.0, 0.1, -0.25, 0.5};
+  const SlabParams<Counted> c{0.25, 0.1, 1.0, -0.25, 0.5};
   g_ops = 0;
   slab_push_kernel<Counted>(p, c, steps, 1);
   return g_ops;
@@ -260,19 +273,28 @@ extern "C" long long count_slab(int steps) {
 """
 
 _VMEC_GEOM_HARNESS = r"""
-extern "C" void count_vmec_geom(int g, long long* ops, long long* table_ops) {
+// The reference's 86 modes as K4 takes them, 10 runs (m, n0, len): m = 0
+// with n = 0..4, then m = 1..9 with n = -4..4; nfp 5.  `extra` more modes
+// lengthen the last run.
+extern "C" void count_vmec_geom(int extra, long long* ops,
+                                long long* table_ops) {
   using namespace gft;
   // the ray's coordinates are its own; the tables and mode numbers are not
   static Counted s[1] = {{0.5, true}}, u[1] = {{0.3, true}},
       v[1] = {{0.2, true}}, out[27];
-  static Counted rz[2 * 8 * 128], lm[2 * 4 * 128], xm[128], xn[128];
+  static Counted rz[2 * 8 * 128], lm[2 * 4 * 128];
+  static int runs[30];
   for (int k = 0; k < 2 * 8 * 128; ++k) rz[k] = 0.01 * (k % 7);
   for (int k = 0; k < 2 * 4 * 128; ++k) lm[k] = 0.01 * (k % 5);
-  for (int k = 0; k < g; ++k) { xm[k] = k % 10; xn[k] = 5.0 * (k % 9) - 20.0; }
+  runs[0] = 0; runs[1] = 0; runs[2] = 5;
+  for (int m = 1; m < 10; ++m) {
+    runs[3 * m] = m; runs[3 * m + 1] = -4; runs[3 * m + 2] = 9;
+  }
+  runs[29] += extra;
   g_ops = g_untagged_ops = 0;
   g_split = true;
-  vmec_geom_kernel<Counted>(s, u, v, rz, lm, xm, xn, out, 1, 2, 2, g,
-                            -1.0, -0.99, 0.01);
+  vmec_geom_kernel<Counted>(s, u, v, rz, lm, runs, 10, out, 1, 2, 2,
+                            86 + extra, -1.0, -0.99, 0.01, 5.0);
   g_split = false;
   *ops = g_ops;
   *table_ops = g_untagged_ops;
@@ -399,11 +421,13 @@ def count() -> dict:
         out = {}
         for method in (2, 4):
             for flag, name in enumerate(("plain", "comp")):
-                one, two, per_window = (lib.count_window(1, method, flag, k)
+                one, two, per_window = (_k1_needed(lib, method, flag, k)
                                         for k in (1, 2, WINDOW))
                 out[f"K1 rk{method} {name}"] = {
                     "per_ray_window": per_window,
-                    "per_ray_substep": two - one}
+                    "per_ray_substep": two - one,
+                    "source_per_ray_window":
+                        lib.count_window(1, method, flag, WINDOW)}
         for name, tab in (("K2", 0), ("K3", 1)):
             for method in (2, 4):
                 one, two, per_window = (_window_needed(lib, method, tab, k)
@@ -419,11 +443,26 @@ def count() -> dict:
                                   - lib.count_deposit(1024)) // 1024}
         one, two = lib.count_vmec_modes(1), lib.count_vmec_modes(2)
         out["K7"] = {"per_mode": two - one, "per_ray_fixed": 2 * one - two}
-        (one, one_t), (two, two_t) = _vmec_geom(lib, 1), _vmec_geom(lib, 2)
-        out["K4"] = {"per_mode": two - one, "per_ray_fixed": 2 * one - two,
+        (one, one_t), (two, two_t) = _vmec_geom(lib, 0), _vmec_geom(lib, 1)
+        g = REFERENCE_MODES
+        out["K4"] = {"per_mode": two - one,
+                     "per_ray_fixed": one - g * (two - one),
                      "table_per_mode": two_t - one_t,
-                     "table_fixed": 2 * one_t - two_t}
+                     "table_fixed": one_t - g * (two_t - one_t)}
     return {"window": WINDOW, "ops": out}
+
+
+def _k1_needed(lib, method, compensated, steps):
+    """The operations a ray over ``steps`` substeps that K1 computes,
+    counted as the function needs them: the freeze gather and the stages
+    with D's gradient by the hand-written reverse sweep
+    (``count_window_primal``, as K2/K3's primal work is counted), plus the
+    compensated sums' work, the difference of K1's own compensated and
+    plain counts.  K1's source takes the gradient in forward mode
+    (``ray_grad``), some five times the operations."""
+    extra = (lib.count_window(1, method, 1, steps)
+             - lib.count_window(1, method, 0, steps)) if compensated else 0
+    return lib.count_window_primal(method, steps) + extra
 
 
 def _window_needed(lib, method, tab, steps):
@@ -454,13 +493,14 @@ def _window_needed(lib, method, tab, steps):
     return needed
 
 
-def _vmec_geom(lib, g):
-    """K4's operations over g modes for one ray: (those that depend on the
-    ray, those that depend on the tables alone)."""
+def _vmec_geom(lib, extra):
+    """K4's operations for one ray over the reference's 86 modes and
+    ``extra`` more on the last run: (those that depend on the ray, those
+    that depend on the tables alone)."""
     import ctypes
 
     ops, table_ops = ctypes.c_longlong(), ctypes.c_longlong()
-    lib.count_vmec_geom(g, ctypes.byref(ops), ctypes.byref(table_ops))
+    lib.count_vmec_geom(extra, ctypes.byref(ops), ctypes.byref(table_ops))
     return ops.value, table_ops.value
 
 

@@ -311,6 +311,24 @@ def test_ptxas_summary_names_each_variant():
     }
 
 
+def test_sass_per_item_reads_the_hot_loop():
+    """chip_smoke's SASS reader (phases 13 and 17): a loop is a backward
+    branch; the hot loop is the one whose marker count is a multiple of
+    the marker's count an item, the inner one on a tie, and its length is
+    shared among the items the compiler unrolled into it."""
+    listing = [(0x00, "LDC R1, c[0x0][0x28]"), (0x10, "LDG.E R2, [R4]"),
+               (0x20, "MUFU.RSQ R7, R6"), (0x30, "FFMA R2, R3, R4, R5"),
+               (0x40, "MUFU.RSQ R8, R6"), (0x50, "MUFU.RCP R9, R6"),
+               (0x60, "@P0 BRA 0x20"), (0x70, "IADD3 R1, R1, 0x1, RZ"),
+               (0x80, "BRA.U !UP0, 0x10"), (0x90, "EXIT")]
+    loops = chip_smoke.sass_loops(listing)
+    assert [len(body) for body in loops] == [5, 8]
+    assert chip_smoke.sass_per_item(listing, "MUFU.RSQ", 1) == dict(
+        per_item=2.5, unrolled=2, mufu=1.5, branches=0.5)
+    assert chip_smoke.sass_per_item(listing, "LDG", 1)["per_item"] == 8
+    assert chip_smoke.sass_per_item(listing, "MUFU.RSQ", 3) is None
+
+
 def test_op_counts_match_the_sources():
     """The operation counts behind the kernels' bounds (chip_smoke's
     WINDOW_OPS, kernels.boris.SLAB_PUSH_OPS,
