@@ -19,8 +19,9 @@ failed check raises and the script exits non-zero):
    name and power limit; no CUDA card is a failure, never a CPU run;
 2. build: ``nvcc`` builds ``csrc/*.cu`` (one process per source);
    registers and spills of every kernel variant, the eight backward ones
-   (K2, K3 x f32, f64 x rk2, rk4) required, and none spilled for K2 f32
-   rk2, the main path's backward;
+   (K2, K3 x f32, f64 x rk2, rk4) required, and none spilled for K1 f32
+   rk2 (plain and compensated) and K2 f32 rk2, the main path's forward and
+   backward;
 3. K1 vs plain PyTorch version at 4099 rays (a ragged count): rk2/rk4
    x plain/compensated x f32/f64, one recorded step at K = 10 and K = 5,
    each within a limit that lies well below what a wrong kernel shows;
@@ -39,9 +40,9 @@ failed check raises and the script exits non-zero):
    central differences, f64;
 5. ``trace_segmented``: 32 recorded rows of 100k rays kept in memory;
 6. the plain version's ray-steps/s on the card beside the kernel's;
-7. each kernel's milliseconds per window beside its plain version's and
-   its bound, and K3's scatter into the tables (``index_add_``) timed
-   apart.
+7. each kernel's milliseconds per window (on the device and by CUDA
+   events) beside its plain version's and its bound with the bound's
+   basis, and K3's scatter into the tables (``index_add_``) timed apart.
 
 The particle paths follow (``xkorc``'s Boris push, ``xpic``'s PIC loop),
 with the hand-written kernels K5 (the slab push, ``csrc/boris.cu``) and K6
@@ -57,13 +58,15 @@ with the hand-written kernels K5 (the slab push, ``csrc/boris.cu``) and K6
    x 1000 steps; the axis field, particle-steps/s, validity, gamma drift;
 11. K6 vs plain version at 100 003 particles, G 1000 and 1001, a mask with
    zeros, f32 and f64; wrong deposits (mask ignored, the last chunk
-   dropped) and a second launch equal bit for bit;
+   dropped, each point summing only its own bin's particles) and a second
+   launch equal bit for bit; the working type's exp is +0 at K6's reach;
 12. ``run_pic`` at full width, bench.py's pic configuration: 1M particles x
    1000 grid points f32 x 50 steps, 50 K6 launches, against the same steps
    with the plain deposit;
-13. K5's and K6's milliseconds beside their plain versions' and bounds;
-   K5's special-function floor and the SASS instructions of its step loop
-   (``cuobjdump``).
+13. K5's and K6's milliseconds beside their plain versions' and bounds
+   (K6 by kernel, and its bound's basis: the pairs within reach of this
+   run's particles); K5's special-function floor and the SASS instructions
+   of its step loop (``cuobjdump``).
 
 Then the VMEC stellarator ray trace, with the hand-written kernels K4 (the
 fused geometry jet, ``csrc/vmec_geom.cu``) and K7 (the mode sums,
@@ -121,7 +124,7 @@ from graph_framework_tpu_torch.models.efit import efit_from_tables
 from graph_framework_tpu_torch.models.korc import (
     ParticleState, initialize_gamma, run_korc)
 from graph_framework_tpu_torch.models.pic import (
-    PicState, make_grid, make_push_step, pic_start, run_pic)
+    WIDTH, PicState, make_grid, make_push_step, pic_start, run_pic)
 from graph_framework_tpu_torch.models.rays import (
     RayDerivatives, RayState, dispersion_residual, residual_fn)
 from graph_framework_tpu_torch.models.vmec import vmec_from_tables
@@ -207,14 +210,19 @@ DT, SUB_STEPS, FREEZE_EVERY = 1.0e-4, 10, 10   # endtime 1.0: 1000 x 10 x dt
 # Per leaf, the largest deviation over the rays divided by the scale of its
 # group (t, w, |position|, |wave vector|); for compensated carries it is the
 # deviation of the double-word values hi + lo, so a lost low word shows in
-# f64 as well.  The two sides differ only in rounding (forward vs reverse
-# mode, FMA contraction, operation order).  Keyed by (dtype, compensated),
+# f64 as well.  The two sides differ only in rounding (the kernel's
+# hand-written reverse sweep multiplies by reciprocals where autograd of
+# the plain version divides; FMA contraction; operation order).  Keyed by (dtype, compensated),
 # each limit sits about 20x above the deviation read on the card over one
-# recorded step at 4099 rays (NVIDIA H100 80GB HBM3, 700.00 W):
-#   f32 plain   read 9.3e-8: one-ulp flips of x (ulp(2.5) / 2.5 = 9.5e-8);
-#   f32 comp    read 4.8e-11: the rounding of the increments themselves;
-#   f64 plain   read 1.7e-16: one-ulp flips;
-#   f64 comp    read 7.4e-20: the increments' rounding, as in f32.
+# recorded step at 4099 rays (NVIDIA H100 80GB HBM3, 700.00 W) by the
+# forward-mode kernel, and above what the reverse-sweep kernel reads:
+#   f32 plain   read 9.3e-8 (both): one-ulp flips of x (ulp(2.5) / 2.5 =
+#               9.5e-8);
+#   f32 comp    read 4.8e-11, 1.4e-10 / 1.5e-10 (rk2 / rk4) since the
+#               reciprocals: the rounding of the increments themselves;
+#               6.7x below the limit, which is kept;
+#   f64 plain   read 1.7e-16 (both): one-ulp flips;
+#   f64 comp    read 7.4e-20, 7.9e-20 since: the increments' rounding.
 # Phase 3 also measures, on the plain version, what a wrong kernel would
 # show, and asserts that the limit lies SEPARATION times below it: the
 # compensated run against the same run with the low words dropped (read
@@ -478,9 +486,10 @@ def profile_kernel(fn, kernel=("efit_window_kernel",)):
     return per_launch, counts[0], start.elapsed_time(stop)
 
 
-def device_work(fn):
+def device_work(fn, part=None):
     """Run fn once under torch.profiler: (the device operations the CUDA
-    trace holds - kernels, copies, fills - and their summed device ms)."""
+    trace holds - kernels, copies, fills - and their summed device ms;
+    with ``part``, also the summed ms of those whose name holds it)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -490,7 +499,11 @@ def device_work(fn):
         torch.cuda.synchronize()
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    return len(events), sum(e.device_time_total for e in events) / 1000.0
+    total = sum(e.device_time_total for e in events) / 1000.0
+    if part is None:
+        return len(events), total
+    return len(events), total, sum(
+        e.device_time_total for e in events if part in e.name) / 1000.0
 
 
 def phase_device():
@@ -514,23 +527,24 @@ def ptxas_summary(log):
     METHOD, COMPENSATED> (K1: f32/rk2/plain, ...), of
     efit_window_bwd_kernel<T, METHOD, TAB> (K2 f32/rk2 without the table
     cotangents, K3 f32/rk2 with them), of slab_push_kernel<T> (K5 f32,
-    K5 f64), of deposit_partial_kernel<T> and deposit_reduce_kernel<T>
-    (K6 pass 1 f32, K6 pass 2 f32, ...), or of vmec_geom_kernel<T> and
-    vmec_modes_kernel<T> (K4 f32, K7 f64, ...)."""
+    K5 f64), of K6's seven kernels deposit_{setup, count, bins,
+    scatter, tile, finish}_kernel<T> and deposit_rows_kernel (K6 tile f32,
+    K6 bins f64, K6 rows, ...), or of
+    vmec_geom_kernel<T> and vmec_modes_kernel<T> (K4 f32, K7 f64, ...)."""
     out, variant = {}, None
     for line in log.splitlines():
         m = re.search(
             r"efit_window_(bwd_)?kernelI([fd])Li([24])ELb([01])", line)
         p = re.search(
-            r"(slab_push|deposit_partial|deposit_reduce|vmec_geom|"
-            r"vmec_modes)_kernelI([fd])E", line)
+            r"(slab_push|deposit_(?:setup|count|rows|bins|scatter|tile|"
+            r"finish)|vmec_geom|vmec_modes)_kernel(?:I([fd])E)?", line)
         if p and "Compiling entry function" in line:
-            dtype = "f32" if p[2] == "f" else "f64"
-            variant = {"slab_push": f"K5 {dtype}",
-                       "deposit_partial": f"K6 pass 1 {dtype}",
-                       "deposit_reduce": f"K6 pass 2 {dtype}",
-                       "vmec_geom": f"K4 {dtype}",
-                       "vmec_modes": f"K7 {dtype}"}[p[1]]
+            # K6's rows kernel counts integers: no dtype
+            dtype = {"f": " f32", "d": " f64", None: ""}[p[2]]
+            variant = {"slab_push": f"K5{dtype}",
+                       "vmec_geom": f"K4{dtype}",
+                       "vmec_modes": f"K7{dtype}"}.get(
+                p[1], f"K6 {p[1][len('deposit_'):]}{dtype}")
             out[variant] = []
         elif m:
             dtype = "f32" if m[2] == "f" else "f64"
@@ -638,9 +652,10 @@ def phase_build():
     missing = [v for v in bwd if v not in summary]
     if missing:
         raise AssertionError(f"ptxas printed nothing for {missing}")
-    # the main path's backward keeps its whole live set in registers
-    if spill_bytes(summary["K2 f32/rk2"]) != 0:
-        raise AssertionError(f"K2 f32/rk2 spills: {summary['K2 f32/rk2']}")
+    # the main path's forward and backward keep their live sets in registers
+    for variant in ("f32/rk2/plain", "f32/rk2/comp", "K2 f32/rk2"):
+        if spill_bytes(summary[variant]) != 0:
+            raise AssertionError(f"{variant} spills: {summary[variant]}")
 
 
 def run_windows(eq, carry, method, k, compensated, kernel):
@@ -1110,8 +1125,8 @@ def kernel_record(eq, state, launches):
           f"{plain_ms:.4f} ms per window; over 50 "
           f"recorded steps of Solver.run the kernel is busy {busy_ms} of "
           f"{wall_ms:.3f} device ms (share {share})")
-    b_ms, b_by = window_bound(eq, state.x.shape[0], "K1 rk2 comp")
-    print(f"[7 efit_window bound] {b_ms:.4f} ms ({b_by})")
+    b_ms, b_by, basis = window_bound(eq, state.x.shape[0], "K1 rk2 comp")
+    print(f"[7 efit_window bound] {b_ms:.4f} ms, by {b_by} ({basis})")
     return {"name": "efit_window", "route": "cuda",
             "source": "graph_framework_tpu_torch/csrc/efit_window.cu",
             "replaces": "graph_framework_tpu/pallas/efit_step.py:159",
@@ -1171,9 +1186,9 @@ def bwd_kernel_records(eq, state, launches, launches_tab):
               f"{kernel_ms} ms (profiler); plain version "
               f"(autograd of frozen_window) {plain_ms:.4f} ms; max abs "
               f"error {err:.3e}{scatter}")
-        b_ms, b_by = window_bound(eq, state.x.shape[0],
-                                  "K3 rk2" if tables else "K2 rk2")
-        print(f"[7 {name} bound] {b_ms:.4f} ms ({b_by})")
+        b_ms, b_by, basis = window_bound(eq, state.x.shape[0],
+                                         "K3 rk2" if tables else "K2 rk2")
+        print(f"[7 {name} bound] {b_ms:.4f} ms, by {b_by} ({basis})")
         records.append({
             "name": name, "route": "cuda",
             "source": "graph_framework_tpu_torch/csrc/efit_window_bwd.cuh",
@@ -1212,9 +1227,21 @@ SLAB_STEPS = 100
 # not asserted.
 K5_TOL = {torch.float32: 5.0e-4, torch.float64: 1.0e-12}
 # K6 against its plain version (100 003 particles, G 1000 and 1001, a mask
-# with zeros): n and e, each relative to its max; the sums run in another
-# order.  Read on the card: f32 5.7e-7, f64 7.9e-16; a deposit that drops
-# the ragged last chunk shows 2.1e-2, one that ignores the mask 0.12.
+# with zeros): n and e, each relative to its max.  n: the kernel sums only
+# the pairs within reach, every other term being exactly +0 in the working
+# type (kernels/deposit.py REACH), so the two differ by the order of the
+# sums alone.  e: the kernel takes coef (S1 - g S0) from S0 = sum m and
+# S1 = sum x m where the plain version sums coef (x - g) m over the pairs.
+# S0 of unit weights is exact in f32 up to 2^24 particles; S1 (|S1| <=
+# sum |x| m) and g S0 each round once relative to max |e| ~ coef max|g| S0,
+# and the difference and the product by coef once more: a few ulp of
+# max |e|, as the plain version's own sums of 1e5 terms.  Read on the
+# card (NVIDIA H100 80GB HBM3, 700.00 W) by the two-pass kernel that
+# summed every pair: f32 5.7e-7, f64 7.9e-16; by the kernel over the pairs
+# within reach: 2.8e-7 to 4.7e-7, 8.7e-16 to 1.1e-15.  A deposit that
+# drops the ragged last chunk shows 1.0e-2, one that ignores the mask
+# 0.12, and one whose points sum only their own bin's particles (bins of
+# the reach's width) 0.39-0.46: each asserted SEPARATION above the limit.
 K6_TOL = {torch.float32: 1.0e-5, torch.float64: 1.5e-14}
 # xpic at full width, the kernel's 50 steps against the plain deposit's
 # from the same start, per leaf relative to its max: f32 sums of 1M terms
@@ -1225,10 +1252,10 @@ PIC_TOL = 1.0e-5
 # kernels on the main path (rk2), counted over the kernels' own source by
 # graph_framework_tpu_torch/tools/count_ops.py (tests/test_torch_common.py
 # holds these to it).  Each counts what the function needs, each operation
-# once: K1's source takes D's gradient in forward mode (44 892 a ray, where
-# the hand-written reverse sweep's stages and the compensation need 8812),
-# and K2's and K3's take each stage's gradient three times (38 065 /
-# 41 385 a ray).
+# once: K1's source does just that (the freeze, the stages with D's gradient
+# by the hand-written reverse sweep, the compensation: 8812 a ray; its
+# forward-mode form did 44 892), and K2's and K3's take each stage's
+# gradient three times (38 065 / 41 385 a ray).
 WINDOW_OPS = {"K1 rk2 comp": 8812, "K2 rk2": 22892, "K3 rk2": 26212}
 # Peak rates of one H100 SXM (NVIDIA's data sheet): f32 and f64 outside the
 # tensor cores, and the HBM rate.  bound_ms is the larger of ops / peak and
@@ -1250,13 +1277,15 @@ def window_bound(eq, n, kernel):
     over n rays: WINDOW_OPS a ray; the bytes of the state leaves in and
     out (16 + 16 compensated for K1; 8 in, 8 cotangents in and 8 out for
     K2; and K3's 32 block cotangents and 2 cell rows a ray), and the two
-    tables read once."""
+    tables read once.  Returns (bound_ms, bound_by, both sides as text)."""
     size = 4
     per_ray = {"K1 rk2 comp": 32 * size, "K2 rk2": 24 * size,
                "K3 rk2": 56 * size + 16}[kernel]
     tables = size * (eq.psi_coeffs.numel() + eq.profile_coeffs.numel())
-    return bound(WINDOW_OPS[kernel] * n, per_ray * n + tables,
-                 torch.float32)
+    ops, nbytes = WINDOW_OPS[kernel] * n, per_ray * n + tables
+    return (*bound(ops, nbytes, torch.float32),
+            f"{WINDOW_OPS[kernel]} operations a ray and window: "
+            f"{bound_sides(ops, nbytes)}")
 
 
 def slab_bound(n, dtype, steps=SLAB_STEPS):
@@ -1279,13 +1308,35 @@ def mufu_floor_ms(n, steps, mufu_per_step):
     return 1e3 * n * steps * mufu_per_step / (sms * 16 * mhz * 1e6), mhz
 
 
-def deposit_bound(p, g, dtype):
-    """One deposit: DEPOSIT_OPS_PER_PAIR a pair plus the second pass's
-    sums; x, mask and the grid read once, n and e written once."""
+def pairs_in_reach(x, mask, grid, width=WIDTH):
+    """The (particle, grid point) pairs whose term exp(dx^2 / -w) m is not
+    +0 in the working type: |dx| below sqrt(EXP_UNDERFLOW w), m nonzero.
+    Counted over the sorted positions (measuring code, not the kernel)."""
+    xs = torch.sort(x[mask != 0])[0]
+    r = float(np.sqrt(k6.EXP_UNDERFLOW[x.dtype] * width))
+    inside = (torch.searchsorted(xs, grid + r, right=True)
+              - torch.searchsorted(xs, grid - r, right=False))
+    return int(inside.sum())
+
+
+def deposit_bound(x, mask, grid, width=WIDTH):
+    """One deposit as the function needs it: DEPOSIT_OPS a pair within
+    reach (this run's positions), a particle (e's two sums and its bin)
+    and a grid point (e); the bytes of x and the mask read, the binned
+    copy of the particles within the kernels' range written and read, the
+    grid read, n and e written.  Returns (bound_ms, bound_by, basis)."""
+    p, g, dtype = x.shape[0], grid.shape[0], x.dtype
     size = torch.finfo(dtype).bits // 8
-    chunks = -(-p // k6.CHUNK)
-    return bound(k6.DEPOSIT_OPS_PER_PAIR * p * g + 2 * g * chunks,
-                 (2 * p + 3 * g) * size, dtype)
+    pairs = pairs_in_reach(x, mask, grid, width)
+    r = k6.reach(width, dtype)
+    binned = int(((x >= grid.min() - r) & (x <= grid.max() + r)).sum())
+    ops_of = k6.DEPOSIT_OPS
+    ops = (ops_of["per_pair"] * pairs + ops_of["per_particle"] * p
+           + ops_of["per_point"] * g)
+    nbytes = (2 * p + 4 * binned + 3 * g) * size
+    basis = (f"{pairs} pairs within reach ({pairs / (p * g):.4f} of P x "
+             f"G), {binned} particles binned; {bound_sides(ops, nbytes, dtype)}")
+    return (*bound(ops, nbytes, dtype), basis)
 
 
 def particle_ensemble(n, dtype, device, seed):
@@ -1447,13 +1498,43 @@ def deposit_inputs(n, g, dtype, device, seed):
                                                      device=device), grid
 
 
+def deposit_own_bin(x, mask, grid, width=WIDTH):
+    """A wrong deposit for the separation check: each grid point sums n
+    only over the particles of its own bin (bins of the reach's width from
+    the grid's start), e as the plain version."""
+    r = k6.reach(width, x.dtype)
+    lo = float(grid.min()) - r
+    bin_x, bin_g = torch.floor((x - lo) / r), torch.floor((grid - lo) / r)
+    n = torch.zeros_like(grid)
+    for start in range(0, x.shape[0], 4096):
+        xb, mb = x[start:start + 4096], mask[start:start + 4096]
+        dx = xb[None, :] - grid[:, None]
+        same = bin_x[None, start:start + 4096] == bin_g[:, None]
+        n = n + torch.sum(torch.exp(dx * dx / -width) * mb * same, dim=1)
+    return n, k6.deposit_plain(x, mask, grid, width=width)[1]
+
+
+def exp_at_reach(device):
+    """{dtype: (exp(-EXP_UNDERFLOW), exp(-REACH), exp(1 - EXP_UNDERFLOW))}
+    on the card, in the working type: the first two must be +0 (beyond K6's
+    reach every term is +0), the third not (the threshold is tight)."""
+    return {str(dtype)[6:]: [float(torch.exp(torch.tensor(
+        -a, dtype=dtype, device=device))) for a in (
+            k6.EXP_UNDERFLOW[dtype], k6.REACH[dtype],
+            k6.EXP_UNDERFLOW[dtype] - 1.0)]
+        for dtype in (torch.float32, torch.float64)}
+
+
 def phase_deposit_vs_plain(device, n=100_003):
     """Phase 11: K6 against its plain version, G = 1000 and a ragged
     1001, a mask with zeros, f32 and f64; what a wrong kernel shows on
     the plain version (the mask ignored; the ragged last chunk of
-    particles dropped), each asserted SEPARATION above the limit; and two
-    launches on the same inputs equal bit for bit."""
+    particles dropped; each point summing only its own bin's particles),
+    each asserted SEPARATION above the limit; two launches on the same
+    inputs equal bit for bit; and exp of the working type +0 at K6's
+    reach."""
     rows = {}
+    exps = exp_at_reach(device)
     for dtype in (torch.float32, torch.float64):
         for g in (1000, 1001):
             x, mask, grid = deposit_inputs(n, g, dtype, device, SEED + 6)
@@ -1469,19 +1550,26 @@ def phase_deposit_vs_plain(device, n=100_003):
                    "last chunk dropped": max(relative_deviations(
                        k6.deposit_plain(x[:full], mask[:full], grid),
                        plain)),
+                   "own bin only": max(relative_deviations(
+                       deposit_own_bin(x, mask, grid), plain)),
                    "bitwise repeat": all(torch.equal(a, b)
                                          for a, b in zip(got, again))}
             row["fail"] = (
                 ([] if row["dev"] <= row["limit"] else ["dev"])
-                + [w for w in ("mask ignored", "last chunk dropped")
+                + [w for w in ("mask ignored", "last chunk dropped",
+                               "own bin only")
                    if not row[w] >= SEPARATION * row["limit"]]
                 + ([] if row["bitwise repeat"] else ["bitwise repeat"]))
             rows[f"{str(dtype)[6:]}/G={g}"] = row
     print(f"[11 K6 vs plain, {n} particles] worst relative deviation of n "
           f"and e against the limit, what a wrong kernel would show, and "
           f"whether a second launch repeats the first bit for bit: "
-          f"{json.dumps(rows)}")
+          f"{json.dumps(rows)}; exp on the card at -EXP_UNDERFLOW, at "
+          f"-REACH and 1 above the first: {json.dumps(exps)}")
     failed = {key: row for key, row in rows.items() if row["fail"]}
+    if any(v[0] != 0.0 or v[1] != 0.0 or not v[2] > 0.0
+           for v in exps.values()):
+        failed["exp at reach"] = exps
     if failed:
         raise AssertionError(f"deposit vs plain: {failed}")
 
@@ -1507,17 +1595,44 @@ def phase_pic(device, n=1_000_000, g=1000, steps=50, dt=1.0e-14):
             dens, field = k6.deposit_plain(st.x, torch.ones_like(st.x), grid)
             st = push(st._replace(n=dens, epara=field))
     devs = dict(zip(PicState._fields, relative_deviations(final, st)))
+    # where the wall goes: the same run under the profiler
+    ops, busy_ms, k6_ms = device_work(
+        lambda: run_pic(n, g, steps, dt=dt, seed=SEED, dtype=dtype,
+                        device=device), part="deposit_")
     print(f"[12 xpic full width] {n} particles x {g} grid points f32 x "
           f"{steps} steps, dt {dt}: {seconds:.4f} s = {rate:.6e} "
           f"particle-steps/s = {rate * g:.6e} pair-updates/s; {count} K6 "
           f"launches; all finite {finite}; n.max() {float(final.n.max()):.6e}"
           f"; against the plain deposit's run, relative deviation "
-          f"{json.dumps(devs)}, limit {PIC_TOL}")
+          f"{json.dumps(devs)}, limit {PIC_TOL}; under the profiler "
+          f"{ops} device operations, {busy_ms:.3f} ms of device time "
+          f"against {1e3 * seconds:.3f} ms of wall, K6's kernels "
+          f"{k6_ms:.3f} ms of it")
     if (count != steps or not finite or not float(final.n.max()) > 0
             or not max(devs.values()) <= PIC_TOL):
         raise AssertionError(f"xpic: {count} launches, finite {finite}, "
                              f"deviations {devs}")
     return dict(x=final.x, grid=grid, launches=count)
+
+
+#: K6's kernels, in launch order (csrc/deposit.cu).
+DEPOSIT_KERNELS = ("deposit_setup_kernel", "deposit_count_kernel",
+                   "deposit_rows_kernel", "deposit_bins_kernel",
+                   "deposit_scatter_kernel", "deposit_tile_kernel",
+                   "deposit_finish_kernel")
+
+
+def deposit_device_ms(x, mask, grid, reps=20):
+    """K6's device ms a call (the profiler's median launch of each of its
+    kernels, summed) and the ms of each kernel."""
+    by_kernel = {}
+    for name in DEPOSIT_KERNELS:
+        by_kernel[name], _, _ = profile_kernel(
+            lambda: [k6.deposit(x, mask, grid) for _ in range(reps)],
+            kernel=(name,))
+    known = [v for v in by_kernel.values() if v is not None]
+    total = sum(known) if len(known) == len(by_kernel) else None
+    return total, by_kernel
 
 
 def particle_kernel_records(slab, pic):
@@ -1559,15 +1674,14 @@ def particle_kernel_records(slab, pic):
               for a, b in zip(got, want))
     ms = event_ms(lambda: k6.deposit(x, mask, grid), 20)
     plain_ms = event_ms(lambda: k6.deposit_plain(x, mask, grid), 2)
-    dev_ms, _, _ = profile_kernel(
-        lambda: [k6.deposit(x, mask, grid) for _ in range(20)],
-        kernel=("deposit_partial_kernel", "deposit_reduce_kernel"))
-    b_ms, b_by = deposit_bound(x.shape[0], grid.shape[0], torch.float32)
+    dev_ms, by_kernel = deposit_device_ms(x, mask, grid)
+    b_ms, b_by, basis = deposit_bound(x, mask, grid)
     print(f"[13 deposit time] {x.shape[0]} particles x {grid.shape[0]} "
-          f"grid points f32: {ms:.4f} ms per call (CUDA events, both "
-          f"passes, wrapper included); kernels on the device "
-          f"{dev_ms} ms (profiler); plain version "
-          f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); max abs error "
+          f"grid points f32: {ms:.4f} ms per call (CUDA events, seven "
+          f"kernels, wrapper included); kernels on the device "
+          f"{dev_ms} ms (profiler; by kernel {json.dumps(by_kernel)}); "
+          f"plain version {plain_ms:.4f} ms; bound {b_ms:.4f} ms, by {b_by} "
+          f"({basis}); max abs error "
           f"{err:.3e} (n up to {float(want[0].abs().max()):.3e}, e up to "
           f"{float(want[1].abs().max()):.3e})")
     records.append({"name": "deposit", "route": "cuda",

@@ -1,5 +1,7 @@
-// The gradient of the cold-plasma D by a reverse sweep written by hand, for
-// the backward window kernels K2 and K3 (efit_window_bwd.cuh).
+// The gradient of the cold-plasma D by a reverse sweep written by hand, and
+// the stepping templates built on it, for every window kernel: the forward
+// window K1 (efit_window.cu) and the backward kernels K2 and K3
+// (efit_window_bwd.cuh).
 //
 // cold_plasma_adjoint<S> runs cold_plasma_D's operations in its order (the
 // bicubic jet, the profiles, B, the dielectric elements, n, npara and the
@@ -229,9 +231,9 @@ __device__ __forceinline__ void cold_plasma_adjoint(const S st[7], const F& f,
   uvp[2] = up;
 }
 
-// The gradient policy of the stepping templates (efit_common.cuh) by the
-// hand-written adjoint: the seven partials of D at the state s, and the
-// RHS (-D_k, D_x) / D_w from them with one division.
+// D's gradient for the stepping templates below, by the hand-written
+// adjoint: the seven partials of D at the state s, and the RHS
+// (-D_k, D_x) / D_w from them with one division.
 struct AdjointGrad {
   template <typename T>
   static __device__ __forceinline__ void rhs(const T g[7], T out[6]) {
@@ -252,5 +254,60 @@ struct AdjointGrad {
     cold_plasma_adjoint(st, f, p, g, b, uvp);
   }
 };
+
+// ---------------------------------------------------------------------------
+// the stepping templates of every window kernel: K1's substeps (efit_window.cu)
+// and the forward sweeps of K2 and K3 (efit_window_bwd.cuh), over any view F
+// of the ray's frozen blocks
+// ---------------------------------------------------------------------------
+
+// models/rays.py make_ray_rhs: (dx, dy, dz, dkx, dky, dkz)/dt =
+// (-D_k, D_x) / D_w at the state s
+template <typename T, typename F>
+__device__ __forceinline__ void ray_rhs(const T s[8], const F& f,
+                                        const Params<T>& p, T out[6]) {
+  T g[7];
+  AdjointGrad::grad(s, f, p, g);
+  AdjointGrad::rhs(g, out);
+}
+
+// the unfolded rk2/rk4 increments of the six integrated leaves
+// (ops/integrators.py _rk2_sum/_rk4_sum)
+template <typename T, int METHOD, typename F>
+__device__ __forceinline__ void increment(const T s[8], const F& f,
+                                          const Params<T>& p, T inc[6]) {
+  T d1[6], d2[6], st[8];
+  ray_rhs(s, f, p, d1);
+  if (METHOD == 2) {
+    shift(s, d1, p.dt, st);
+    ray_rhs(st, f, p, d2);
+#pragma unroll
+    for (int j = 0; j < 6; ++j) inc[j] = p.half * (d1[j] + d2[j]);
+  } else {
+    T d3[6];
+    shift(s, d1, p.half, st);
+    ray_rhs(st, f, p, d2);
+    shift(s, d2, p.half, st);
+    ray_rhs(st, f, p, d3);
+#pragma unroll
+    for (int j = 0; j < 6; ++j) d2[j] = d2[j] + d3[j];
+    shift(s, d3, p.dt, st);
+    ray_rhs(st, f, p, d3);   // d4
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+      inc[j] = p.sixth * (d1[j] + T(2) * d2[j] + d3[j]);
+  }
+}
+
+// one plain substep in place (t advances by dt, w stays)
+template <typename T, int METHOD, typename F>
+__device__ __forceinline__ void substep(T s[8], const F& f,
+                                        const Params<T>& p) {
+  T inc[6];
+  increment<T, METHOD>(s, f, p, inc);
+  s[ST_T] = s[ST_T] + p.dt;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) s[ST_X + j] = s[ST_X + j] + inc[j];
+}
 
 }  // namespace gft

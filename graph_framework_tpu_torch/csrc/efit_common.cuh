@@ -7,11 +7,11 @@
 //
 //   * T (float or double) for a plain value;
 //   * Dual<T, 7> - forward-mode dual numbers whose seven tangents are seeded
-//     on (w, x, y, z, kx, ky, kz) - for the gradient of D, which gives the
-//     ray right-hand side (K1).
-// The backward kernels K2 and K3 take D's gradient by a reverse sweep
-// written by hand instead (efit_adjoint.cuh), in the same operation order,
-// on T or on Dual<T, 1>.
+//     on (w, x, y, z, kx, ky, kz) - for ray_grad, the forward-mode gradient
+//     the host test holds the hand-written one to.
+// Every kernel (K1, K2, K3) takes D's gradient by the reverse sweep written
+// by hand in cold_plasma_D's operation order (efit_adjoint.cuh), on T or on
+// Dual<T, 1>; the stepping templates live there too.
 //
 // Dual is generic in its tangent count and mixes with plain T coefficients
 // (scalar_t<S>).  Only templates and inline functions live here: every .cu
@@ -364,7 +364,9 @@ __device__ __forceinline__ S cold_plasma_D(const S& w, const S kvec[3],
 }
 
 // The seven partials of D (w, x, y, z, kx, ky, kz) at the state s, by
-// forward mode.
+// forward mode.  No kernel calls it: the kernels take the gradient by the
+// hand-written reverse sweep (efit_adjoint.cuh), and the host test of that
+// sweep holds it to this one (tests/test_torch_efit_bwd_host.py).
 template <typename T>
 __device__ __forceinline__ void ray_grad(const T s[8], const Frozen<T>& f,
                                          const Params<T>& p, T g[7]) {
@@ -381,43 +383,6 @@ __device__ __forceinline__ void ray_grad(const T s[8], const Frozen<T>& f,
   for (int i = 0; i < kTangents; ++i) g[i] = d.d[i];
 }
 
-// models/rays.py make_ray_rhs: (dx, dy, dz, dkx, dky, dkz)/dt =
-// (-D_k, D_x) / D_w from the seven partials.
-template <typename T>
-__device__ __forceinline__ void rhs_from_grad(const T g[7], T out[6]) {
-  const T dw = g[0];
-  out[0] = -g[4] / dw;
-  out[1] = -g[5] / dw;
-  out[2] = -g[6] / dw;
-  out[3] = g[1] / dw;
-  out[4] = g[2] / dw;
-  out[5] = g[3] / dw;
-}
-
-// How the stepping templates below take the RHS: ForwardGrad by ray_grad
-// and rhs_from_grad (K1); the backward kernels use AdjointGrad
-// (efit_adjoint.cuh), over their own view of the blocks (the templates' F).
-struct ForwardGrad {
-  template <typename T>
-  static __device__ __forceinline__ void grad(const T s[8],
-                                              const Frozen<T>& f,
-                                              const Params<T>& p, T g[7]) {
-    ray_grad(s, f, p, g);
-  }
-  template <typename T>
-  static __device__ __forceinline__ void rhs(const T g[7], T out[6]) {
-    rhs_from_grad(g, out);
-  }
-};
-
-template <typename T, typename G = ForwardGrad, typename F>
-__device__ __forceinline__ void ray_rhs(const T s[8], const F& f,
-                                        const Params<T>& p, T out[6]) {
-  T g[7];
-  G::grad(s, f, p, g);
-  G::rhs(g, out);
-}
-
 // state + h * derivs on the six integrated leaves (ops/integrators.py
 // _shift; t does not enter D)
 template <typename T>
@@ -426,45 +391,6 @@ __device__ __forceinline__ void shift(const T s[8], const T d[6], T h, T o[8]) {
   o[ST_W] = s[ST_W];
 #pragma unroll
   for (int j = 0; j < 6; ++j) o[ST_X + j] = s[ST_X + j] + h * d[j];
-}
-
-// the unfolded rk2/rk4 increments of the six integrated leaves
-// (ops/integrators.py _rk2_sum/_rk4_sum)
-template <typename T, int METHOD, typename G = ForwardGrad, typename F>
-__device__ __forceinline__ void increment(const T s[8], const F& f,
-                                          const Params<T>& p, T inc[6]) {
-  T d1[6], d2[6], st[8];
-  ray_rhs<T, G>(s, f, p, d1);
-  if (METHOD == 2) {
-    shift(s, d1, p.dt, st);
-    ray_rhs<T, G>(st, f, p, d2);
-#pragma unroll
-    for (int j = 0; j < 6; ++j) inc[j] = p.half * (d1[j] + d2[j]);
-  } else {
-    T d3[6];
-    shift(s, d1, p.half, st);
-    ray_rhs<T, G>(st, f, p, d2);
-    shift(s, d2, p.half, st);
-    ray_rhs<T, G>(st, f, p, d3);
-#pragma unroll
-    for (int j = 0; j < 6; ++j) d2[j] = d2[j] + d3[j];
-    shift(s, d3, p.dt, st);
-    ray_rhs<T, G>(st, f, p, d3);   // d4
-#pragma unroll
-    for (int j = 0; j < 6; ++j)
-      inc[j] = p.sixth * (d1[j] + T(2) * d2[j] + d3[j]);
-  }
-}
-
-// one plain substep in place (t advances by dt, w stays)
-template <typename T, int METHOD, typename G = ForwardGrad, typename F>
-__device__ __forceinline__ void substep(T s[8], const F& f,
-                                        const Params<T>& p) {
-  T inc[6];
-  increment<T, METHOD, G>(s, f, p, inc);
-  s[ST_T] = s[ST_T] + p.dt;
-#pragma unroll
-  for (int j = 0; j < 6; ++j) s[ST_X + j] = s[ST_X + j] + inc[j];
 }
 
 // models/efit.py EfitEquilibrium.freeze_cells for one ray, rounded as

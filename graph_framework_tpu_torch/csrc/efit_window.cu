@@ -18,31 +18,36 @@
 //     from the cell-major (nr*nz, 16) table, psi at the base, the psi-cell
 //     index and the 16 profile coefficients from the (npsi, 16) table.  It
 //     then runs all K substeps against those registers.
-//   * The right-hand side is forward-mode automatic differentiation: D is
-//     written once, as the template cold_plasma_D<S> (the algebra of
+//   * The right-hand side is D's gradient by a reverse sweep written by
+//     hand (cold_plasma_adjoint, efit_adjoint.cuh: the algebra of
 //     models/dispersion.py cold_plasma over models/efit.py FrozenCellEfit,
-//     in efit_common.cuh), and evaluated on Dual<T, 7> numbers whose seven
-//     tangents are seeded on (w, x, y, z, kx, ky, kz).  The TPU kernel
-//     traced jax.grad of D instead; CUDA has no autodiff.  The backward
-//     kernels (efit_window_bwd.cu) take D's gradient by a reverse sweep
-//     written by hand (efit_adjoint.cuh).
+//     in cold_plasma_D's operation order, then its sweep back from dD = 1),
+//     the same sweep the backward kernels K2 and K3 run (efit_window_bwd.cu),
+//     through the same stepping templates.  The TPU kernel traced jax.grad
+//     of D instead; CUDA has no autodiff.
 //
-// What bounds it on this card: per ray and window it moves 64 B of state
-// in and out (128 B compensated) in f32 and gathers 128 B of coefficients,
-// which stay in the 50 MB L2 (a 129 x 129 psi table is about 1 MB in f32).
-// Against that stand K x stages x (one D evaluation carrying 7 tangents)
-// of arithmetic - thousands of FLOPs per ray and substep - so the kernel
-// is compute-bound.  wgmma and TMA have nothing to do here: there is no
-// matrix product, and the loads are a few hundred bytes per thread.
+// What bounds it on this card: arithmetic.  Per ray and window it moves
+// 64 B of state in and out (128 B compensated) in f32 and gathers 128 B of
+// coefficients, which stay in the 50 MB L2 (a 129 x 129 psi table is about
+// 1 MB in f32).  Against that stand 8812 operations a ray and window (rk2,
+// compensated, K = 10; tools/count_ops.py), all of which the function
+// needs.  The design before this one evaluated cold_plasma_D on Dual<T, 7>
+// numbers seeded on (w, x, y, z, kx, ky, kz): 44 892 operations a ray and
+// window, five times as many, and the f64 variants spilled.  The sweep
+// divides by reciprocals (1/r, 1/w, 1/|B|, 1/den per species; 1/dr, 1/dz,
+// 1/dpsi once), where the plain version divides.  wgmma and TMA have
+// nothing to do here: there is no matrix product, and the loads are a few
+// hundred bytes per thread.
 //
 // Numerics: no --use_fast_math (IEEE division and square root).  FMA
-// contraction is left on, so f32 results differ from the plain PyTorch
-// version in the last bits; TwoSum uses additions only and stays exact.
+// contraction is left on and the sweep multiplies by reciprocals, so
+// results differ from the plain PyTorch version in the last bits (chip_smoke.
+// TOL); TwoSum uses additions only and stays exact.
 // The freeze gather rounds as eager PyTorch does (efit_common.cuh).
 // The kernel reads its inputs once and writes its outputs once; the
 // wrapper allocates separate outputs, but in == out (in place) is safe.
 
-#include "efit_common.cuh"
+#include "efit_adjoint.cuh"
 
 namespace gft {
 

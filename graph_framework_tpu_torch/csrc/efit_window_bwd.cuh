@@ -53,8 +53,9 @@
 //   * the stage VJP is one scalar sweep of D for g (391 operations, 2.2
 //     times D's 175) and one on Dual<T, 1> for H v (1109 in all; K3 1275
 //     with its weights), against 2196 and 7062 (K3 13 262) before, and
-//     the forward sweep advances with the same adjoint gradient (827 a
-//     rk2 substep against K1's 4435);
+//     the forward sweep advances with the same adjoint gradient, through
+//     the stepping templates K1 runs too (827 operations a rk2 substep,
+//     where forward mode took 4435);
 //   * the sweep divides by five reciprocals (1/r, 1/w, 1/|B|, 1/den per
 //     species) and the RHS by one: an IEEE division is a sequence of
 //     instructions, and the sweep on Dual<T, 1> had about 140;
@@ -188,7 +189,7 @@ __device__ __forceinline__ void stage_vjp(const T s[8], const T g[7],
   }
 }
 
-// Transpose of one plain substep (substep<T, METHOD, AdjointGrad>) at its
+// Transpose of one plain substep (substep<T, METHOD>) at its
 // input s: ct (8) holds the cotangent of the substep's output and becomes
 // that of its input.
 template <typename T, int METHOD, bool TAB>
@@ -293,7 +294,7 @@ efit_window_bwd_kernel(StatePtrs<T> in, StatePtrs<T> ct_in,
 #pragma unroll
         for (int j = 0; j < 6; ++j) slot[k / stride][j] = s[ST_X + j];
       }
-      if (k + 1 < steps) substep<T, METHOD, AdjointGrad>(s, f, p);
+      if (k + 1 < steps) substep<T, METHOD>(s, f, p);
     }
   }
 
@@ -312,7 +313,7 @@ efit_window_bwd_kernel(StatePtrs<T> in, StatePtrs<T> ct_in,
 #pragma unroll
     for (int j = 0; j < 6; ++j) s[ST_X + j] = slot[k / stride][j];
     for (int r = (k / stride) * stride; r < k; ++r)
-      substep<T, METHOD, AdjointGrad>(s, f, p);
+      substep<T, METHOD>(s, f, p);
     substep_vjp<T, METHOD, TAB>(s, f, p, ct, dpsi, dprof);
   }
 

@@ -62,11 +62,12 @@ SIGNATURES = {
          ctypes.POINTER(ctypes.c_double), _VOID_P],   # params stream
         _INT),
     "gft_deposit": (
-        [_INT, _LL, _INT, _LL,                        # dtype n grid chunk
+        [_INT, _LL, _INT,                             # dtype n grid
          _VOID_P, _VOID_P, _VOID_P,                   # x mask grid
-         _VOID_P, _VOID_P, _VOID_P,                   # partial n e
+         _VOID_P, _VOID_P, _VOID_P,                   # scratch n e
          ctypes.POINTER(ctypes.c_double), _VOID_P],   # params stream
         _INT),
+    "gft_deposit_scratch_bytes": ([_INT, _LL, _INT], _LL),  # dtype n grid
     "gft_vmec_geom": (
         [_INT, _LL,                                   # dtype n
          _VOID_P, _VOID_P, _VOID_P,                   # s u v

@@ -11,36 +11,51 @@ over all particles p with validity mask m_p (xpic.cpp:99-131),
   sum, in the kernel's per-pair algebra.
 * :func:`deposit` is the wrapper.  For CPU tensors, and only then, it runs
   the plain version; for CUDA tensors it launches the hand-written kernels
-  of ``csrc/deposit.cu`` (a deterministic two-pass reduction; built by
-  ``nvcc`` on first use, kernels/build.py) on the current stream, or
-  raises: there is no fallback.  ``deposit_launches`` counts the wrapper's
-  kernel launches (one per call: both passes).
+  of ``csrc/deposit.cu`` (built by ``nvcc`` on first use, kernels/build.py)
+  on the current stream, or raises: there is no fallback.  The kernels
+  compute e from the two particle sums sum m and sum x m, bin the particles
+  by position (a stable counting sort) and sum each grid point's n over
+  only the particles within :data:`REACH` of its tile, beyond which every
+  term is exactly +0; every sum runs in a fixed order, so the same inputs
+  give the same bits.  ``deposit_launches`` counts the wrapper's calls that
+  launched them (one per call, however many kernels it launches).
 
 Any particle count and any grid size: the JAX package's padding of the
 particles to a block multiple and of the grid to a tile multiple, and its
 ``(8, TILE)`` output, are TPU tiling and are not carried over.  The
 deposit has no backward (nor had the TPU kernel): an input that requires
-grad is refused rather than cut silently.
+grad is refused rather than cut silently, and so is, on the card, a width
+that is not positive (no reach exists then).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 #: Wrapper calls that launched the kernels; plain-version calls do not count.
 deposit_launches = 0
 
-#: Floating point operations per (particle, grid point) pair, counted from
-#: the per-pair algebra below (and csrc/deposit.cu): dx 1, dx^2 1, / -w 1,
-#: exp 1, * m 1, + n 1, coef dx 1, * m 1, + e 1.
-DEPOSIT_OPS_PER_PAIR = 9
+#: Floating point operations of the kernels (tools/count_ops.py counts
+#: them over csrc/deposit.cu): a pair within reach (dx 1, dx^2 1, / -w 1,
+#: exp 1, * m 1, + n 1), a particle (+ m, x m, + x m for e's two sums;
+#: x - lo, * 1/width for its bin), a grid point (e = coef (S1 - g S0)).
+DEPOSIT_OPS = {"per_pair": 6, "per_particle": 5, "per_point": 3}
 
-#: Particles per pass-1 block on the card: 1M particles make 245 chunks,
-#: which with 8 tiles of 128 grid points fill the 132 SMs several times.
-CHUNK = 4096
-_MAX_CHUNKS = 65535
+#: Particles a histogram of the kernels' counting sort (csrc/deposit.cu
+#: kChunk) up to 4096 histograms (4M particles); more particles take
+#: larger chunks.
+CHUNK = 1024
+
+#: exp(a) of the working type is exactly +0 for a below minus these: ln of
+#: half the smallest subnormal, 2^-150 (f32) and 2^-1075 (f64).
+EXP_UNDERFLOW = {torch.float32: 103.98, torch.float64: 745.14}
+#: The kernels' reach r = sqrt(REACH w): a pair farther apart adds exactly
+#: +0 (dx^2 / w > 112 > 103.98; 760 > 745.14), with a margin of 3.7% (f32)
+#: and 1.0% (f64) in distance for the rounding of dx and of the bins.
+REACH = {torch.float32: 112.0, torch.float64: 760.0}
 
 #: Particles per block of the plain version (bounds its (G, block) pairs).
 _PLAIN_BLOCK = 4096
@@ -52,6 +67,12 @@ def _params(width, te, q):
     """-w and 2 te / (q w), folded in double as the JAX kernel folds them."""
     width = float(width)
     return -width, 2.0 * float(te) / (float(q) * width)
+
+
+def reach(width, dtype):
+    """The kernels' reach in the working type ``dtype``: beyond it every
+    pair's term exp(dx^2 / -w) m is exactly +0."""
+    return math.sqrt(REACH[dtype] * float(width))
 
 
 def deposit_plain(x, mask, grid, *, width=1.0e-4, te=1.0, q=1.0):
@@ -92,24 +113,31 @@ def _check(x, mask, grid):
 
 
 def _launch(x, mask, grid, width, te, q):
-    """Both passes on the current stream: new (n, e) tensors."""
+    """The kernels on the current stream: new (n, e) tensors."""
     from graph_framework_tpu_torch.kernels import build
 
     global deposit_launches
+    if not (0.0 < float(width) < math.inf):
+        raise ValueError(f"the deposit kernel needs a positive finite width "
+                         f"(its reach), not {width}")
     p, g = x.shape[0], grid.shape[0]
     if p == 0:
         return torch.zeros_like(grid), torch.zeros_like(grid)
-    chunk = max(CHUNK, -(-p // _MAX_CHUNKS))
-    partial = torch.empty((-(-p // chunk), 2, g), dtype=x.dtype,
-                          device=x.device)
-    n, e = torch.empty_like(grid), torch.empty_like(grid)
     lib = build.load()
-    params = (ctypes.c_double * 2)(*_params(width, te, q))
+    code = _DTYPE_CODES[x.dtype]
+    nbytes = lib.gft_deposit_scratch_bytes(code, p, g)
+    if nbytes < 0:
+        raise ValueError(f"the deposit kernel takes 1 to 2^31 - 1 particles "
+                         f"and up to 2^29 grid points, not {p} and {g}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    n, e = torch.empty_like(grid), torch.empty_like(grid)
+    params = (ctypes.c_double * 3)(*_params(width, te, q),
+                                   reach(width, x.dtype))
     with torch.cuda.device(x.device):
         rc = lib.gft_deposit(
-            _DTYPE_CODES[x.dtype], p, g, chunk, x.data_ptr(),
-            mask.data_ptr(), grid.data_ptr(), partial.data_ptr(),
-            n.data_ptr(), e.data_ptr(), params, build.stream(x))
+            code, p, g, x.data_ptr(), mask.data_ptr(), grid.data_ptr(),
+            scratch.data_ptr(), n.data_ptr(), e.data_ptr(), params,
+            build.stream(x))
     if rc != 0:
         raise RuntimeError(f"deposit kernel launch failed ({rc}): "
                            f"{build.error_string(rc)}")

@@ -17,11 +17,11 @@ Prints one JSON object: operations per ray and window of K substeps for
 the window kernels K1 (rk2/rk4, plain/compensated), K2 and K3 (rk2/rk4),
 at K = 10 (the main path's freeze window) and per substep.  Each counts
 what the function needs (``_k1_needed``, ``_window_needed``): K1's
-source takes D's gradient in forward mode and K2/K3's repeat the primal
-work, and the sources' own counts stand beside as
-``source_per_ray_window``.  Then per particle and step for the slab push
-K5 (a square root, rsqrt or reciprocal counts one); per (particle, grid
-point) pair for the deposit K6; per ray, as a fixed part and a part per
+source does just that, K2/K3's repeat the primal work, and the sources'
+own counts stand beside as ``source_per_ray_window``.  Then per particle and step for the slab push
+K5 (a square root, rsqrt or reciprocal counts one); for the deposit K6
+per (particle, grid point) pair within reach, per particle (e's two sums
+and the bin) and per grid point (e); per ray, as a fixed part and a part per
 mode, for the VMEC geometry jet K4 (over the reference's 86 modes in 10
 runs) and the mode sums K7 (a sincos counts two).  K4's
 operations that depend on its tables alone (products of mode numbers,
@@ -30,7 +30,7 @@ doubled coefficients, ds^2) are counted apart, as ``table_fixed`` and
 shuffle tree counts the 31 adds a sum whose results reach lane 0.
 ``chip_smoke.py`` takes the window kernels' counts for their
 ``bound_ms``; ``kernels.boris.SLAB_PUSH_OPS``,
-``kernels.deposit.DEPOSIT_OPS_PER_PAIR``, ``kernels.vmec_geom.JET_OPS``
+``kernels.deposit.DEPOSIT_OPS``, ``kernels.vmec_geom.JET_OPS``
 and ``kernels.vmec_modes.MODE_SUM_OPS`` must equal the counts here
 (tests/test_torch_common.py checks all of them where g++ is present).
 
@@ -60,6 +60,12 @@ _RUNTIME = r"""
 #pragma once
 #include <algorithm>
 #include <cmath>
+#ifdef GFT_EVERY_THREAD
+#include <barrier>
+#include <memory>
+#include <thread>
+#include <vector>
+#endif
 #define __global__
 #define __device__
 #define __host__
@@ -73,8 +79,8 @@ struct dim3 {
 };
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-inline dim3 blockIdx(0, 0, 0), threadIdx(0, 0, 0), blockDim(1), gridDim(1);
-inline void __syncthreads() {}
+inline thread_local dim3 blockIdx(0, 0, 0), threadIdx(0, 0, 0);
+inline dim3 blockDim(1), gridDim(1);
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "host"; }
 inline float sqrtf(float a) { return std::sqrt(a); }
@@ -82,6 +88,9 @@ inline float expf(float a) { return std::exp(a); }
 inline float fmaxf(float a, float b) { return std::fmax(a, b); }
 inline float fminf(float a, float b) { return std::fmin(a, b); }
 using std::exp; using std::fmax; using std::fmin; using std::sqrt;
+using std::isfinite; using std::isnan;
+// shared-memory integer atomics (K6's histograms)
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -98,21 +107,41 @@ struct double2 { double x, y; };
 template <class T> T __ldg(const T* p) { return *p; }
 template <class T> T __shfl_down_sync(unsigned, T v, int) { return v; }
 #ifdef GFT_EVERY_THREAD
-// a launch runs the kernel body once for every (block, thread), in order
+// A launch runs the blocks of its grid one after another, each block's
+// blockDim.x threads together, one std::thread each: __syncthreads waits at
+// the block's barrier, a thread that returns leaves it (as on the card), and
+// shared memory (static above) belongs to the block that runs.
+inline std::barrier<>* g_block_barrier = nullptr;
+inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
 template <class F> void host_launch(dim3 grid, dim3 block, F f) {
   gridDim = grid;
   blockDim = block;
-  for (unsigned b = 0; b < grid.x; ++b)
-    for (unsigned t = 0; t < block.x; ++t) {
-      blockIdx = dim3(b, 0, 0);
+  const unsigned nt = block.x;
+  auto block_barrier = std::make_unique<std::barrier<>>(nt);
+  g_block_barrier = block_barrier.get();
+  auto next_block = [&]() noexcept {
+    block_barrier = std::make_unique<std::barrier<>>(nt);
+    g_block_barrier = block_barrier.get();
+  };
+  std::barrier<decltype(next_block)> between(nt, next_block);
+  std::vector<std::thread> threads;
+  for (unsigned t = 0; t < nt; ++t)
+    threads.emplace_back([&, t] {
       threadIdx = dim3(t, 0, 0);
-      f();
-    }
-  blockIdx = threadIdx = dim3(0, 0, 0);
+      for (unsigned by = 0; by < grid.y; ++by)
+        for (unsigned bx = 0; bx < grid.x; ++bx) {
+          blockIdx = dim3(bx, by, 0);
+          f();
+          g_block_barrier->arrive_and_drop();
+          between.arrive_and_wait();
+        }
+    });
+  for (auto& th : threads) th.join();
   blockDim = gridDim = dim3(1);
 }
 #else
 // the counter's launch: one call, for the one work item it sets up
+inline void __syncthreads() {}
 template <class F> void host_launch(dim3, dim3, F f) { f(); }
 #endif
 
@@ -133,6 +162,9 @@ struct Counted {
   // a read through a volatile pointer (shared memory that stays there)
   Counted(const volatile Counted& a) : v(a.v), tag(a.tag) {}
   explicit operator int() const { return static_cast<int>(v); }
+  // comparisons count nothing (they are not arithmetic)
+  friend bool operator<(Counted a, Counted b) { return a.v < b.v; }
+  friend bool operator>=(Counted a, Counted b) { return a.v >= b.v; }
   static Counted op(double r, bool tag, int n = 1) {
     (g_split && !tag ? g_untagged_ops : g_ops) += n;
     return Counted(r, tag);
@@ -243,7 +275,7 @@ extern "C" void count_window_bwd_split(int method, int tab, int steps,
 }
 
 // The freeze gather and `steps` substeps as the backward kernels' forward
-// sweep takes them (substep<T, METHOD, AdjointGrad>).
+// sweep takes them (substep<T, METHOD>, the stepping K1 runs).
 extern "C" long long count_window_primal(int method, int steps) {
   using namespace gft;
   const Params<Counted> p = params();
@@ -252,8 +284,8 @@ extern "C" long long count_window_primal(int method, int steps) {
   g_ops = 0;
   const Frozen<Counted> f = freeze(s, psi, prof, p);
   for (int k = 0; k < steps; ++k) {
-    if (method == 2) substep<Counted, 2, AdjointGrad>(s, f, p);
-    else substep<Counted, 4, AdjointGrad>(s, f, p);
+    if (method == 2) substep<Counted, 2>(s, f, p);
+    else substep<Counted, 4>(s, f, p);
   }
   return g_ops;
 }
@@ -326,14 +358,23 @@ extern "C" long long count_vmec_modes(int m) {
 """
 
 _DEPOSIT_HARNESS = r"""
-extern "C" long long count_deposit(int particles) {
+// K6's arithmetic, as its kernels call it: a pair within reach (the tile
+// kernel's inner loop), a particle (its part of S0 and S1, and its bin),
+// a grid point (e from the sums).
+extern "C" void count_deposit(long long* per_pair, long long* per_particle,
+                              long long* per_point) {
   using namespace gft;
-  static Counted x[4096], mask[4096], grid[1] = {0.0}, partial[2];
-  for (int k = 0; k < particles; ++k) { x[k] = 1e-3 * k; mask[k] = 1.0; }
+  Counted acc(0.0), s0(0.0), s1(0.0);
   g_ops = 0;
-  deposit_partial_kernel<Counted>(x, mask, grid, partial, particles, 1,
-                                  particles, -1e-4, 2e4);
-  return g_ops;
+  acc = deposit_pair<Counted>(acc, 0.01, 1.0, 0.0, -1e-4);
+  *per_pair = g_ops;
+  g_ops = 0;
+  particle_sums<Counted>(s0, s1, 0.01, 1.0);
+  bin_of<Counted>(0.01, -1.1, 100.0, 220);
+  *per_particle = g_ops;
+  g_ops = 0;
+  field_at<Counted>(0.5, s0, s1, 2e4);
+  *per_point = g_ops;
 }
 """
 
@@ -343,8 +384,9 @@ def _host_source(src: str) -> str:
     turned into a plain call, ``host_launch(g, b, [&] { kernel(args); })``."""
     src = re.sub(r">\s*\n\s*<<<", "><<<", src)
     out, i = [], 0
-    for m in re.finditer(r"([A-Za-z_][\w:]*<[^;{}()]*?>)\s*<<<(.*?)>>>\(",
-                         src, flags=re.S):
+    for m in re.finditer(
+            r"([A-Za-z_][\w:]*(?:<[^;{}()]*?>)?)\s*<<<(.*?)>>>\(", src,
+            flags=re.S):
         if m.start() < i:
             continue
         depth, j = 1, m.end()
@@ -375,7 +417,8 @@ def host_library(tmp: pathlib.Path, units: dict, *, every_thread=False,
     for name, text in units.items():
         (tmp / name).write_text(text)
     lib = tmp / "libhost.so"
-    cmd = ["g++", "-std=c++17", *flags, "-fPIC", "-shared", "-w", "-I",
+    cmd = ["g++", "-std=c++20", *flags, "-pthread", "-fPIC", "-shared", "-w",
+           "-I",
            str(tmp), "-o", str(lib), *[str(tmp / n) for n in units]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -416,7 +459,7 @@ def count() -> dict:
     with tempfile.TemporaryDirectory() as tmpdir:
         lib = ctypes.CDLL(str(_build(pathlib.Path(tmpdir))))
         for name in ("count_window", "count_window_primal", "count_slab",
-                     "count_deposit", "count_vmec_modes"):
+                     "count_vmec_modes"):
             getattr(lib, name).restype = ctypes.c_longlong
         out = {}
         for method in (2, 4):
@@ -439,8 +482,7 @@ def count() -> dict:
                         lib.count_window(0, method, tab, WINDOW)}
         out["K5"] = {"per_particle_step":
                      lib.count_slab(2) - lib.count_slab(1)}
-        out["K6"] = {"per_pair": (lib.count_deposit(2048)
-                                  - lib.count_deposit(1024)) // 1024}
+        out["K6"] = _deposit(lib)
         one, two = lib.count_vmec_modes(1), lib.count_vmec_modes(2)
         out["K7"] = {"per_mode": two - one, "per_ray_fixed": 2 * one - two}
         (one, one_t), (two, two_t) = _vmec_geom(lib, 0), _vmec_geom(lib, 1)
@@ -458,8 +500,9 @@ def _k1_needed(lib, method, compensated, steps):
     with D's gradient by the hand-written reverse sweep
     (``count_window_primal``, as K2/K3's primal work is counted), plus the
     compensated sums' work, the difference of K1's own compensated and
-    plain counts.  K1's source takes the gradient in forward mode
-    (``ray_grad``), some five times the operations."""
+    plain counts.  K1's source runs exactly these stages, so its own count
+    (``source_per_ray_window``) is the same; the forward-mode source before
+    it did some five times the operations."""
     extra = (lib.count_window(1, method, 1, steps)
              - lib.count_window(1, method, 0, steps)) if compensated else 0
     return lib.count_window_primal(method, steps) + extra
@@ -491,6 +534,16 @@ def _window_needed(lib, method, tab, steps):
     if tab:
         needed += primal - split(0)[1]
     return needed
+
+
+def _deposit(lib):
+    """K6's operations: a pair within reach, a particle, a grid point."""
+    import ctypes
+
+    counts = [ctypes.c_longlong() for _ in range(3)]
+    lib.count_deposit(*[ctypes.byref(c) for c in counts])
+    return dict(zip(("per_pair", "per_particle", "per_point"),
+                    (c.value for c in counts)))
 
 
 def _vmec_geom(lib, extra):

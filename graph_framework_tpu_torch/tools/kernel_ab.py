@@ -1,5 +1,5 @@
-"""Time the slab push K5 and the VMEC geometry jet K4 of two source trees
-on one card, in turns.
+"""Time the EFIT window K1, the slab push K5, the grid deposit K6 and the
+VMEC geometry jet K4 of two source trees on one card, in turns.
 
     python3 -m graph_framework_tpu_torch.tools.kernel_ab OTHER_TREE
 
@@ -7,13 +7,19 @@ from the root of one tree, with OTHER_TREE the root of another (an
 unpacked ``git archive`` of an earlier commit, say).  Each tree builds and
 runs its own package, in a subprocess whose working directory is that
 tree, in the order other, this, this, other.  A run measures at the main
-path's shapes: K5 one launch of 1e8 particles f32 x 100 steps from
+path's shapes: K1 one f32 compensated rk2 window of K = 10 substeps over
+100k rays and over 1M rays of ``chip_smoke.launch`` (kx from ``init_k``);
+K6 one deposit of 1M particles onto 1000 grid points f32 from
+``run_pic``'s start (``pic_start``), its device time the sum of all the
+device work of a call (the two trees launch different kernels); K5 one
+launch of 1e8 particles f32 x 100 steps from
 ``chip_smoke.phase_slab_push``'s start, K4 one call of 100k rays x 86
 modes f32 at the VMEC launch (``chip_smoke.vmec_launch``), and again with
 every ray's s at 0.5 (one radial cell); for each the median device ms of
 the launches in a profiler trace and the CUDA-event ms of a wrapper call
-(``chip_smoke.profile_kernel``, ``event_ms``), and registers and spills
-from the build's ptxas log.  This tree's
+(``chip_smoke.profile_kernel``, ``device_work``, ``event_ms``), and
+registers and spills of K1's, K4's, K5's and K6's variants from the build's
+ptxas log.  This tree's
 ``chip_smoke.sass_per_item`` then counts each tree's SASS instructions a
 K5 step and a K4 mode.  Prints one JSON line per run.  Needs a CUDA card.
 """
@@ -31,11 +37,36 @@ import chip_smoke
 _RUN = r"""
 import json, torch
 import chip_smoke as c
-from graph_framework_tpu_torch.kernels import boris, build, vmec_geom
+from graph_framework_tpu_torch.kernels import boris, build, efit_step, vmec_geom
+from graph_framework_tpu_torch.kernels import deposit as k6
+from graph_framework_tpu_torch.models.dispersion import cold_plasma
 from graph_framework_tpu_torch.models.korc import (
     ParticleState, initialize_gamma)
+from graph_framework_tpu_torch.models.pic import make_grid, pic_start
+from graph_framework_tpu_torch.ops.compensated import init_comp_carry
+from graph_framework_tpu_torch.solver import init_k
 build.load()
 dev = torch.device("cuda", 0)
+eq = c.synthetic_equilibrium(torch.float32, dev)
+k1 = {}
+for rays in (100_000, 1_000_000):
+    carry = init_comp_carry(init_k(c.launch(rays, torch.float32, dev),
+                                   cold_plasma, eq))
+    window = lambda: efit_step.efit_window(
+        eq, carry, method="rk2", dt=c.DT, steps=c.FREEZE_EVERY,
+        compensated=True)
+    k1[rays] = dict(
+        ms=c.profile_kernel(lambda: [window() for _ in range(20)])[0],
+        events_ms=c.event_ms(window, 20))
+    del carry
+st = pic_start(1_000_000, 1000, c.SEED, torch.float32, dev)
+grid = make_grid(1000, 2.0 / 999.0, -1.0, torch.float32, dev)
+ones = torch.ones_like(st.x)
+deposit = lambda: k6.deposit(st.x, ones, grid)
+deposit()
+k6_ms = c.device_work(lambda: [deposit() for _ in range(20)])[1] / 20
+k6_events = c.event_ms(deposit, 20)
+del st, ones
 n = 100_000_000
 full = lambda a: torch.full((n,), a, dtype=torch.float32, device=dev)
 start = list(initialize_gamma(ParticleState(
@@ -62,10 +93,11 @@ k4_one_cell = c.profile_kernel(
     kernel=("vmec_geom_kernel",))[0]
 summary = c.ptxas_summary(build.build_log)
 print(json.dumps(dict(
-    library=str(build.library_path()), k5_ms=k5, k5_events_ms=k5_events,
+    library=str(build.library_path()), k1=k1, k6_ms=k6_ms,
+    k6_events_ms=k6_events, k5_ms=k5, k5_events_ms=k5_events,
     k4_ms=k4, k4_events_ms=k4_events, k4_one_cell_ms=k4_one_cell,
-    ptxas={k: summary.get(k) for k in ("K5 f32", "K5 f64", "K4 f32",
-                                       "K4 f64")})))
+    ptxas={k: v for k, v in summary.items()
+           if k[:3] in ("f32", "f64", "K4 ", "K5 ", "K6 ")})))
 """
 
 

@@ -238,8 +238,10 @@ def test_ptxas_summary_names_each_variant():
     nvcc's -Xptxas -v output (the format of CUDA 12): K1's
     efit_window_kernel<T, METHOD, COMPENSATED>, the backward kernels'
     efit_window_bwd_kernel<T, METHOD, TAB> (K2 without the table
-    cotangents, K3 with them), K5's slab_push_kernel<T>, K6's two
-    passes, K4's vmec_geom_kernel<T> and K7's vmec_modes_kernel<T>."""
+    cotangents, K3 with them), K5's slab_push_kernel<T>, K6's seven
+    kernels (its tile kernel, its bins scan and its rows scan, which has
+    no dtype, named here), K4's
+    vmec_geom_kernel<T> and K7's vmec_modes_kernel<T>."""
     log = "\n".join([
         "ptxas info    : 0 bytes gmem",
         "ptxas info    : Compiling entry function '_ZN3gft18efit_window_"
@@ -276,13 +278,18 @@ def test_ptxas_summary_names_each_variant():
         "slab_push_kernelIfEEvNS0_9ParticlesIT_EENS0_10SlabParamsIS3_EEix",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 29 registers, used 0 barriers",
-        "ptxas info    : Compiling entry function '_ZN3gft12_GLOBAL__N_122"
-        "deposit_partial_kernelIdEEvPKT_S4_S4_PS2_xixS2_S2_' for 'sm_90a'",
-        "ptxas info    : Used 40 registers, used 1 barriers, 16384 bytes "
+        "ptxas info    : Compiling entry function '_ZN3gft12_GLOBAL__N_119"
+        "deposit_tile_kernelIdEEvPKT_iPKNS0_6LayoutIS2_EEPKiS4_S4_PS2_S2_"
+        "S2_i' for 'sm_90a'",
+        "ptxas info    : Used 40 registers, used 1 barriers, 16640 bytes "
         "smem",
-        "ptxas info    : Compiling entry function '_ZN3gft12_GLOBAL__N_121"
-        "deposit_reduce_kernelIfEEvPKT_PS2_S5_ii' for 'sm_90a'",
-        "ptxas info    : Used 32 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN3gft12_GLOBAL__N_119"
+        "deposit_bins_kernelIfEEvPNS0_6LayoutIT_EEiPiPKS3_PKi' for "
+        "'sm_90a'",
+        "ptxas info    : Used 32 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN3gft12_GLOBAL__N_119"
+        "deposit_rows_kernelEPKiiPiS3_' for 'sm_90a'",
+        "ptxas info    : Used 16 registers, used 0 barriers",
         "ptxas info    : Compiling entry function '_ZN3gft12_GLOBAL__N_116"
         "vmec_geom_kernelIfEEvPKT_S4_S4_S4_S4_S4_S4_PS2_xiiiS2_S2_S2_' for "
         "'sm_90a'",
@@ -295,9 +302,10 @@ def test_ptxas_summary_names_each_variant():
     assert chip_smoke.ptxas_summary(log) == {
         "K5 f32": "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
                   "spill loads; Used 29 registers, used 0 barriers",
-        "K6 pass 1 f64": "Used 40 registers, used 1 barriers, 16384 bytes "
-                         "smem",
-        "K6 pass 2 f32": "Used 32 registers, used 0 barriers",
+        "K6 tile f64": "Used 40 registers, used 1 barriers, 16640 bytes "
+                       "smem",
+        "K6 bins f32": "Used 32 registers, used 1 barriers",
+        "K6 rows": "Used 16 registers, used 0 barriers",
         "K4 f32": "Used 72 registers, used 0 barriers",
         "K7 f64": "Used 37 registers, used 0 barriers",
         "K2 f32/rk4": "6096 bytes stack frame, 7864 bytes spill stores, "
@@ -331,10 +339,12 @@ def test_sass_per_item_reads_the_hot_loop():
 
 def test_op_counts_match_the_sources():
     """The operation counts behind the kernels' bounds (chip_smoke's
-    WINDOW_OPS, kernels.boris.SLAB_PUSH_OPS,
-    kernels.deposit.DEPOSIT_OPS_PER_PAIR, kernels.vmec_geom.JET_OPS,
-    kernels.vmec_modes.MODE_SUM_OPS) are what tools/count_ops.py counts
-    over the CUDA sources as they stand."""
+    WINDOW_OPS, kernels.boris.SLAB_PUSH_OPS, kernels.deposit.DEPOSIT_OPS,
+    kernels.vmec_geom.JET_OPS, kernels.vmec_modes.MODE_SUM_OPS) are what
+    tools/count_ops.py counts over the CUDA sources as they stand.  K1's
+    source runs exactly the stages its count of what the function needs
+    takes (D's gradient by the hand-written reverse sweep), so its own
+    count equals that count in all four variants."""
     if shutil.which("g++") is None:
         pytest.skip("count_ops needs g++")
     from graph_framework_tpu_torch.kernels import (
@@ -347,7 +357,11 @@ def test_op_counts_match_the_sources():
     for kernel, value in chip_smoke.WINDOW_OPS.items():
         assert ops[kernel]["per_ray_window"] == value, kernel
     assert ops["K5"]["per_particle_step"] == boris.SLAB_PUSH_OPS
-    assert ops["K6"]["per_pair"] == deposit.DEPOSIT_OPS_PER_PAIR
+    for kernel in ("K1 rk2 plain", "K1 rk2 comp", "K1 rk4 plain",
+                   "K1 rk4 comp"):
+        assert (ops[kernel]["source_per_ray_window"]
+                == ops[kernel]["per_ray_window"]), kernel
+    assert ops["K6"] == deposit.DEPOSIT_OPS
     assert ops["K4"] == vmec_geom.JET_OPS
     assert ops["K7"] == vmec_modes.MODE_SUM_OPS
 

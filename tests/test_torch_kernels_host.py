@@ -1,10 +1,12 @@
-"""The slab push K5 and the VMEC geometry jet K4, their own CUDA source run
-on the host, against the plain versions.
+"""The slab push K5, the VMEC geometry jet K4 and the grid deposit K6, their
+own CUDA source run on the host, against the plain versions.
 
-``csrc/boris.cu`` and ``csrc/vmec_geom.cu`` are compiled with ``g++`` over
-the stand-in runtime of ``tools/count_ops.py``, whose launch walks every
-(block, thread) of the grid: the C functions ``gft_slab_push`` and
-``gft_vmec_geom`` then run on CPU tensors as the card runs them, FMA
+``csrc/boris.cu``, ``csrc/vmec_geom.cu`` and ``csrc/deposit.cu`` are
+compiled with ``g++`` over the stand-in runtime of ``tools/count_ops.py``,
+whose launch runs every block of the grid, a block's threads together (one
+``std::thread`` each, ``__syncthreads`` a barrier, shared memory shared):
+the C functions ``gft_slab_push``, ``gft_vmec_geom`` and ``gft_deposit``
+then run on CPU tensors as the card runs them, FMA
 contraction aside (``-ffp-contract=off``), and with the f32 kernels' PTX
 approximations (``rsqrt.approx``, ``rcp.approx``) replaced by rounded
 double arithmetic.  The f64 kernels have no approximation: they are held
@@ -14,8 +16,13 @@ relative to its largest magnitude; f32 to the same module's f32 limits.
 K5 runs a ragged particle count (not a multiple of its 256-thread block)
 for one step and a launch of 100 in two slab fields; K4 a few hundred rays
 with s over both clamps, over the 86-mode synthetic tables, a ragged mode
-set (modes dropped, n with gaps) and the modes in reverse order.  Skipped
-where ``g++`` is missing.
+set (modes dropped, n with gaps) and the modes in reverse order.  K6 runs
+a ragged particle count (not a multiple of its 1024-particle chunks) with
+a mask that holds zeros, onto G = 1000, a ragged 1001, a grid that is
+neither uniform nor sorted, and with particles beyond the grid's reach,
+within ``chip_smoke.K6_TOL`` of ``deposit_plain``, twice with the same
+bits; a NaN or infinite particle leaves n and e non-finite exactly where
+the plain version's are.  Skipped where ``g++`` is missing.
 """
 
 import ctypes
@@ -27,6 +34,8 @@ import torch
 
 import chip_smoke
 from graph_framework_tpu_torch.kernels import boris, build, vmec_geom
+from graph_framework_tpu_torch.kernels import deposit as k6
+from graph_framework_tpu_torch.models.pic import WIDTH
 from graph_framework_tpu_torch.tools import count_ops
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
@@ -37,6 +46,8 @@ DTYPE_IDS = ["f32", "f64"]
 CODES = {torch.float32: 0, torch.float64: 1}
 PARTICLES = 1037
 RAYS = 301
+#: K6's particles: six chunks of the counting sort, the last one ragged.
+DEPOSIT_PARTICLES = 6007
 #: A slab field whose quotients b_shear / b0 and b1 / b0 are not 0.1 and 1.
 OTHER_SLAB = dict(dt=0.3, b0=2.0, b1=1.5, b_shear=0.3, larmor=0.7)
 
@@ -46,11 +57,13 @@ def host_lib(tmp_path_factory):
     """The host build of the two sources, typed as kernels/build.py types
     them."""
     units = {"boris.cpp": '#include "boris.cu"\n',
-             "vmec_geom.cpp": '#include "vmec_geom.cu"\n'}
+             "vmec_geom.cpp": '#include "vmec_geom.cu"\n',
+             "deposit.cpp": '#include "deposit.cu"\n'}
     lib = ctypes.CDLL(str(count_ops.host_library(
         tmp_path_factory.mktemp("kernels_host"), units, every_thread=True,
         flags=("-O1", "-ffp-contract=off"))))
-    for name in ("gft_slab_push", "gft_vmec_geom"):
+    for name in ("gft_slab_push", "gft_vmec_geom", "gft_deposit",
+                 "gft_deposit_scratch_bytes"):
         argtypes, restype = build.SIGNATURES[name]
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = restype
@@ -183,3 +196,75 @@ def test_wrapper_refuses_runs_of_other_modes():
     np.testing.assert_array_equal(
         vmec_geom.geometry_jet(*coords, tables).numpy(),
         vmec_geom.reference_jet(*coords, tables).numpy())
+
+
+def _host_deposit(lib, x, mask, grid):
+    """``gft_deposit`` on CPU tensors: (n, e), as kernels.deposit._launch
+    returns them on the card."""
+    code = CODES[x.dtype]
+    nbytes = lib.gft_deposit_scratch_bytes(code, x.shape[0], grid.shape[0])
+    assert nbytes > 0
+    scratch = torch.empty(nbytes + 256, dtype=torch.uint8)
+    base = (-scratch.data_ptr()) % 256    # the card's allocator aligns so
+    n, e = torch.empty_like(grid), torch.empty_like(grid)
+    width = WIDTH
+    params = (ctypes.c_double * 3)(*k6._params(width, 1.0, 1.0),
+                                   k6.reach(width, x.dtype))
+    rc = lib.gft_deposit(code, x.shape[0], grid.shape[0], x.data_ptr(),
+                         mask.data_ptr(), grid.data_ptr(),
+                         scratch.data_ptr() + base, n.data_ptr(),
+                         e.data_ptr(), params, None)
+    assert rc == 0
+    return n, e
+
+
+def _deposit_case(case, dtype):
+    """(x, mask, grid) of one K6 case, from chip_smoke.deposit_inputs."""
+    g = 1001 if case == "G=1001" else 1000
+    x, mask, grid = chip_smoke.deposit_inputs(
+        DEPOSIT_PARTICLES, g, dtype, "cpu", chip_smoke.SEED + 6)
+    if case == "non-uniform grid":
+        rng = np.random.default_rng(chip_smoke.SEED + 11)
+        grid = torch.from_numpy(rng.uniform(-1.2, 1.2, 777)).to(dtype)
+    if case == "beyond reach":
+        far = torch.tensor([-50.0, -2.0, -1.2, 1.15, 1.5, 3.0, 1e6],
+                           dtype=dtype)
+        x = x.clone()
+        x[::857][:far.numel()] = far
+    return x, mask, grid
+
+
+@pytest.mark.parametrize("case", ["G=1000", "G=1001", "non-uniform grid",
+                                  "beyond reach"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_deposit_source_matches_plain_version(host_lib, dtype, case):
+    """K6 against ``deposit_plain``: n and e, each relative to its largest
+    magnitude, within K6_TOL; a second run gives the same bits."""
+    x, mask, grid = _deposit_case(case, dtype)
+    got = _host_deposit(host_lib, x, mask, grid)
+    want = k6.deposit_plain(x, mask, grid)
+    devs = chip_smoke.relative_deviations(got, want)
+    assert max(devs) <= chip_smoke.K6_TOL[dtype], devs
+    again = _host_deposit(host_lib, x, mask, grid)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("bad", ["nan", "inf"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_deposit_non_finite_particle(host_lib, dtype, bad):
+    """One NaN particle makes every n and e NaN (exp(NaN) 0 is NaN, as in
+    the plain version's sum, and so is its part of e); one infinite
+    particle adds nothing to n and makes e non-finite: K6's outputs are
+    finite exactly where the plain version's are, and agree there."""
+    x, mask, grid = _deposit_case("G=1000", dtype)
+    x = x.clone()
+    x[1234] = float(bad)
+    got = _host_deposit(host_lib, x, mask, grid)
+    want = k6.deposit_plain(x, mask, grid)
+    for a, b in zip(got, want):
+        assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+    finite = torch.isfinite(want[0])
+    assert bool(finite.all()) == (bad == "inf")
+    if finite.any():
+        assert max(chip_smoke.relative_deviations(
+            [got[0][finite]], [want[0][finite]])) <= chip_smoke.K6_TOL[dtype]
