@@ -27,6 +27,9 @@ failed check raises and the script exits non-zero):
    each within a limit that lies well below what a wrong kernel shows;
    3a. the same for K2 and K3 against autograd of the plain version, with
    random cotangents;
+   3b. the O- and X-mode instances of K1 (all eight variants), K2 and K3
+   (f32 and f64, rk2 and rk4) against their plain versions at K = 10,
+   under the same limits, each also 10x below the other mode's window;
 4. main path at full width: 100k rays f32 compensated, then f64 plain,
    then 1M rays for 100 recorded steps; launch counts, validity,
    residuals, the f32/f64 endpoint gap, and ray-steps/s;
@@ -38,6 +41,11 @@ failed check raises and the script exits non-zero):
    gradients over 100k x 100 x 10 through K3;
    4c'. (phase c) the gradient through ``init_k`` and the kernels against
    central differences, f64;
+   4d. the O- and X-mode main paths: 100k rays x 1000 x 10 compensated f32
+   rk2 through K1 (launch count, validity, max D^2, the gap to f64 from
+   the same root, the smallest w^2 - wh^2 over the run, K1's device ms
+   beside its bound), then fwd+bwd over 100 recorded steps through K1 and
+   K2 and table gradients over 10 through K3;
 5. ``trace_segmented``: 32 recorded rows of 100k rays kept in memory;
 6. the plain version's ray-steps/s on the card beside the kernel's;
 7. each kernel's milliseconds per window (on the device and by CUDA
@@ -89,8 +97,15 @@ fused geometry jet, ``csrc/vmec_geom.cu``) and K7 (the mode sums,
 17. K4's and K7's milliseconds beside their plain versions' and bounds;
    the SASS instructions of K4's mode loop.
 
-It then prints the kernel table as one JSON line (all seven kernels) and,
-last, the device line ``{"ok": true, "device": {...}}``.
+18. the referee fixtures (tests/fixtures/golden_*.npz) on the card in
+   f64: ``init_k`` and the trajectories of configs 1, 2 and 2b (O mode, X
+   mode, Bohm-Gross) at tests/test_reference_parity.py's tolerances, and
+   two adaptive_rk4 steps of the stiff system against its analytic
+   referee.
+
+It then prints the kernel table as one JSON line (the seven kernels and
+the O- and X-mode instances of K1, K2 and K3) and, last, the device line
+``{"ok": true, "device": {...}}``.
 
 The equilibria are built in memory (no file, no ``h5py``): a smooth
 up-down symmetric tokamak flux map on a 129 x 129 grid with 129-knot
@@ -115,11 +130,15 @@ from unittest import mock
 import numpy as np
 import torch
 
-from graph_framework_tpu_torch.constants import Q
+from graph_framework_tpu_torch.constants import (
+    ME, Q, cyclotron_frequency, plasma_frequency_squared)
 from graph_framework_tpu_torch.kernels import (
     boris, build, efit_step, vmec_geom, vmec_modes)
 from graph_framework_tpu_torch.kernels import deposit as k6
-from graph_framework_tpu_torch.models.dispersion import cold_plasma
+from graph_framework_tpu_torch.models.dispersion import (
+    bohm_gross, cold_plasma, extra_ordinary_wave, ordinary_wave, stiff)
+from graph_framework_tpu_torch.models.equilibrium import (
+    make_gaussian_density, make_no_magnetic_field, make_slab_density)
 from graph_framework_tpu_torch.models.efit import efit_from_tables
 from graph_framework_tpu_torch.models.korc import (
     ParticleState, initialize_gamma, run_korc)
@@ -385,8 +404,9 @@ def launch(n, dtype, device, seed=SEED):
                           device=device)
 
 
-def production_solver(eq, *, compensated=True, window_kernel=True):
-    return Solver(cold_plasma, eq, method="rk2", dt=DT,
+def production_solver(eq, *, compensated=True, window_kernel=True,
+                      dispersion=cold_plasma):
+    return Solver(dispersion, eq, method="rk2", dt=DT,
                   sub_steps=SUB_STEPS, frozen_cells=True,
                   freeze_every=FREEZE_EVERY, compensated=compensated,
                   window_kernel=window_kernel)
@@ -524,9 +544,11 @@ def phase_device():
 def ptxas_summary(log):
     """{variant: 'N registers, ... spill ...'} from nvcc's -Xptxas -v log;
     the variant is read from the mangled name of efit_window_kernel<T,
-    METHOD, COMPENSATED> (K1: f32/rk2/plain, ...), of
-    efit_window_bwd_kernel<T, METHOD, TAB> (K2 f32/rk2 without the table
-    cotangents, K3 f32/rk2 with them), of slab_push_kernel<T> (K5 f32,
+    METHOD, COMPENSATED, Disp> (K1: f32/rk2/plain, ... for cold plasma,
+    omode f32/rk2/plain and xmode f32/rk2/plain for the O and X modes), of
+    efit_window_bwd_kernel<T, METHOD, TAB, Disp> (K2 f32/rk2 without the
+    table cotangents, K3 f32/rk2 with them; K2 omode f32/rk2, ...), of
+    slab_push_kernel<T> (K5 f32,
     K5 f64), of K6's seven kernels deposit_{setup, count, bins,
     scatter, tile, finish}_kernel<T> and deposit_rows_kernel (K6 tile f32,
     K6 bins f64, K6 rows, ...), or of
@@ -548,10 +570,13 @@ def ptxas_summary(log):
             out[variant] = []
         elif m:
             dtype = "f32" if m[2] == "f" else "f64"
+            mode = ("xmode " if "ExtraOrdinaryWave" in line else
+                    "omode " if "OrdinaryWave" in line else "")
             if m[1]:
-                variant = f"{'K3' if m[4] == '1' else 'K2'} {dtype}/rk{m[3]}"
+                variant = (f"{'K3' if m[4] == '1' else 'K2'} {mode}{dtype}/"
+                           f"rk{m[3]}")
             else:
-                variant = (f"{dtype}/rk{m[3]}/"
+                variant = (f"{mode}{dtype}/rk{m[3]}/"
                            f"{'comp' if m[4] == '1' else 'plain'}")
             out[variant] = []
         elif variant and ("spill" in line or "registers" in line):
@@ -647,56 +672,77 @@ def phase_build():
     summary = ptxas_summary(build.build_log)
     for variant, info in summary.items():
         print(f"    {variant}: {info}")
-    bwd = [f"{k} {t}/rk{m}" for k in ("K2", "K3") for t in ("f32", "f64")
-           for m in (2, 4)]
-    missing = [v for v in bwd if v not in summary]
+    modes = ("", "omode ", "xmode ")
+    window = [f"{k} {d}{t}/rk{m}" for d in modes for k in ("K2", "K3")
+              for t in ("f32", "f64") for m in (2, 4)] + [
+        f"{d}{t}/rk{m}/{c}" for d in modes for t in ("f32", "f64")
+        for m in (2, 4) for c in ("plain", "comp")]
+    missing = [v for v in window if v not in summary]
     if missing:
         raise AssertionError(f"ptxas printed nothing for {missing}")
-    # the main path's forward and backward keep their live sets in registers
-    for variant in ("f32/rk2/plain", "f32/rk2/comp", "K2 f32/rk2"):
+    # the main paths' forward and backward keep their live sets in
+    # registers, for each dispersion
+    for variant in [f"{d}f32/rk2/{c}" for d in modes
+                    for c in ("plain", "comp")] + [
+            f"K2 {d}f32/rk2" for d in modes]:
         if spill_bytes(summary[variant]) != 0:
             raise AssertionError(f"{variant} spills: {summary[variant]}")
 
 
-def run_windows(eq, carry, method, k, compensated, kernel):
+def run_windows(eq, carry, method, k, compensated, kernel,
+                dispersion=cold_plasma):
     """One recorded step (SUB_STEPS // k freeze windows of k substeps) from
     ``carry``, through the kernel's wrapper or its plain version."""
     for _ in range(SUB_STEPS // k):
         if kernel:
             carry = efit_step.efit_window(eq, carry, method=method, dt=DT,
-                                          steps=k, compensated=compensated)
+                                          steps=k, compensated=compensated,
+                                          dispersion=dispersion)
         else:
-            carry = efit_step.frozen_window(eq, cold_plasma, carry,
+            carry = efit_step.frozen_window(eq, dispersion, carry,
                                             method=method, dt=DT, steps=k,
                                             compensated=compensated)
     return carry
 
 
-def check_window(eq, st, method, k, compensated):
+#: The dispersion a kernel of each mode is held apart from: a kernel that
+#: ran the other mode's tail (phase 3b's "other dispersion").
+OTHER_MODE = {ordinary_wave: extra_ordinary_wave,
+              extra_ordinary_wave: ordinary_wave}
+
+
+def check_window(eq, st, method, k, compensated, dispersion=cold_plasma):
     """Kernel against plain version over one recorded step from the state
     ``st``.  Returns a row: the worst relative leaf deviation, its limit,
     the deviations the plain version shows for a wrong kernel (the other
-    Runge-Kutta order; the low words dropped) and ``fail``, the names of
-    the checks that failed."""
+    Runge-Kutta order; the low words dropped; for the O and X modes, the
+    other mode's window) and ``fail``, the names of the checks that
+    failed."""
     key = (st.x.dtype, compensated)
     start = init_comp_carry(st) if compensated else st
-    plain = run_windows(eq, start, method, k, compensated, kernel=False)
+    plain = run_windows(eq, start, method, k, compensated, False,
+                        dispersion)
 
     def worst(state):
         return max(leaf_errors(state, plain).values())
 
     row = {"dev": worst(run_windows(eq, start, method, k, compensated,
-                                    kernel=True)),
+                                    True, dispersion)),
            "limit": TOL[key]}
     if CAN_SEE_ORDER[key]:
         other = "rk4" if method == "rk2" else "rk2"
         row["other order"] = worst(run_windows(eq, start, other, k,
-                                               compensated, kernel=False))
+                                               compensated, False,
+                                               dispersion))
     if compensated:
         row["low words dropped"] = worst(init_comp_carry(run_windows(
-            eq, st, method, k, False, kernel=False)))
+            eq, st, method, k, False, False, dispersion)))
+    if dispersion in OTHER_MODE:
+        row["other dispersion"] = worst(run_windows(
+            eq, start, method, k, compensated, False,
+            OTHER_MODE[dispersion]))
     row["fail"] = ([] if row["dev"] <= row["limit"] else ["dev"]) + [
-        s for s in ("other order", "low words dropped")
+        s for s in ("other order", "low words dropped", "other dispersion")
         if s in row and not row[s] >= SEPARATION * row["limit"]]
     return row
 
@@ -754,33 +800,39 @@ def rhs_without_vw(dispersion, feq):
     return rhs
 
 
-def step_vjp(eq, st, ct, method, k, how, tables):
+def step_vjp(eq, st, ct, method, k, how, tables, dispersion=cold_plasma):
     """The VJP of one recorded step (SUB_STEPS // k plain windows) from
     ``st`` for the output cotangent ``ct``: (state cotangent, psi-table
     and profile-table cotangents or None).  ``how``: "kernel" (K2, or K3
     with ``tables``), "plain" (autograd of frozen_window), or a wrong
-    backward on the plain version: "v_w dropped", "other order"."""
+    backward on the plain version: "v_w dropped", "other order", "other
+    dispersion" (the other mode's, OTHER_MODE)."""
     inputs = [st]
     for _ in range(SUB_STEPS // k - 1):
         inputs.append(efit_step.frozen_window(
-            eq, cold_plasma, inputs[-1], method=method, dt=DT, steps=k,
+            eq, dispersion, inputs[-1], method=method, dt=DT, steps=k,
             compensated=False))
     order = method
     if how == "other order":
         order = "rk4" if method == "rk2" else "rk2"
+    transpose = (OTHER_MODE[dispersion] if how == "other dispersion"
+                 else dispersion)
     d_tabs = None
     for s in reversed(inputs):
         if how == "kernel":
             vjp = efit_step.efit_window_vjp(eq, s, ct, method=method,
-                                            dt=DT, steps=k, tables=tables)
+                                            dt=DT, steps=k, tables=tables,
+                                            dispersion=dispersion)
         elif how == "v_w dropped":
             with mock.patch.object(efit_step, "make_ray_rhs",
                                    rhs_without_vw):
                 vjp = efit_step.frozen_window_vjp_blocks(
-                    eq, s, ct, method=order, dt=DT, steps=k)
+                    eq, s, ct, method=order, dt=DT, steps=k,
+                    dispersion=dispersion)
         else:
             vjp = efit_step.frozen_window_vjp_blocks(
-                eq, s, ct, method=order, dt=DT, steps=k)
+                eq, s, ct, method=order, dt=DT, steps=k,
+                dispersion=transpose)
         ct = vjp.state
         if tables:
             tabs = efit_step.scatter_block_cotangents(eq, vjp)
@@ -796,7 +848,7 @@ def relative_deviations(got, want):
             for a, b in zip(got, want)]
 
 
-def check_window_bwd(eq, st, method, k, seed):
+def check_window_bwd(eq, st, method, k, seed, dispersion=cold_plasma):
     """K2 and K3 against autograd of the plain version over one recorded
     step from ``st`` with seeded cotangents.  Returns a row: the worst
     relative deviation of the state cotangent (K2 and K3) and of the
@@ -804,17 +856,20 @@ def check_window_bwd(eq, st, method, k, seed):
     ``fail``."""
     ct = random_cotangent(st, seed)
     tol = BWD_TOL[st.x.dtype]
-    want_st, want_tab = step_vjp(eq, st, ct, method, k, "plain", True)
-    k2, _ = step_vjp(eq, st, ct, method, k, "kernel", False)
-    k3, k3_tab = step_vjp(eq, st, ct, method, k, "kernel", True)
+    want_st, want_tab = step_vjp(eq, st, ct, method, k, "plain", True,
+                                 dispersion)
+    k2, _ = step_vjp(eq, st, ct, method, k, "kernel", False, dispersion)
+    k3, k3_tab = step_vjp(eq, st, ct, method, k, "kernel", True,
+                          dispersion)
     row = {"state": max(relative_deviations(k2, want_st)
                         + relative_deviations(k3, want_st)),
            "tables": max(relative_deviations(k3_tab, want_tab)),
            "limits": tol}
-    wrongs = ["v_w dropped"] + (["other order"]
-                                if CAN_SEE_ORDER[st.x.dtype, False] else [])
+    wrongs = ["v_w dropped"] + (
+        ["other order"] if CAN_SEE_ORDER[st.x.dtype, False] else []) + (
+        ["other dispersion"] if dispersion in OTHER_MODE else [])
     for how in wrongs:
-        w_st, w_tab = step_vjp(eq, st, ct, method, k, how, True)
+        w_st, w_tab = step_vjp(eq, st, ct, method, k, how, True, dispersion)
         row[how] = {"state": max(relative_deviations(w_st, want_st)),
                     "tables": max(relative_deviations(w_tab, want_tab))}
     row["fail"] = [part for part in ("state", "tables")
@@ -841,6 +896,244 @@ def phase_bwd_vs_plain(device, n=4099):
     failed = {key: row for key, row in rows.items() if row["fail"]}
     if failed:
         raise AssertionError(f"backward kernels vs plain: {failed}")
+
+
+#: The O and X modes the window kernels implement beside cold plasma.
+MODES = {"omode": ordinary_wave, "xmode": extra_ordinary_wave}
+
+
+def phase_modes_vs_plain(device, n=4099):
+    """Phase 3b: K1 (all eight variants, K = 10) and K2/K3 (f32 and f64,
+    rk2 and rk4, K = 10) of the O and X modes against their plain
+    versions over one recorded step, under the limits of phases 3 and 3a,
+    each with its separation from a wrong kernel (the other mode among
+    them)."""
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        eq = synthetic_equilibrium(dtype, device)
+        for mode, disp in MODES.items():
+            st = init_k(launch(n, dtype, device, seed=SEED + 1), disp, eq)
+            for method in ("rk2", "rk4"):
+                for comp in (False, True):
+                    rows[f"K1 {mode} {str(dtype)[6:]}/{method}/"
+                         f"{'comp' if comp else 'plain'}"] = check_window(
+                        eq, st, method, FREEZE_EVERY, comp, disp)
+                rows[f"K2/K3 {mode} {str(dtype)[6:]}/{method}"] = \
+                    check_window_bwd(eq, st, method, FREEZE_EVERY,
+                                     SEED + 2, disp)
+    print(f"[3b O and X modes: K1, K2/K3 vs plain, {n} rays, 1 recorded "
+          f"step, K={FREEZE_EVERY}] worst relative deviations against "
+          f"their limits, and what a wrong kernel would show: "
+          f"{json.dumps(rows)}")
+    failed = {key: row for key, row in rows.items() if row["fail"]}
+    if failed:
+        raise AssertionError(f"O/X kernels vs plain: {failed}")
+
+
+def upper_hybrid_gap(eq, state):
+    """The smallest w^2 - wh^2 over the rays (wh^2 = wpe^2 + wce^2): the
+    distance of the X mode's D from its pole."""
+    pq = eq.plasma_quantities(torch.stack([state.x, state.y, state.z]))
+    wpe2 = plasma_frequency_squared(pq.ne, Q, ME)
+    wce = cyclotron_frequency(-Q, torch.sqrt((pq.b * pq.b).sum(dim=0)), ME)
+    return float((state.w * state.w - (wpe2 + wce * wce)).min())
+
+
+def phase_modes_main(device, n=100_000, steps=1000, steps_grad=100,
+                     steps_tab=10, samples=10):
+    """Phase 4d: the O- and X-mode main paths at full width - n rays x
+    steps x SUB_STEPS, compensated f32 rk2 K = 10 through K1 - then f64
+    plain from the same f32 root (the endpoint gap), the smallest
+    w^2 - wh^2 over the run (``samples`` points of a second run), and
+    fwd+bwd through K1 and K2 (steps_grad recorded steps) and table
+    gradients through K3 (steps_tab).  Returns {mode: (eq, launch state,
+    K1 launches, K2 launches, K3 launches)}."""
+    out = {}
+    windows = SUB_STEPS // FREEZE_EVERY
+    eq64 = synthetic_equilibrium(torch.float64, device)
+    for mode, disp in MODES.items():
+        eq = synthetic_equilibrium(torch.float32, device)
+        st, init_s = timed(lambda: init_k(launch(n, torch.float32, device),
+                                          disp, eq))
+        sol = production_solver(eq, dispersion=disp)
+        efit_step.efit_window_launches = 0
+        (final, carry), secs = timed(
+            lambda: sol.run(st, steps, return_carry=True),
+            pick=lambda o: o[0])
+        launches = efit_step.efit_window_launches
+        if launches != steps * windows:
+            raise AssertionError(f"{mode}: {launches} K1 launches, "
+                                 f"expected {steps * windows}")
+        ok = in_domain(final, eq)
+        frac = float(ok.double().mean())
+        res = float(residual_fn(disp, eq)(final).max())
+        same = RayState(*[leaf.double() for leaf in st])
+        final64 = production_solver(eq64, compensated=False,
+                                    dispersion=disp).run(same, steps)
+        gap = max(leaf_errors(comp_state_f64(carry), final64).values())
+        gaps = [upper_hybrid_gap(eq, st)]
+        s = st
+        for _ in range(samples):
+            s = production_solver(eq, compensated=False,
+                                  dispersion=disp).run(s, steps // samples)
+            gaps.append(upper_hybrid_gap(eq, s))
+        rate = n * steps * SUB_STEPS / secs
+        k1_ms, _, _ = profile_kernel(lambda: [efit_step.efit_window(
+            eq, init_comp_carry(st), method="rk2", dt=DT, steps=FREEZE_EVERY,
+            compensated=True, dispersion=disp) for _ in range(20)])
+        b_ms, b_by, basis = window_bound(eq, n, f"K1 {mode} rk2 comp")
+        print(f"[4d {mode} main f32 compensated] {n} rays x {steps} x "
+              f"{SUB_STEPS}: init_k {init_s:.3f} s, run {secs:.3f} s = "
+              f"{rate:.6e} ray-steps/s; {launches} K1 launches; in table "
+              f"{frac}; max D^2 {res:.3e}; largest relative gap to f64 "
+              f"from the same root {gap:.3e} (limit {GAP_TOL['f32 root']});"
+              f" smallest w^2 - wh^2 over the run {min(gaps):.6e} /m^2 "
+              f"(w^2 = {W0 * W0:.6e}); K1 on the device {k1_ms} ms a "
+              f"window against its bound {b_ms:.4f} ms by {b_by} ({basis})")
+        if frac != 1.0 or not np.isfinite(res) or not gap <= GAP_TOL[
+                "f32 root"] or not min(gaps) > 0.1 * W0 * W0:
+            raise AssertionError(f"{mode} main path: in table {frac}, max "
+                                 f"D^2 {res}, gap {gap}, w^2 - wh^2 "
+                                 f"{min(gaps)}")
+
+        sol = production_solver(eq, compensated=False, dispersion=disp)
+        leaves = [leaf.detach().clone().requires_grad_(True) for leaf in st]
+        reset_launch_counts()
+        (loss, grads), secs = timed(lambda: _loss_and_grads(
+            lambda: sol.run(RayState(*leaves), steps_grad), leaves),
+            pick=lambda o: RayState(*o[1]))
+        counts = launch_counts()
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        psi = eq.psi_coeffs.clone().requires_grad_(True)
+        prof = eq.profile_coeffs.clone().requires_grad_(True)
+        eqt = dataclasses.replace(eq, psi_coeffs=psi, profile_coeffs=prof)
+        reset_launch_counts()
+        _, tab_grads = _loss_and_grads(
+            lambda: production_solver(eqt, compensated=False,
+                                      dispersion=disp).run(st, steps_tab),
+            [psi, prof])
+        counts_tab = launch_counts()
+        tab_ok = all(bool(torch.isfinite(g).all()) and float(
+            g.abs().max()) > 0 for g in tab_grads)
+        print(f"[4d {mode} fwd+bwd f32 rk2] {n} rays x {steps_grad} x "
+              f"{SUB_STEPS}: {secs:.3f} s = "
+              f"{n * steps_grad * SUB_STEPS / secs:.6e} fwd+bwd "
+              f"ray-steps/s (first pass); launches K1/K2/K3 {counts}; "
+              f"finite {finite}; table gradients over {steps_tab} steps: "
+              f"launches {counts_tab}, finite and nonzero {tab_ok}")
+        if (counts != (steps_grad * windows, steps_grad * windows, 0)
+                or counts_tab != (steps_tab * windows, 0,
+                                  steps_tab * windows)
+                or not (finite and tab_ok)):
+            raise AssertionError(f"{mode} gradients: launches {counts}, "
+                                 f"{counts_tab}; finite {finite}, {tab_ok}")
+        out[mode] = (eq, st, launches, counts[1], counts_tab[2])
+    return out
+
+
+def _loss_and_grads(run, wrt):
+    """(endpoint loss of ``run()``, its gradients with respect to
+    ``wrt``)."""
+    loss = endpoint_loss(run())
+    return loss, torch.autograd.grad(loss, wrt)
+
+
+# -- the referee fixtures on the card ----------------------------------------
+# tests/fixtures/golden_*.npz: an independent referee's trajectories
+# (scipy DOP853 at rtol 1e-12 with finite-difference ray equations), as
+# tests/test_reference_parity.py holds the JAX package to them and
+# tests/test_torch_referee.py the port on the CPU.  Same tolerances.
+REFEREE = {"golden_config1_omode_slab": (ordinary_wave, make_slab_density,
+                                         1.0e-3),
+           "golden_config2_xmode_slab": (extra_ordinary_wave,
+                                         make_slab_density, 1.0e-3),
+           "golden_config2_bohm_gross": (bohm_gross, make_gaussian_density,
+                                         2.5e-4)}
+# the adaptive stiff fixture: steps taken on the card (the CPU test takes
+# 10; each step is a Newton loop of eager rk4 steps with their gradients,
+# some 150 device operations an iteration)
+REFEREE_ADAPTIVE_STEPS = 2
+
+
+def referee_fixture(name):
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "fixtures"
+    return dict(np.load(path / f"{name}.npz"))
+
+
+def referee_launch(gold, k, device):
+    p = gold["p_launch"]
+    return make_ray_state(
+        p.shape[0], w=float(gold["w"]), x=torch.from_numpy(p[:, 0]),
+        y=torch.from_numpy(p[:, 1]), z=torch.from_numpy(p[:, 2]),
+        kx=torch.from_numpy(k[:, 0]), ky=torch.from_numpy(k[:, 1]),
+        kz=torch.from_numpy(k[:, 2]), dtype=torch.float64, device=device)
+
+
+def phase_referee(device):
+    """Phase 18: the referee fixtures on the card, f64 CUDA tensors:
+    init_k and the recorded trajectories of configs 1, 2 and 2b
+    (tests/test_reference_parity.py's tolerances), and adaptive_rk4 on
+    the stiff system against the analytic referee at the landed times."""
+    rows = {}
+    t0 = time.perf_counter()
+    for name, (disp, make_eq, dt) in REFEREE.items():
+        gold = referee_fixture(name)
+        eq = make_eq()
+        which = ("kx", "ky", "kz")[int(gold["which"])]
+        st = init_k(referee_launch(gold, gold["k_guess"], device), disp, eq,
+                    which, tolerance=1.0e-24, max_iterations=100)
+        k = torch.stack([st.kx, st.ky, st.kz], dim=1).cpu().numpy()
+        n_rec = len(gold["t_record"]) - 1
+        sub = int(round(float(gold["t_record"][-1]) / n_rec / dt))
+        _, traj = Solver(disp, eq, method="rk4", dt=dt,
+                         sub_steps=sub).trace(
+            referee_launch(gold, gold["k_init"], device), n_rec)
+        ours = torch.stack(list(traj[2:]), dim=-1).transpose(0, 1).cpu()
+        ref = gold["traj"]
+        k_scale = float(np.abs(gold["k_init"]).max())
+        init_dev = np.abs(k - gold["k_init"]) - 1e-9 * np.abs(
+            gold["k_init"])
+        pos_dev = np.abs(ours[..., :3].numpy() - ref[..., :3]) - 1e-6 * \
+            np.abs(ref[..., :3])
+        k_dev = np.abs(ours[..., 3:].numpy() - ref[..., 3:]) - 1e-6 * \
+            np.abs(ref[..., 3:])
+        rows[name] = {"init_k excess": float(init_dev.max() - 1e-9),
+                      "position excess": float(pos_dev.max() - 1e-8),
+                      "k excess": float(k_dev.max() - 2e-8 * k_scale)}
+    t_traj = time.perf_counter() - t0
+    gold = referee_fixture("golden_adaptive_stiff")
+    sol = Solver(stiff, make_no_magnetic_field(), method="adaptive_rk4",
+                 dt=1.0e-4, sub_steps=1)
+    step = sol.carry_step_fn()
+    carry = sol.init_carry(make_ray_state(1, w=float(gold["w"]), x=1.0,
+                                          kx=1.0, dtype=torch.float64,
+                                          device=device))
+    ts, ref = gold["t_record"], gold["traj"][0]
+    worst = {"x excess": -np.inf, "kx excess": -np.inf}
+    for i in range(REFEREE_ADAPTIVE_STEPS):
+        carry = step(carry)
+        if i == 0:
+            first_dt = float(carry.dt[0])
+        s = sol.carry_state(carry)
+        t = float(s.t[0])
+        x_ref = float(np.interp(t, ts, ref[:, 0]))
+        k_ref = float(np.interp(t, ts, ref[:, 3]))
+        worst["x excess"] = max(worst["x excess"],
+                                abs(float(s.x[0]) - x_ref) - 5e-8)
+        worst["kx excess"] = max(worst["kx excess"], abs(
+            float(s.kx[0]) - k_ref) - 1e-5 * abs(k_ref))
+    worst["first dt"] = first_dt
+    rows["golden_adaptive_stiff"] = worst
+    print(f"[18 referee fixtures on the card, f64] deviation beyond each "
+          f"tolerance (must be <= 0): {json.dumps(rows)}; init_k and "
+          f"trajectories {t_traj:.1f} s, {REFEREE_ADAPTIVE_STEPS} adaptive "
+          f"steps {time.perf_counter() - t0 - t_traj:.1f} s")
+    bad = {k: v for k, v in rows.items()
+           if any(x > 0 for key, x in v.items() if key.endswith("excess"))}
+    if bad or not abs(first_dt - 1.0e-4) > 1.0e-6:
+        raise AssertionError(f"referee fixtures on the card: {rows}")
 
 
 def reset_launch_counts():
@@ -1090,24 +1383,29 @@ def phase_plain_timing(eq, state, kernel_rate, steps=2):
           f" x{kernel_rate / rate:.1f})")
 
 
-def kernel_record(eq, state, launches):
-    """The kernel line: kernel vs plain on one main-path window (100k rays,
-    f32 compensated rk2, K = 10), error and milliseconds of each."""
+def kernel_record(eq, state, launches, mode=""):
+    """The kernel line of K1 for the dispersion of ``mode`` ("": cold
+    plasma, or a key of MODES): kernel vs plain on one main-path window
+    (100k rays, f32 compensated rk2, K = 10), error and milliseconds of
+    each."""
+    disp = MODES.get(mode, cold_plasma)
+    tag = f" {mode}" if mode else ""
     carry = init_comp_carry(state)
-    kern = run_windows(eq, carry, "rk2", FREEZE_EVERY, True, kernel=True)
-    plain = run_windows(eq, carry, "rk2", FREEZE_EVERY, True, kernel=False)
+    kern = run_windows(eq, carry, "rk2", FREEZE_EVERY, True, True, disp)
+    plain = run_windows(eq, carry, "rk2", FREEZE_EVERY, True, False, disp)
     err = max(d for f, d in leaf_deviations(kern, plain).items()
               if f not in ("t", "w"))
     rel = max(leaf_errors(kern, plain).values())
     if not rel <= TOL[torch.float32, True]:
-        raise AssertionError(f"main-path window: kernel vs plain {rel}")
+        raise AssertionError(f"main-path window{tag}: kernel vs plain {rel}")
 
     def kern_call():
         return efit_step.efit_window(eq, carry, method="rk2", dt=DT,
-                                     steps=FREEZE_EVERY, compensated=True)
+                                     steps=FREEZE_EVERY, compensated=True,
+                                     dispersion=disp)
 
     def plain_call():
-        return efit_step.frozen_window(eq, cold_plasma, carry, method="rk2",
+        return efit_step.frozen_window(eq, disp, carry, method="rk2",
                                        dt=DT, steps=FREEZE_EVERY,
                                        compensated=True)
 
@@ -1115,33 +1413,39 @@ def kernel_record(eq, state, launches):
     plain_ms = event_ms(plain_call, 3)
     kernel_ms, _, _ = profile_kernel(
         lambda: [kern_call() for _ in range(20)])
-    sol = production_solver(eq)
+    sol = production_solver(eq, dispersion=disp)
     launch_ms, seen, wall_ms = profile_kernel(lambda: sol.run(state, 50))
     busy_ms = None if launch_ms is None else launch_ms * seen
     share = None if busy_ms is None else busy_ms / wall_ms
-    print(f"[7 kernel time] 100000 rays, f32 compensated rk2 K=10: "
-          f"{ms:.4f} ms per window call (CUDA events, wrapper included); "
-          f"kernel on the device {kernel_ms} ms (profiler); plain version "
-          f"{plain_ms:.4f} ms per window; over 50 "
+    print(f"[7{tag} kernel time] {state.x.shape[0]} rays, f32 compensated "
+          f"rk2 K=10: {ms:.4f} ms per window call (CUDA events, wrapper "
+          f"included); kernel on the device {kernel_ms} ms (profiler); "
+          f"plain version {plain_ms:.4f} ms per window; over 50 "
           f"recorded steps of Solver.run the kernel is busy {busy_ms} of "
           f"{wall_ms:.3f} device ms (share {share})")
-    b_ms, b_by, basis = window_bound(eq, state.x.shape[0], "K1 rk2 comp")
-    print(f"[7 efit_window bound] {b_ms:.4f} ms, by {b_by} ({basis})")
-    return {"name": "efit_window", "route": "cuda",
-            "source": "graph_framework_tpu_torch/csrc/efit_window.cu",
+    b_ms, b_by, basis = window_bound(eq, state.x.shape[0],
+                                     f"K1{tag} rk2 comp")
+    print(f"[7 efit_window{tag} bound] {b_ms:.4f} ms, by {b_by} ({basis})")
+    source = (f"graph_framework_tpu_torch/csrc/efit_window_{mode}.cu"
+              if mode else "graph_framework_tpu_torch/csrc/efit_window.cu")
+    return {"name": f"efit_window{tag}", "route": "cuda",
+            "source": source,
             "replaces": "graph_framework_tpu/pallas/efit_step.py:159",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
 
 
-def bwd_kernel_records(eq, state, launches, launches_tab):
-    """The K2 and K3 lines (phase d): each backward kernel against its
-    plain version on one main-path window (100k rays, f32 plain rk2,
-    K = 10, seeded cotangents): absolute error and milliseconds, by CUDA
-    events per wrapper call and by the profiler on the device."""
+def bwd_kernel_records(eq, state, launches, launches_tab, mode=""):
+    """The K2 and K3 lines (phase d) for the dispersion of ``mode`` (as
+    kernel_record): each backward kernel against its plain version on one
+    main-path window (100k rays, f32 plain rk2, K = 10, seeded
+    cotangents): absolute error and milliseconds, by CUDA events per
+    wrapper call and by the profiler on the device."""
     ct = random_cotangent(state, SEED + 4)
-    kw = dict(method="rk2", dt=DT, steps=FREEZE_EVERY)
+    tag = f" {mode}" if mode else ""
+    kw = dict(method="rk2", dt=DT, steps=FREEZE_EVERY,
+              dispersion=MODES.get(mode, cold_plasma))
     records = []
     for tables, name, line, count, plain in (
             (False, "efit_window_bwd", 260, launches,
@@ -1180,17 +1484,17 @@ def bwd_kernel_records(eq, state, launches, launches_tab):
             scatter = (f"; the scatter into the tables "
                        f"(scatter_block_cotangents) {scatter_ms:.4f} ms "
                        f"apart (CUDA events)")
-        print(f"[7 {name} time] {state.x.shape[0]} rays, f32 rk2 "
+        print(f"[7 {name}{tag} time] {state.x.shape[0]} rays, f32 rk2 "
               f"K={FREEZE_EVERY}: {ms:.4f} ms per window call (CUDA "
               f"events, wrapper included); kernel on the device "
               f"{kernel_ms} ms (profiler); plain version "
               f"(autograd of frozen_window) {plain_ms:.4f} ms; max abs "
               f"error {err:.3e}{scatter}")
-        b_ms, b_by, basis = window_bound(eq, state.x.shape[0],
-                                         "K3 rk2" if tables else "K2 rk2")
-        print(f"[7 {name} bound] {b_ms:.4f} ms, by {b_by} ({basis})")
+        b_ms, b_by, basis = window_bound(
+            eq, state.x.shape[0], f"{'K3' if tables else 'K2'}{tag} rk2")
+        print(f"[7 {name}{tag} bound] {b_ms:.4f} ms, by {b_by} ({basis})")
         records.append({
-            "name": name, "route": "cuda",
+            "name": f"{name}{tag}", "route": "cuda",
             "source": "graph_framework_tpu_torch/csrc/efit_window_bwd.cuh",
             "replaces": f"graph_framework_tpu/pallas/efit_step.py:{line}",
             "launches": count, "max_abs_err": err, "ms": ms,
@@ -1256,7 +1560,10 @@ PIC_TOL = 1.0e-5
 # by the hand-written reverse sweep, the compensation: 8812 a ray; its
 # forward-mode form did 44 892), and K2's and K3's take each stage's
 # gradient three times (38 065 / 41 385 a ray).
-WINDOW_OPS = {"K1 rk2 comp": 8812, "K2 rk2": 22892, "K3 rk2": 26212}
+WINDOW_OPS = {"K1 rk2 comp": 8812, "K2 rk2": 22892, "K3 rk2": 26212,
+              "K1 omode rk2 comp": 6252, "K2 omode rk2": 15172,
+              "K3 omode rk2": 18172, "K1 xmode rk2 comp": 6712,
+              "K2 xmode rk2": 16552, "K3 xmode rk2": 19552}
 # Peak rates of one H100 SXM (NVIDIA's data sheet): f32 and f64 outside the
 # tensor cores, and the HBM rate.  bound_ms is the larger of ops / peak and
 # bytes / rate.
@@ -1273,14 +1580,15 @@ def bound(ops, nbytes, dtype):
 
 
 def window_bound(eq, n, kernel):
-    """One f32 window of ``kernel`` ("K1 rk2 comp", "K2 rk2", "K3 rk2")
-    over n rays: WINDOW_OPS a ray; the bytes of the state leaves in and
-    out (16 + 16 compensated for K1; 8 in, 8 cotangents in and 8 out for
-    K2; and K3's 32 block cotangents and 2 cell rows a ray), and the two
-    tables read once.  Returns (bound_ms, bound_by, both sides as text)."""
+    """One f32 window of ``kernel`` (a key of WINDOW_OPS: "K1 rk2 comp",
+    "K2 omode rk2", ...) over n rays: WINDOW_OPS a ray; the bytes of the
+    state leaves in and out (16 + 16 compensated for K1; 8 in, 8
+    cotangents in and 8 out for K2; and K3's 32 block cotangents and 2
+    cell rows a ray), and the two tables read once.  Returns (bound_ms,
+    bound_by, both sides as text)."""
     size = 4
-    per_ray = {"K1 rk2 comp": 32 * size, "K2 rk2": 24 * size,
-               "K3 rk2": 56 * size + 16}[kernel]
+    per_ray = {"K1": 32 * size, "K2": 24 * size,
+               "K3": 56 * size + 16}[kernel[:2]]
     tables = size * (eq.psi_coeffs.numel() + eq.profile_coeffs.numel())
     ops, nbytes = WINDOW_OPS[kernel] * n, per_ray * n + tables
     return (*bound(ops, nbytes, torch.float32),
@@ -2116,6 +2424,7 @@ def main():
     phase_build()
     phase_kernel_vs_plain(device)
     phase_bwd_vs_plain(device)
+    phase_modes_vs_plain(device)
     out, eq32, st32 = phase_main(device)
     counts, counts_tab = phase_grad_main(device)
     phase_grad_fd(device)
@@ -2124,6 +2433,10 @@ def main():
     records = [kernel_record(eq32, st32, out["launches"])]
     records += bwd_kernel_records(eq32, st32, counts[1], counts_tab[2])
     del eq32, st32
+    for mode, (eq, st, k1, k2, k3) in phase_modes_main(device).items():
+        records.append(kernel_record(eq, st, k1, mode))
+        records += bwd_kernel_records(eq, st, k2, k3, mode)
+    del eq, st
     phase_slab_vs_plain(device)
     slab = phase_slab_push(device)
     phase_korc_efit(device)
@@ -2133,6 +2446,7 @@ def main():
     phase_k4_vs_plain(device)
     phase_k7_vs_plain(device)
     records += vmec_kernel_records(phase_vmec_main(device))
+    phase_referee(device)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

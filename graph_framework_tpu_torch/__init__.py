@@ -15,10 +15,11 @@ wrapper and plain version in :mod:`graph_framework_tpu_torch.kernels`.
 
 Subpackages
 -----------
-``ops``      table index and gathers, spline evaluation, RK integrators,
-             compensated accumulation, Newton iteration.
+``ops``      table index and gathers, spline evaluation, RK, split-
+             symplectic and adaptive integrators, compensated
+             accumulation, Newton iteration.
 ``models``   the equilibrium protocol, the analytic equilibria, EFIT,
-             cold-plasma dispersion, ray equations, the Boris pusher
+             VMEC, the dispersion zoo, ray equations, the Boris pusher
              (korc) and the PIC demo (pic).
 ``kernels``  CUDA kernel wrappers and their build (``nvcc`` at first use).
 ``tools``    numpy spline-table builders for EFIT inputs; the kernels'

@@ -1,17 +1,15 @@
-// Device code shared by the EFIT window kernels (efit_window.cu: the
-// forward window K1; efit_window_bwd.cu: its backward kernels K2 and K3).
+// Device code shared by the EFIT window kernels (efit_window.cuh: the
+// forward window K1; efit_window_bwd.cuh: its backward kernels K2 and K3).
 //
 // D, the cold-plasma dispersion over a ray's frozen EFIT blocks, is written
-// once, as the template cold_plasma_D<S>, and evaluated on whatever scalar
-// S the caller needs:
-//
-//   * T (float or double) for a plain value;
-//   * Dual<T, 7> - forward-mode dual numbers whose seven tangents are seeded
-//     on (w, x, y, z, kx, ky, kz) - for ray_grad, the forward-mode gradient
-//     the host test holds the hand-written one to.
-// Every kernel (K1, K2, K3) takes D's gradient by the reverse sweep written
-// by hand in cold_plasma_D's operation order (efit_adjoint.cuh), on T or on
-// Dual<T, 1>; the stepping templates live there too.
+// here as the template cold_plasma_D<S>, evaluated on Dual<T, 7> -
+// forward-mode dual numbers whose seven tangents are seeded on (w, x, y, z,
+// kx, ky, kz) - by ray_grad, the forward-mode gradient the host test holds
+// the hand-written one to.  Every kernel (K1, K2, K3) takes D's gradient by
+// the reverse sweep written by hand for its dispersion (efit_adjoint.cuh:
+// cold plasma in cold_plasma_D's operation order, the O and X modes in
+// their plain versions'), on T or on Dual<T, 1>; the stepping templates
+// live there too.
 //
 // Dual is generic in its tangent count and mixes with plain T coefficients
 // (scalar_t<S>).  Only templates and inline functions live here: every .cu

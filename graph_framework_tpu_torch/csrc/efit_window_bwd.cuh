@@ -1,5 +1,7 @@
-// The backward of one freeze window of the EFIT cold-plasma ray trace,
-// written by hand for Hopper (sm_90a): two kernels from one template.
+// The backward of one freeze window of the EFIT ray trace, written by hand
+// for Hopper (sm_90a): two kernels from one template, for each dispersion
+// the window kernel K1 serves (ColdPlasma, OrdinaryWave, ExtraOrdinaryWave:
+// efit_adjoint.cuh).
 //
 // K2 replaces graph_framework_tpu/pallas/efit_step.py::_window_bwd_kernel
 // (wired by the window8 custom_vjp): it pulls the cotangent of the
@@ -27,13 +29,15 @@
 //        v   = (dF/dg)^T c:  v_k = -c_x / D_w,  v_x = c_k / D_w,
 //              v_w = -(c . F) / D_w;
 //        the state cotangent is then H v, H the Hessian of D: forward over
-//        reverse, the hand-written reverse sweep of D (efit_adjoint.cuh)
-//        run once on Dual<T, 1> with the inputs' tangents seeded with v.
+//        reverse, the hand-written reverse sweep of D (efit_adjoint<Disp>,
+//        efit_adjoint.cuh) run once on Dual<T, 1> with the inputs'
+//        tangents seeded with v.
 //        t's cotangent passes through unchanged; w is not integrated but D
 //        depends on it, so it collects H v's w part.
 //   3. K3 also needs the six quantities through which D depends on the
 //      blocks (the bicubic value and its u, v derivatives; the ne, te, fpol
-//      profile values): the same sweep gives their adjoints B = dD/dq and,
+//      profile values; te's is zero for the O and X modes, whose D does not
+//      read it): the same sweep gives their adjoints B = dD/dq and,
 //      as their tangents, A = the derivative of B along v.  Each quantity
 //      is linear in its block with weights W = u^a v^b (and their u, v
 //      derivatives) or up^k, so a coefficient's cotangent is A W + B (dW
@@ -41,8 +45,9 @@
 //
 // What bounds it on this card: arithmetic.  Per ray and window it moves
 // 128 B of state and cotangent in and 64 B out (plus 256 B of block
-// cotangents for K3) in f32.  The function needs 22 892 operations (K3
-// 26 212) at K = 10, rk2, each once (tools/count_ops.py); this source
+// cotangents for K3) in f32.  For cold plasma the function needs 22 892
+// operations (K3 26 212) at K = 10, rk2, each once (tools/count_ops.py,
+// which counts the O and X modes too); this source
 // does 38 065 (K3 41 385), because it takes each stage's gradient of D
 // three times: in the forward sweep, again in substep_vjp, and as the
 // value part of the Dual<T, 1> sweep.  Storing them would cost registers
@@ -71,11 +76,11 @@
 // to autograd of the plain window.  tests/test_torch_efit_bwd_host.py runs
 // this source on the host, against the plain versions.
 //
-// Build: each of the four launch_bwd<T, TAB> is instantiated in a source
-// of its own (efit_window_bwd.cu: K2 float, with the C interface;
+// Build: each launch_bwd<Disp, T, TAB> is instantiated in a source of its
+// own (efit_window_bwd.cu: cold-plasma K2 float, with the C interface;
 // efit_window_bwd_f64.cu, efit_window_bwd_tab.cu,
-// efit_window_bwd_tab_f64.cu), so four nvcc processes compile them side
-// by side.
+// efit_window_bwd_tab_f64.cu; efit_window_bwd_{omode,xmode}{,_f64,_tab,
+// _tab_f64}.cu), so that twelve nvcc processes compile them side by side.
 
 #pragma once
 
@@ -107,7 +112,7 @@ __device__ __forceinline__ T prof_coef(const SharedBlocks<T>& f, int k) {
 // The VJP at one stage point s (8 leaves) with the partials g and the RHS
 // F there, for the cotangent c on F: adds H v to acc[7] (w, x, y, z, kx,
 // ky, kz) and, with TAB, the block cotangents to dpsi[16] and dprof[16].
-template <typename T, bool TAB>
+template <typename Disp, typename T, bool TAB>
 __device__ __forceinline__ void stage_vjp(const T s[8], const T g[7],
                                           const T F[6], const T c[6],
                                           const SharedBlocks<T>& f,
@@ -135,7 +140,7 @@ __device__ __forceinline__ void stage_vjp(const T s[8], const T g[7],
     st[q].v = s[from[q]];
     st[q].d[0] = dir[q];
   }
-  cold_plasma_adjoint(st, f, p, gv, bv, uvp);
+  efit_adjoint<Disp>(st, f, p, gv, bv, uvp);
 #pragma unroll
   for (int q = 0; q < 7; ++q) acc[q] += gv[q].d[0];
 
@@ -174,11 +179,13 @@ __device__ __forceinline__ void stage_vjp(const T s[8], const T g[7],
       dpsi[a * 4 + 3] += X[a] * (v2 * v) + T(3) * (Y[a] * v2) +
                          T(6) * (Z[a] * v);
     }
-    // profile rows ne, te, fpol (pressure does not enter D): weights up^k
+    // profile rows ne, te, fpol (pressure does not enter D; te not the O
+    // and X modes' D, whose row stays zero): weights up^k
     const T up2 = up * up;
     const int row[3] = {0, 1, 3};
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
+      if (m == 1 && !Disp::kUsesTe) continue;
       const T a = A[3 + m], bd = B[3 + m] * dup;
       T* d = dprof + row[m] * 4;
       d[0] += a;
@@ -189,10 +196,10 @@ __device__ __forceinline__ void stage_vjp(const T s[8], const T g[7],
   }
 }
 
-// Transpose of one plain substep (substep<T, METHOD>) at its
+// Transpose of one plain substep (substep<Disp, T, METHOD>) at its
 // input s: ct (8) holds the cotangent of the substep's output and becomes
 // that of its input.
-template <typename T, int METHOD, bool TAB>
+template <typename Disp, typename T, int METHOD, bool TAB>
 __device__ __forceinline__ void substep_vjp(const T s[8],
                                             const SharedBlocks<T>& f,
                                             const Params<T>& p, T ct[8],
@@ -201,16 +208,16 @@ __device__ __forceinline__ void substep_vjp(const T s[8],
 #pragma unroll
   for (int q = 0; q < 7; ++q) acc[q] = T(0);
   T g1[7], d1[6], s2[8], g2[7], d2[6], c[6];
-  AdjointGrad::grad(s, f, p, g1);
-  AdjointGrad::rhs(g1, d1);
+  AdjointGrad<Disp>::grad(s, f, p, g1);
+  AdjointGrad<Disp>::rhs(g1, d1);
   if (METHOD == 2) {
     // inc = dt/2 (d1 + d2), d2 = F(s + dt d1)
     shift(s, d1, p.dt, s2);
-    AdjointGrad::grad(s2, f, p, g2);
-    AdjointGrad::rhs(g2, d2);
+    AdjointGrad<Disp>::grad(s2, f, p, g2);
+    AdjointGrad<Disp>::rhs(g2, d2);
 #pragma unroll
     for (int j = 0; j < 6; ++j) c[j] = p.half * ct[ST_X + j];
-    stage_vjp<T, TAB>(s2, g2, d2, c, f, p, acc, dpsi, dprof);
+    stage_vjp<Disp, T, TAB>(s2, g2, d2, c, f, p, acc, dpsi, dprof);
 #pragma unroll
     for (int j = 0; j < 6; ++j) c[j] = p.half * ct[ST_X + j] + p.dt * acc[1 + j];
   } else {
@@ -218,47 +225,47 @@ __device__ __forceinline__ void substep_vjp(const T s[8],
     // d3 = F(s + dt/2 d2), d4 = F(s + dt d3)
     T s3[8], g3[7], d3[6], s4[8], g4[7], d4[6], a[7];
     shift(s, d1, p.half, s2);
-    AdjointGrad::grad(s2, f, p, g2);
-    AdjointGrad::rhs(g2, d2);
+    AdjointGrad<Disp>::grad(s2, f, p, g2);
+    AdjointGrad<Disp>::rhs(g2, d2);
     shift(s, d2, p.half, s3);
-    AdjointGrad::grad(s3, f, p, g3);
-    AdjointGrad::rhs(g3, d3);
+    AdjointGrad<Disp>::grad(s3, f, p, g3);
+    AdjointGrad<Disp>::rhs(g3, d3);
     shift(s, d3, p.dt, s4);
-    AdjointGrad::grad(s4, f, p, g4);
-    AdjointGrad::rhs(g4, d4);
+    AdjointGrad<Disp>::grad(s4, f, p, g4);
+    AdjointGrad<Disp>::rhs(g4, d4);
     const T third = T(2) * p.sixth;
 #pragma unroll
     for (int q = 0; q < 7; ++q) a[q] = T(0);
 #pragma unroll
     for (int j = 0; j < 6; ++j) c[j] = p.sixth * ct[ST_X + j];
-    stage_vjp<T, TAB>(s4, g4, d4, c, f, p, a, dpsi, dprof);
+    stage_vjp<Disp, T, TAB>(s4, g4, d4, c, f, p, a, dpsi, dprof);
 #pragma unroll
     for (int q = 0; q < 7; ++q) {
       acc[q] += a[q];
       if (q > 0) c[q - 1] = third * ct[ST_X + q - 1] + p.dt * a[q];
       a[q] = T(0);
     }
-    stage_vjp<T, TAB>(s3, g3, d3, c, f, p, a, dpsi, dprof);
+    stage_vjp<Disp, T, TAB>(s3, g3, d3, c, f, p, a, dpsi, dprof);
 #pragma unroll
     for (int q = 0; q < 7; ++q) {
       acc[q] += a[q];
       if (q > 0) c[q - 1] = third * ct[ST_X + q - 1] + p.half * a[q];
       a[q] = T(0);
     }
-    stage_vjp<T, TAB>(s2, g2, d2, c, f, p, a, dpsi, dprof);
+    stage_vjp<Disp, T, TAB>(s2, g2, d2, c, f, p, a, dpsi, dprof);
 #pragma unroll
     for (int q = 0; q < 7; ++q) {
       acc[q] += a[q];
       if (q > 0) c[q - 1] = p.sixth * ct[ST_X + q - 1] + p.half * a[q];
     }
   }
-  stage_vjp<T, TAB>(s, g1, d1, c, f, p, acc, dpsi, dprof);
+  stage_vjp<Disp, T, TAB>(s, g1, d1, c, f, p, acc, dpsi, dprof);
   ct[ST_W] += acc[0];
 #pragma unroll
   for (int j = 0; j < 6; ++j) ct[ST_X + j] += acc[1 + j];
 }
 
-template <typename T, int METHOD, bool TAB>
+template <typename T, int METHOD, bool TAB, typename Disp>
 __global__ void __launch_bounds__(kThreads)
 efit_window_bwd_kernel(StatePtrs<T> in, StatePtrs<T> ct_in,
                        StatePtrs<T> out, const T* __restrict__ psi_tab,
@@ -294,7 +301,7 @@ efit_window_bwd_kernel(StatePtrs<T> in, StatePtrs<T> ct_in,
 #pragma unroll
         for (int j = 0; j < 6; ++j) slot[k / stride][j] = s[ST_X + j];
       }
-      if (k + 1 < steps) substep<T, METHOD>(s, f, p);
+      if (k + 1 < steps) substep<Disp, T, METHOD>(s, f, p);
     }
   }
 
@@ -313,8 +320,8 @@ efit_window_bwd_kernel(StatePtrs<T> in, StatePtrs<T> ct_in,
 #pragma unroll
     for (int j = 0; j < 6; ++j) s[ST_X + j] = slot[k / stride][j];
     for (int r = (k / stride) * stride; r < k; ++r)
-      substep<T, METHOD>(s, f, p);
-    substep_vjp<T, METHOD, TAB>(s, f, p, ct, dpsi, dprof);
+      substep<Disp, T, METHOD>(s, f, p);
+    substep_vjp<Disp, T, METHOD, TAB>(s, f, p, ct, dpsi, dprof);
   }
 
 #pragma unroll
@@ -349,7 +356,7 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <typename T, bool TAB>
+template <typename Disp, typename T, bool TAB>
 int launch_bwd(const BwdArgs& a) {
   StatePtrs<T> pin, pct, pout;
   for (int k = 0; k < 16; ++k) {
@@ -369,20 +376,25 @@ int launch_bwd(const BwdArgs& a) {
   cudaStream_t stream = a.stream;
   const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads));
   if (a.method == 2)
-    efit_window_bwd_kernel<T, 2, TAB><<<grid, kThreads, 0, stream>>>(
+    efit_window_bwd_kernel<T, 2, TAB, Disp><<<grid, kThreads, 0, stream>>>(
         pin, pct, pout, psi_t, prof_t, p, steps, n, dpsi_t, dprof_t, cell_t,
         pcell_t);
   else
-    efit_window_bwd_kernel<T, 4, TAB><<<grid, kThreads, 0, stream>>>(
+    efit_window_bwd_kernel<T, 4, TAB, Disp><<<grid, kThreads, 0, stream>>>(
         pin, pct, pout, psi_t, prof_t, p, steps, n, dpsi_t, dprof_t, cell_t,
         pcell_t);
   return static_cast<int>(cudaGetLastError());
 }
 
 // each instantiation is compiled in its own source (see Build above)
-extern template int launch_bwd<float, false>(const BwdArgs&);
-extern template int launch_bwd<double, false>(const BwdArgs&);
-extern template int launch_bwd<float, true>(const BwdArgs&);
-extern template int launch_bwd<double, true>(const BwdArgs&);
+#define GFT_EXTERN_BWD(D)                                      \
+  extern template int launch_bwd<D, float, false>(const BwdArgs&);  \
+  extern template int launch_bwd<D, double, false>(const BwdArgs&); \
+  extern template int launch_bwd<D, float, true>(const BwdArgs&);   \
+  extern template int launch_bwd<D, double, true>(const BwdArgs&);
+GFT_EXTERN_BWD(ColdPlasma)
+GFT_EXTERN_BWD(OrdinaryWave)
+GFT_EXTERN_BWD(ExtraOrdinaryWave)
+#undef GFT_EXTERN_BWD
 
 }  // namespace gft

@@ -1,0 +1,9 @@
+// The X mode's K2's double instantiation; kernels in efit_window_bwd.cuh.
+
+#include "efit_window_bwd.cuh"
+
+namespace gft {
+
+template int launch_bwd<ExtraOrdinaryWave, double, false>(const BwdArgs&);
+
+}  // namespace gft

@@ -40,16 +40,18 @@ _PTRS = ctypes.POINTER(_VOID_P)
 
 #: argtypes/restype of every exported function (csrc/efit_window.cu,
 #: csrc/efit_window_bwd.cu, csrc/boris.cu, csrc/deposit.cu,
-#: csrc/vmec_geom.cu, csrc/vmec_modes.cu).
+#: csrc/vmec_geom.cu, csrc/vmec_modes.cu).  The window kernels' disp is
+#: the dispersion's code (kernels/efit_step.py KERNEL_DISPERSIONS).
 SIGNATURES = {
     "gft_efit_window": (
-        [_INT, _INT, _INT, _INT, _LL,                 # dtype method comp K n
+        [_INT, _INT, _INT, _INT, _INT, _LL,           # dtype disp method
+                                                      # comp K n
          _PTRS, _PTRS,                                # state in/out
          _VOID_P, _INT, _INT, _VOID_P, _INT,          # psi nr nz prof npsi
          ctypes.POINTER(ctypes.c_double), _VOID_P],   # params stream
         _INT),
     "gft_efit_window_bwd": (
-        [_INT, _INT, _INT, _LL,                       # dtype method K n
+        [_INT, _INT, _INT, _INT, _LL,                 # dtype disp method K n
          _PTRS, _PTRS, _PTRS,                         # state, ct in, ct out
          _VOID_P, _INT, _INT, _VOID_P, _INT,          # psi nr nz prof npsi
          ctypes.POINTER(ctypes.c_double),             # params

@@ -5,7 +5,7 @@ Counterpart of ``graph_framework_tpu.pallas.efit_step`` (the TPU kernels
 and their launcher ``make_frozen_window_step``).  One call advances every
 ray through one freeze window: the window-base freeze gather
 (``EfitEquilibrium.freeze_cells``), then ``steps`` rk2/rk4 substeps of the
-cold-plasma ray equations against the frozen blocks, plain or with
+ray equations of a dispersion against the frozen blocks, plain or with
 compensated TwoSum accumulation.
 
 * :func:`frozen_window` is the plain PyTorch version - freeze_cells, then
@@ -15,11 +15,15 @@ compensated TwoSum accumulation.
   plain versions of the backward kernels: autograd of
   :func:`frozen_window`, the second also with the gathered coefficient
   blocks as autograd leaves (their per-ray cotangents).
-* :func:`efit_window` is the wrapper.  For CPU tensors, and only then, it
-  runs the plain versions with ``cold_plasma``.  For CUDA tensors it
-  launches the hand-written kernels (``csrc/efit_window.cu`` forward,
-  ``csrc/efit_window_bwd.cu`` backward; built by ``nvcc`` on first use,
-  kernels/build.py) or raises: there is no fallback.  When the state or
+* :func:`efit_window` is the wrapper.  The kernels implement the
+  dispersions of :data:`KERNEL_DISPERSIONS` (cold_plasma, ordinary_wave,
+  extra_ordinary_wave: a hand-written reverse sweep of each D, csrc/
+  efit_adjoint.cuh); any other raises, on every device.  For CPU tensors,
+  and only then, the wrapper runs the plain versions with the dispersion.
+  For CUDA tensors it launches the hand-written kernels
+  (``csrc/efit_window*.cu`` forward, ``csrc/efit_window_bwd*.cu``
+  backward; built by ``nvcc`` on first use, kernels/build.py) or raises:
+  there is no fallback.  When the state or
   the spline tables require grad, the plain window goes through
   :class:`EfitWindow`, whose backward launches K2 or, when a table needs a
   gradient, K3 and scatters its block cotangents into the tables.  The
@@ -39,7 +43,8 @@ from torch.autograd.function import once_differentiable
 
 from graph_framework_tpu_torch.constants import (
     C, EPSILON0, ME, Q)
-from graph_framework_tpu_torch.models.dispersion import cold_plasma
+from graph_framework_tpu_torch.models.dispersion import (
+    cold_plasma, extra_ordinary_wave, ordinary_wave)
 from graph_framework_tpu_torch.models.rays import RayState, make_ray_rhs
 from graph_framework_tpu_torch.ops.compensated import (
     CompCarry, compensated_stepper)
@@ -54,6 +59,25 @@ efit_window_bwd_tab_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 _METHOD_CODES = {"rk2": 2, "rk4": 4}
+
+#: The dispersions the window kernels implement, by the code their C
+#: interfaces take (csrc/efit_window.cu, efit_window_bwd.cu: the
+#: dispersion tails ColdPlasma, OrdinaryWave and ExtraOrdinaryWave of
+#: csrc/efit_adjoint.cuh).
+KERNEL_DISPERSIONS = {cold_plasma: 0, ordinary_wave: 1,
+                      extra_ordinary_wave: 2}
+
+
+def kernel_dispersion_code(dispersion) -> int:
+    """The kernels' code of ``dispersion``; ValueError for a dispersion
+    they do not implement."""
+    code = KERNEL_DISPERSIONS.get(dispersion)
+    if code is None:
+        names = ", ".join(d.__name__ for d in KERNEL_DISPERSIONS)
+        raise ValueError(
+            f"the window kernel implements {names}, not "
+            f"{getattr(dispersion, '__name__', dispersion)!r}")
+    return code
 
 
 def frozen_window(eq, dispersion, carry, *, method, dt, steps,
@@ -94,8 +118,8 @@ class WindowVjp(NamedTuple):
     prof_cell: Optional[torch.Tensor] = None
 
 
-def _window_vjp(eq, state, ct, method, dt, steps, blocks):
-    """Autograd of :func:`frozen_window` (plain, cold_plasma): pull the
+def _window_vjp(eq, dispersion, state, ct, method, dt, steps, blocks):
+    """Autograd of :func:`frozen_window` (plain): pull the
     window-output cotangent ``ct`` back to the window input and, with
     ``blocks``, to the gathered coefficient blocks.  The freeze indices
     carry no gradient, as in the JAX package's transpose."""
@@ -106,7 +130,7 @@ def _window_vjp(eq, state, ct, method, dt, steps, blocks):
         prof_blk = feq.prof_block.detach().requires_grad_(blocks)
         feq = dataclasses.replace(feq, psi_block=psi_blk,
                                   prof_block=prof_blk)
-        s = _frozen_steps(feq, cold_plasma, RayState(*leaves), method, dt,
+        s = _frozen_steps(feq, dispersion, RayState(*leaves), method, dt,
                           steps, False)
         inputs = leaves + ([psi_blk, prof_blk] if blocks else [])
         grads = torch.autograd.grad(list(s), inputs, grad_outputs=list(ct),
@@ -122,18 +146,21 @@ def _window_vjp(eq, state, ct, method, dt, steps, blocks):
                      feq.iu.long() * nz + feq.jv.long(), feq.pidx.long())
 
 
-def frozen_window_vjp(eq, state, ct, *, method, dt, steps):
+def frozen_window_vjp(eq, state, ct, *, method, dt, steps,
+                      dispersion=cold_plasma):
     """Plain version of K2: the window-input cotangent (a RayState) of one
-    plain cold-plasma window from ``state``, for the output cotangent
-    ``ct`` (a RayState).  The frozen blocks get none."""
-    return _window_vjp(eq, state, ct, method, dt, steps, False).state
+    plain window of ``dispersion`` from ``state``, for the output
+    cotangent ``ct`` (a RayState).  The frozen blocks get none."""
+    return _window_vjp(eq, dispersion, state, ct, method, dt, steps,
+                       False).state
 
 
-def frozen_window_vjp_blocks(eq, state, ct, *, method, dt, steps):
+def frozen_window_vjp_blocks(eq, state, ct, *, method, dt, steps,
+                             dispersion=cold_plasma):
     """Plain version of K3: :func:`frozen_window_vjp` plus each ray's
     psi- and profile-block cotangents, summed over the window's substeps
     and stages, and the table rows they belong to (a :class:`WindowVjp`)."""
-    return _window_vjp(eq, state, ct, method, dt, steps, True)
+    return _window_vjp(eq, dispersion, state, ct, method, dt, steps, True)
 
 
 def kernel_params(eq, dt):
@@ -194,11 +221,12 @@ def _check_launch(eq, leaves, method, steps):
                          "profile_coeffs (npsi, 4, 4)")
 
 
-def _launch(eq, leaves, method, dt, steps, compensated):
+def _launch(eq, leaves, dispersion, method, dt, steps, compensated):
     """K1 on the current stream: the advanced leaves, in new tensors."""
     from graph_framework_tpu_torch.kernels import build
 
     global efit_window_launches
+    code = kernel_dispersion_code(dispersion)
     _check_launch(eq, leaves, method, steps)
     x = leaves[0]
     n = x.shape[0]
@@ -210,7 +238,8 @@ def _launch(eq, leaves, method, dt, steps, compensated):
     psi, prof = eq.psi_coeffs, eq.profile_coeffs
     with torch.cuda.device(x.device):
         rc = lib.gft_efit_window(
-            _DTYPE_CODES[x.dtype], _METHOD_CODES[method], int(compensated),
+            _DTYPE_CODES[x.dtype], code, _METHOD_CODES[method],
+            int(compensated),
             steps, n, build.pointers(leaves), build.pointers(outs),
             psi.data_ptr(), psi.shape[0], psi.shape[1], prof.data_ptr(),
             prof.shape[0], params, build.stream(x))
@@ -221,11 +250,12 @@ def _launch(eq, leaves, method, dt, steps, compensated):
     return outs
 
 
-def _launch_bwd(eq, leaves, cts, method, dt, steps, tables):
+def _launch_bwd(eq, leaves, cts, dispersion, method, dt, steps, tables):
     """K2 (or K3 with ``tables``) on the current stream: a WindowVjp."""
     from graph_framework_tpu_torch.kernels import build
 
     global efit_window_bwd_launches, efit_window_bwd_tab_launches
+    code = kernel_dispersion_code(dispersion)
     _check_launch(eq, leaves + cts, method, steps)
     x = leaves[0]
     n = x.shape[0]
@@ -240,7 +270,8 @@ def _launch_bwd(eq, leaves, cts, method, dt, steps, tables):
         psi, prof = eq.psi_coeffs, eq.profile_coeffs
         with torch.cuda.device(x.device):
             rc = lib.gft_efit_window_bwd(
-                _DTYPE_CODES[x.dtype], _METHOD_CODES[method], steps, n,
+                _DTYPE_CODES[x.dtype], code, _METHOD_CODES[method], steps,
+                n,
                 build.pointers(leaves), build.pointers(cts),
                 build.pointers(outs),
                 psi.data_ptr(), psi.shape[0], psi.shape[1], prof.data_ptr(),
@@ -271,18 +302,22 @@ def _device_of(leaves):
     return device
 
 
-def efit_window_vjp(eq, state, ct, *, method, dt, steps, tables=False):
-    """The backward of one plain window: a :class:`WindowVjp` for the
-    window-input ``state`` and the output cotangent ``ct`` (RayStates).
+def efit_window_vjp(eq, state, ct, *, method, dt, steps, tables=False,
+                    dispersion=cold_plasma):
+    """The backward of one plain window of ``dispersion``: a
+    :class:`WindowVjp` for the window-input ``state`` and the output
+    cotangent ``ct`` (RayStates).
 
     CPU tensors run :func:`frozen_window_vjp` (``tables=False``) or
     :func:`frozen_window_vjp_blocks`; CUDA tensors launch K2 or K3 on the
     current stream.  Anything the kernels do not take raises."""
+    kernel_dispersion_code(dispersion)
     leaves, cts = list(state), [c.contiguous() for c in ct]
     if _device_of(leaves).type == "cpu":
-        return _window_vjp(eq, RayState(*leaves), RayState(*cts), method,
-                           dt, steps, tables)
-    return _launch_bwd(eq, leaves, cts, method, dt, steps, tables)
+        return _window_vjp(eq, dispersion, RayState(*leaves),
+                           RayState(*cts), method, dt, steps, tables)
+    return _launch_bwd(eq, leaves, cts, dispersion, method, dt, steps,
+                       tables)
 
 
 def scatter_block_cotangents(eq, vjp):
@@ -314,8 +349,8 @@ class EfitWindow(torch.autograd.Function):
     """One plain window with reverse mode (the JAX package's ``window8``
     and ``windowt`` custom_vjps in one Function).
 
-    ``apply(eq, method, dt, steps, psi_table, prof_table, *leaves)``
-    returns the 8 advanced leaves.  Forward runs K1 (the plain version on
+    ``apply(eq, dispersion, method, dt, steps, psi_table, prof_table,
+    *leaves)`` returns the 8 advanced leaves.  Forward runs K1 (the plain version on
     CPU tensors) and saves only the window inputs and the tables; backward
     recomputes inside K2 - or K3 when ``psi_table`` or ``prof_table``
     needs a gradient, whose block cotangents are then scattered into the
@@ -324,16 +359,19 @@ class EfitWindow(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, eq, method, dt, steps, psi_table, prof_table, *leaves):
+    def forward(ctx, eq, dispersion, method, dt, steps, psi_table,
+                prof_table, *leaves):
         eq = _with_tables(eq, psi_table, prof_table)
-        ctx.eq, ctx.method, ctx.dt, ctx.steps = eq, method, dt, steps
+        ctx.eq, ctx.dispersion = eq, dispersion
+        ctx.method, ctx.dt, ctx.steps = method, dt, steps
         ctx.save_for_backward(psi_table, prof_table, *leaves)
         if _device_of(leaves).type == "cpu":
-            out = frozen_window(eq, cold_plasma, RayState(*leaves),
+            out = frozen_window(eq, dispersion, RayState(*leaves),
                                 method=method, dt=dt, steps=steps,
                                 compensated=False)
         else:
-            out = _launch(eq, list(leaves), method, dt, steps, False)
+            out = _launch(eq, list(leaves), dispersion, method, dt, steps,
+                          False)
         return tuple(out)
 
     @staticmethod
@@ -343,20 +381,23 @@ class EfitWindow(torch.autograd.Function):
         eq = _with_tables(ctx.eq, psi_table, prof_table)
         cts = RayState(*[torch.zeros_like(a) if c is None else c
                          for a, c in zip(leaves, cts)])
-        want_psi, want_prof = ctx.needs_input_grad[4:6]
+        want_psi, want_prof = ctx.needs_input_grad[5:7]
         vjp = efit_window_vjp(eq, RayState(*leaves), cts,
                               method=ctx.method, dt=ctx.dt, steps=ctx.steps,
-                              tables=want_psi or want_prof)
+                              tables=want_psi or want_prof,
+                              dispersion=ctx.dispersion)
         d_psi = d_prof = None
         if want_psi or want_prof:
             d_psi, d_prof = scatter_block_cotangents(eq, vjp)
-        return (None, None, None, None, d_psi if want_psi else None,
+        return (None, None, None, None, None, d_psi if want_psi else None,
                 d_prof if want_prof else None, *vjp.state)
 
 
-def efit_window(eq, carry, *, method, dt, steps, compensated):
+def efit_window(eq, carry, *, method, dt, steps, compensated,
+                dispersion=cold_plasma):
     """Advance ``carry`` (RayState, or CompCarry when ``compensated``)
-    through one freeze window of ``steps`` substeps of cold-plasma rays
+    through one freeze window of ``steps`` substeps of the rays of
+    ``dispersion`` (one of :data:`KERNEL_DISPERSIONS`; any other raises)
     over the EFIT equilibrium ``eq``.
 
     CPU tensors run :func:`frozen_window`; CUDA tensors launch the kernel
@@ -367,6 +408,7 @@ def efit_window(eq, carry, *, method, dt, steps, compensated):
     forward, K2/K3 backward on CUDA); the compensated window then raises,
     since it is forward-only.  Anything the kernels do not take raises.
     """
+    kernel_dispersion_code(dispersion)
     leaves = _leaves(carry, compensated)
     device = _device_of(leaves)
     wants_grad = torch.is_grad_enabled() and any(
@@ -376,13 +418,13 @@ def efit_window(eq, carry, *, method, dt, steps, compensated):
             raise ValueError(
                 "the compensated window is forward-only (as in the JAX "
                 "package): take gradients through compensated=False")
-        return RayState(*EfitWindow.apply(eq, method, dt, steps,
+        return RayState(*EfitWindow.apply(eq, dispersion, method, dt, steps,
                                           eq.psi_coeffs, eq.profile_coeffs,
                                           *leaves))
     if device.type == "cpu":
-        return frozen_window(eq, cold_plasma, carry, method=method, dt=dt,
+        return frozen_window(eq, dispersion, carry, method=method, dt=dt,
                              steps=steps, compensated=compensated)
-    outs = _launch(eq, leaves, method, dt, steps, compensated)
+    outs = _launch(eq, leaves, dispersion, method, dt, steps, compensated)
     if compensated:
         return CompCarry(RayState(*outs[:8]), RayState(*outs[8:]))
     return RayState(*outs)

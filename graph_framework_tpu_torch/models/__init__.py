@@ -1,2 +1,2 @@
-"""Physics models: the equilibrium protocol, EFIT, cold-plasma dispersion,
+"""Physics models: the equilibrium protocol, EFIT, VMEC, the dispersion zoo,
 ray equations."""

@@ -5,20 +5,25 @@ dispersion.hpp:1319-1448):
 
     dx/dt = -D_k / D_w,        dk/dt = D_x / D_w
 
-For a batched equilibrium the seven per-ray derivatives (D_w, D_x, D_y,
-D_z, D_kx, D_ky, D_kz) come from ONE reverse pass of
-``torch.autograd.grad`` over sum(D): the rays are independent, so the
-gradient of the sum is the per-ray gradient.  The CUDA window kernel
-gets the same seven numbers by forward mode on dual numbers instead
-(csrc/efit_window.cu).
+The seven per-ray derivatives (D_w, D_x, D_y, D_z, D_kx, D_ky, D_kz) come
+from ONE reverse pass of ``torch.autograd.grad`` over sum(D): the rays are
+independent, so the gradient of the sum is the per-ray gradient.  The
+EFIT window kernels get the same seven numbers from a reverse sweep of D
+written by hand (csrc/efit_adjoint.cuh).
 
 In flux coordinates (VMEC) the position is (s, u, v) and the wave vector
 covariant: D is evaluated at kvec = sum_i k_i e^i of the point-bound view,
 and the x-derivatives are total ones, through the basis too - the
-canonical form of the JAX package, which keeps rays on D = 0.  VMEC is
-batched, so the same RHS serves it.  Not ported: the per-ray (vmapped)
-path, which only the reference's literal ``reference_correction`` form
-needs in the JAX package.
+canonical form of the JAX package, which keeps rays on D = 0.
+``reference_correction=True`` gives the reference's literal equations
+instead: kvec is evaluated at a separate copy of the position, so the
+spatial gradient excludes the flow through the basis (the JAX package's
+``reference_correction``; no effect on a Cartesian equilibrium).
+
+An equilibrium whose ``supports_batched()`` is false takes (3,)
+positions only: D is then evaluated per ray under ``torch.func.vmap``,
+as the JAX package vmaps its per-ray function; the gradient of the sum
+stays the per-ray gradient.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 
 class RayState(NamedTuple):
@@ -68,17 +74,19 @@ class RayDerivatives(NamedTuple):
                           + self.dzdt * self.dzdt)
 
 
-def _check_batched(eq):
-    if not eq.supports_batched():
-        raise NotImplementedError(
-            f"{type(eq).__name__} is not batched; the per-ray ray "
-            "equations are not ported yet")
+def _per_ray(fn, eq):
+    """``fn`` over (num_rays,) leaves: itself for a batched equilibrium,
+    else its ``torch.func.vmap`` over the rays (``fn`` then sees one ray's
+    0-dim leaves)."""
+    if eq.supports_batched():
+        return fn
+    return torch.func.vmap(fn)
 
 
 def dispersion_residual(dispersion: Callable, eq):
     """Per-ray D at the state (Newton init and the residual output;
-    dispersion.hpp:1482-1486 returns D*D - this returns D)."""
-    _check_batched(eq)
+    dispersion.hpp:1482-1486 returns D*D - this returns D):
+    ``d_all(t, w, x, y, z, kx, ky, kz)``."""
 
     def d_all(t, w, x, y, z, kx, ky, kz):
         pos = torch.stack([x, y, z])
@@ -86,58 +94,148 @@ def dispersion_residual(dispersion: Callable, eq):
         geq = eq.bind_point(pos)
         return dispersion(w, geq.kvec(kcov, pos), pos, t, geq)
 
-    return d_all
+    return _per_ray(d_all, eq)
 
 
-def _closure_requires_grad(obj) -> bool:
-    """True if a tensor that ``obj`` holds - directly, or in a nested
-    dataclass such as a frozen view's ``base`` - requires grad (an
+def _split_residual(dispersion: Callable, eq):
+    """D with kvec taken at the separate position (xk, yk, zk) and the
+    rest at (x, y, z) (dispersion.hpp:1392-1433, the reference's
+    generalized-coordinate form): ``d(t, w, x, y, z, kx, ky, kz, xk, yk,
+    zk)``.  Unbound equilibrium, as in the JAX package."""
+
+    def d_all(t, w, x, y, z, kx, ky, kz, xk, yk, zk):
+        kvec = eq.kvec(torch.stack([kx, ky, kz]), torch.stack([xk, yk, zk]))
+        return dispersion(w, kvec, torch.stack([x, y, z]), t, eq)
+
+    return _per_ray(d_all, eq)
+
+
+def _grad_tensors(obj, found=None):
+    """The tensors that ``obj`` holds - directly, or in a nested dataclass
+    such as a frozen view's ``base`` - and that require grad (an
     equilibrium whose spline tables are being differentiated)."""
+    found = [] if found is None else found
     if isinstance(obj, torch.Tensor):
-        return obj.requires_grad
-    return dataclasses.is_dataclass(obj) and any(
-        _closure_requires_grad(getattr(obj, f.name))
-        for f in dataclasses.fields(obj))
+        if obj.requires_grad and not any(obj is f for f in found):
+            found.append(obj)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            _grad_tensors(getattr(obj, f.name), found)
+    return found
 
 
-def make_ray_rhs(dispersion: Callable, eq):
-    """Build the batched ray right-hand side ``rhs(state) ->
-    RayDerivatives``: one ``torch.autograd.grad`` of sum(D) over
-    (w, x, y, z, kx, ky, kz) gives all seven derivatives.
+def _rebind(obj, old, new):
+    """``obj`` with each tensor of ``old`` replaced by the same-index one
+    of ``new``, through nested dataclasses (``obj`` itself if it holds
+    none of them)."""
+    if isinstance(obj, torch.Tensor):
+        return next((n for o, n in zip(old, new) if obj is o), obj)
+    if not dataclasses.is_dataclass(obj) or isinstance(obj, type):
+        return obj
+    changes = {}
+    for f in dataclasses.fields(obj):
+        if not f.init:
+            continue
+        value = getattr(obj, f.name)
+        rebound = _rebind(value, old, new)
+        if rebound is not value:
+            changes[f.name] = rebound
+    return dataclasses.replace(obj, **changes) if changes else obj
+
+
+class _LocalRhs(torch.autograd.Function):
+    """The ray RHS as one node of the caller's graph.
+
+    ``forward`` evaluates ``rhs_of(*fresh)`` on detached copies of its
+    inputs (the state leaves, the basis position, the equilibrium's
+    tensors that require grad), which differentiates D with
+    ``create_graph=True`` against those copies only; ``backward`` pulls the
+    cotangents through that local graph back to the inputs.  Taking D's
+    partials against the caller's tensors themselves would make autograd
+    walk the whole graph behind them on every RHS call - quadratic in the
+    length of a differentiated trace (200 rk4 steps of one ray: 55 s on a
+    CPU, against 0.5 s for their backward).  The result is differentiable
+    once."""
+
+    @staticmethod
+    def forward(ctx, rhs_of, *inputs):
+        with torch.enable_grad():
+            fresh = [a.detach().requires_grad_(True) for a in inputs]
+            out = rhs_of(*fresh)
+        ctx.fresh, ctx.out = fresh, out
+        return tuple(o.detach() for o in out)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *cts):
+        grads = torch.autograd.grad(ctx.out, ctx.fresh, cts,
+                                    allow_unused=True)
+        del ctx.fresh, ctx.out
+        return (None, *grads)
+
+
+def make_ray_rhs(dispersion: Callable, eq, *,
+                 reference_correction: bool = False):
+    """Build the ray right-hand side ``rhs(state) -> RayDerivatives``:
+    one ``torch.autograd.grad`` of sum(D) over (w, x, y, z, kx, ky, kz)
+    gives all seven derivatives.
+
+    ``reference_correction``: the reference's literal generalized-
+    coordinate equations (kvec at a separate copy of the position, which
+    the x-derivatives do not see) instead of the canonical form; see the
+    module docstring.  No effect for Cartesian equilibria.
 
     Two paths, chosen per call:
 
     * value: when grad mode is off, or neither a state leaf nor a tensor
       of ``eq`` requires grad, the leaves are detached and the result
       carries no graph;
-    * differentiable: otherwise the seven partials are taken with
-      ``create_graph=True`` on fresh views of the leaves, so the result is
-      a differentiable function of the state and of the equilibrium's
-      tables (the JAX package differentiates its ``jax.grad`` RHS the same
-      way).  The views keep each partial a partial: a leaf computed from
-      another (kx solved from ky by ``init_k``) does not leak its
-      dependence into the other's derivative."""
-    d_all = dispersion_residual(dispersion, eq)
-    eq_grad = _closure_requires_grad(eq)
+    * differentiable: otherwise the RHS is one node of the caller's graph
+      (:class:`_LocalRhs`), a function of the state, of the basis position
+      and of the equilibrium's tables that require grad, differentiable
+      once (the JAX package differentiates its ``jax.grad`` RHS the same
+      way).  The partials are taken against fresh copies of the leaves, so
+      each partial stays a partial: a leaf computed from another (kx
+      solved from ky by ``init_k``) does not leak its dependence into the
+      other's derivative."""
+    split = reference_correction and not eq.is_cartesian()
+    make_d = _split_residual if split else dispersion_residual
+    d_all = make_d(dispersion, eq)
+    closure = _grad_tensors(eq)
+
+    def partials(d_fn, t, leaves, basis, create_graph):
+        """The RHS from D's seven partials over ``leaves``."""
+        with torch.enable_grad():
+            d = d_fn(t, *leaves, *basis).sum()
+            grads = torch.autograd.grad(d, leaves, allow_unused=True,
+                                        create_graph=create_graph)
+        dw, dx, dy, dz, dkx, dky, dkz = [
+            torch.zeros_like(a) if g is None else g
+            for a, g in zip(leaves, grads)]
+        return (-dkx / dw, -dky / dw, -dkz / dw, dx / dw, dy / dw, dz / dw)
+
+    def rhs_of(t, *rest):
+        """The differentiable RHS over fresh leaves: the state's seven,
+        then the basis position (when split), then ``closure``'s."""
+        leaves, basis = rest[:7], rest[7:7 + 3 * split]
+        fresh_eq = _rebind(eq, closure, rest[7 + 3 * split:])
+        d_fn = d_all if fresh_eq is eq else make_d(dispersion, fresh_eq)
+        return partials(d_fn, t, leaves, basis, True)
 
     def rhs(state: RayState) -> RayDerivatives:
         leaves = (state.w, state.x, state.y, state.z,
                   state.kx, state.ky, state.kz)
-        differentiable = torch.is_grad_enabled() and (
-            eq_grad or any(leaf.requires_grad for leaf in leaves))
-        with torch.enable_grad():
-            args = [leaf.view_as(leaf)
-                    if differentiable and leaf.requires_grad
-                    else leaf.detach().requires_grad_(True)
-                    for leaf in leaves]
-            d = d_all(state.t, *args).sum()
-            grads = torch.autograd.grad(d, args, allow_unused=True,
-                                        create_graph=differentiable)
-        dw, dx, dy, dz, dkx, dky, dkz = [
-            torch.zeros_like(a) if g is None else g
-            for a, g in zip(args, grads)]
-        return RayDerivatives(-dkx / dw, -dky / dw, -dkz / dw,
-                              dx / dw, dy / dw, dz / dw)
+        # the basis position: the state itself, not the leaves D is
+        # differentiated against, so D_x does not see it
+        basis = leaves[1:4] if split else ()
+        if torch.is_grad_enabled() and (closure or any(
+                a.requires_grad for a in (state.t, *leaves))):
+            return RayDerivatives(*_LocalRhs.apply(
+                rhs_of, state.t, *leaves, *basis, *closure))
+        fresh = [a.detach().requires_grad_(True) for a in leaves]
+        return RayDerivatives(*partials(
+            d_all, state.t.detach(), fresh,
+            [a.detach() for a in basis], False))
 
     return rhs
 

@@ -12,7 +12,7 @@ The increment MUST come unfolded from the integrator (ops.integrators
 INCREMENTS): ``step(hi) - hi`` recovers the already-rounded increment and
 makes the compensation a no-op.
 
-The CUDA window kernel (csrc/efit_window.cu ``two_sum``) folds with the
+The CUDA window kernel (csrc/efit_window.cuh ``two_sum``) folds with the
 same TwoSum.  Forward tracing only.
 """
 

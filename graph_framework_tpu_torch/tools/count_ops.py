@@ -15,6 +15,7 @@ compiler contracts any pair into an FMA.
 
 Prints one JSON object: operations per ray and window of K substeps for
 the window kernels K1 (rk2/rk4, plain/compensated), K2 and K3 (rk2/rk4),
+for each dispersion they implement (cold plasma, the O and the X mode),
 at K = 10 (the main path's freeze window) and per substep.  Each counts
 what the function needs (``_k1_needed``, ``_window_needed``): K1's
 source does just that, K2/K3's repeat the primal work, and the sources'
@@ -55,6 +56,10 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 WINDOW = 10
 #: Modes of the reference's VMEC file, K4's count's layout (10 runs).
 REFERENCE_MODES = 86
+#: The window kernels' dispersions in the order of their codes
+#: (kernels/efit_step.py KERNEL_DISPERSIONS), as the keys name them: "K1
+#: rk2 comp" is cold plasma's, "K1 omode rk2 comp" the O mode's.
+DISPERSION_LABELS = ("", " omode", " xmode")
 
 _RUNTIME = r"""
 #pragma once
@@ -227,67 +232,88 @@ StatePtrs<Counted> ptrs(Counted* base) {
   return p;
 }
 
+template <typename Disp>
 void run_bwd(int method, int tab, int steps, const Params<Counted>& p) {
   if (method == 2 && !tab)
-    efit_window_bwd_kernel<Counted, 2, false>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
+    efit_window_bwd_kernel<Counted, 2, false, Disp>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
   if (method == 2 && tab)
-    efit_window_bwd_kernel<Counted, 2, true>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
+    efit_window_bwd_kernel<Counted, 2, true, Disp>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
   if (method == 4 && !tab)
-    efit_window_bwd_kernel<Counted, 4, false>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
+    efit_window_bwd_kernel<Counted, 4, false, Disp>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
   if (method == 4 && tab)
-    efit_window_bwd_kernel<Counted, 4, true>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
+    efit_window_bwd_kernel<Counted, 4, true, Disp>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
 }
+
+template <typename Disp>
+void run_fwd(int method, int flag, int steps, const Params<Counted>& p) {
+  if (method == 2 && !flag)
+    efit_window_kernel<Counted, 2, false, Disp>(ptrs(state), ptrs(outs), psi, prof, p, steps, 1);
+  if (method == 2 && flag)
+    efit_window_kernel<Counted, 2, true, Disp>(ptrs(state), ptrs(outs), psi, prof, p, steps, 1);
+  if (method == 4 && !flag)
+    efit_window_kernel<Counted, 4, false, Disp>(ptrs(state), ptrs(outs), psi, prof, p, steps, 1);
+  if (method == 4 && flag)
+    efit_window_kernel<Counted, 4, true, Disp>(ptrs(state), ptrs(outs), psi, prof, p, steps, 1);
+}
+
+template <typename Disp>
+long long primal(int method, int steps, const Params<Counted>& p) {
+  Counted s[8];
+  for (int k = 0; k < 8; ++k) s[k] = state[k];
+  g_ops = 0;
+  const Frozen<Counted> f = freeze(s, psi, prof, p);
+  for (int k = 0; k < steps; ++k) {
+    if (method == 2) substep<Disp, Counted, 2>(s, f, p);
+    else substep<Disp, Counted, 4>(s, f, p);
+  }
+  return g_ops;
+}
+
+// the dispersion codes of kernels/efit_step.py KERNEL_DISPERSIONS
+#define GFT_BY_DISP(disp, call)                         \
+  do {                                                  \
+    if ((disp) == 0) { using Disp = ColdPlasma; call; } \
+    if ((disp) == 1) { using Disp = OrdinaryWave; call; } \
+    if ((disp) == 2) { using Disp = ExtraOrdinaryWave; call; } \
+  } while (0)
 }  // namespace gft
 
-extern "C" long long count_window(int fwd, int method, int flag, int steps) {
+extern "C" long long count_window(int disp, int fwd, int method, int flag,
+                                  int steps) {
   using namespace gft;
   const Params<Counted> p = params();
   g_ops = 0;
-  if (fwd) {
-    if (method == 2 && !flag)
-      efit_window_kernel<Counted, 2, false>(ptrs(state), ptrs(outs), psi, prof, p, steps, 1);
-    if (method == 2 && flag)
-      efit_window_kernel<Counted, 2, true>(ptrs(state), ptrs(outs), psi, prof, p, steps, 1);
-    if (method == 4 && !flag)
-      efit_window_kernel<Counted, 4, false>(ptrs(state), ptrs(outs), psi, prof, p, steps, 1);
-    if (method == 4 && flag)
-      efit_window_kernel<Counted, 4, true>(ptrs(state), ptrs(outs), psi, prof, p, steps, 1);
-  } else {
-    run_bwd(method, flag, steps, p);
-  }
+  if (fwd) GFT_BY_DISP(disp, run_fwd<Disp>(method, flag, steps, p));
+  else GFT_BY_DISP(disp, run_bwd<Disp>(method, flag, steps, p));
   return g_ops;
 }
 
 // K2 (tab 0) or K3 with the cotangents tagged: *adjoint gets what depends
 // on them, which the kernel does once; *primal the rest, which it repeats
 // (see count_ops.py _window_needed).
-extern "C" void count_window_bwd_split(int method, int tab, int steps,
-                                       long long* adjoint, long long* primal) {
+extern "C" void count_window_bwd_split(int disp, int method, int tab,
+                                       int steps, long long* adjoint,
+                                       long long* primal) {
   using namespace gft;
   const Params<Counted> p = params();
   for (int k = 0; k < 16; ++k) cts[k].tag = true;
   g_ops = g_untagged_ops = 0;
   g_split = true;
-  run_bwd(method, tab, steps, p);
+  GFT_BY_DISP(disp, run_bwd<Disp>(method, tab, steps, p));
   g_split = false;
+  for (int k = 0; k < 16; ++k) cts[k].tag = false;
   *adjoint = g_ops;
   *primal = g_untagged_ops;
 }
 
 // The freeze gather and `steps` substeps as the backward kernels' forward
-// sweep takes them (substep<T, METHOD>, the stepping K1 runs).
-extern "C" long long count_window_primal(int method, int steps) {
+// sweep takes them (substep<Disp, T, METHOD>, the stepping K1 runs).
+extern "C" long long count_window_primal(int disp, int method, int steps) {
   using namespace gft;
   const Params<Counted> p = params();
-  Counted s[8];
-  for (int k = 0; k < 8; ++k) s[k] = state[k];
-  g_ops = 0;
-  const Frozen<Counted> f = freeze(s, psi, prof, p);
-  for (int k = 0; k < steps; ++k) {
-    if (method == 2) substep<Counted, 2>(s, f, p);
-    else substep<Counted, 4>(s, f, p);
-  }
-  return g_ops;
+  long long ops = 0;
+  GFT_BY_DISP(disp, ops = primal<Disp>(method, steps, p));
+  return ops;
 }
 """
 
@@ -402,27 +428,41 @@ def _host_source(src: str) -> str:
     return "".join(out)
 
 
+#: g++ processes a host build runs at once (one a unit).
+HOST_JOBS = 4
+
+
 def host_library(tmp: pathlib.Path, units: dict, *, every_thread=False,
                  flags=("-O0",)) -> pathlib.Path:
     """Compile ``units`` ({file name: C++ source}) with ``g++`` into one
     shared library in ``tmp``, over the stand-in ``cuda_runtime.h`` and
     every source of ``csrc/`` with its launches rewritten (a unit includes
-    them by name).  With ``every_thread`` a launch runs the kernel once for
-    each (block, thread), as the card would, so the C interfaces run on
-    host memory; otherwise once, for the counter."""
+    them by name): one ``g++ -c`` a unit, HOST_JOBS at a time, then one
+    link.  With ``every_thread`` a launch runs the kernel once for each
+    (block, thread), as the card would, so the C interfaces run on host
+    memory; otherwise once, for the counter."""
+    from concurrent.futures import ThreadPoolExecutor
+
     (tmp / "cuda_runtime.h").write_text(
         ("#define GFT_EVERY_THREAD\n" if every_thread else "") + _RUNTIME)
     for src in list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")):
         (tmp / src.name).write_text(_host_source(src.read_text()))
     for name, text in units.items():
         (tmp / name).write_text(text)
+    gxx = ["g++", "-std=c++20", *flags, "-pthread", "-fPIC", "-w", "-I",
+           str(tmp)]
+
+    def run(cmd):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed:\n{proc.stderr[-4000:]}")
+
+    objs = [tmp / f"{name}.o" for name in units]
+    with ThreadPoolExecutor(HOST_JOBS) as pool:
+        list(pool.map(run, [[*gxx, "-c", "-o", str(o), str(tmp / n)]
+                            for n, o in zip(units, objs)]))
     lib = tmp / "libhost.so"
-    cmd = ["g++", "-std=c++20", *flags, "-pthread", "-fPIC", "-shared", "-w",
-           "-I",
-           str(tmp), "-o", str(lib), *[str(tmp / n) for n in units]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed:\n{proc.stderr[-4000:]}")
+    run([*gxx, "-shared", "-o", str(lib), *map(str, objs)])
     return lib
 
 
@@ -431,7 +471,7 @@ def _build(tmp: pathlib.Path) -> pathlib.Path:
     units = {
         "window.cpp": ('#include "cuda_runtime.h"\n'
                        'namespace gft { using ::Counted; using ::g_ops; }\n'
-                       '#include "efit_window.cu"\n'
+                       '#include "efit_window.cuh"\n'
                        '#include "efit_window_bwd.cuh"\n' + _WINDOW_HARNESS),
         "slab.cpp": ('#include "cuda_runtime.h"\n'
                      'namespace gft { using ::Counted; using ::g_ops; }\n'
@@ -462,24 +502,27 @@ def count() -> dict:
                      "count_vmec_modes"):
             getattr(lib, name).restype = ctypes.c_longlong
         out = {}
-        for method in (2, 4):
-            for flag, name in enumerate(("plain", "comp")):
-                one, two, per_window = (_k1_needed(lib, method, flag, k)
-                                        for k in (1, 2, WINDOW))
-                out[f"K1 rk{method} {name}"] = {
-                    "per_ray_window": per_window,
-                    "per_ray_substep": two - one,
-                    "source_per_ray_window":
-                        lib.count_window(1, method, flag, WINDOW)}
-        for name, tab in (("K2", 0), ("K3", 1)):
+        for disp, mode in enumerate(DISPERSION_LABELS):
             for method in (2, 4):
-                one, two, per_window = (_window_needed(lib, method, tab, k)
-                                        for k in (1, 2, WINDOW))
-                out[f"{name} rk{method}"] = {
-                    "per_ray_window": per_window,
-                    "per_ray_substep": two - one,
-                    "source_per_ray_window":
-                        lib.count_window(0, method, tab, WINDOW)}
+                for flag, name in enumerate(("plain", "comp")):
+                    one, two, per_window = (
+                        _k1_needed(lib, disp, method, flag, k)
+                        for k in (1, 2, WINDOW))
+                    out[f"K1{mode} rk{method} {name}"] = {
+                        "per_ray_window": per_window,
+                        "per_ray_substep": two - one,
+                        "source_per_ray_window":
+                            lib.count_window(disp, 1, method, flag, WINDOW)}
+            for name, tab in (("K2", 0), ("K3", 1)):
+                for method in (2, 4):
+                    one, two, per_window = (
+                        _window_needed(lib, disp, method, tab, k)
+                        for k in (1, 2, WINDOW))
+                    out[f"{name}{mode} rk{method}"] = {
+                        "per_ray_window": per_window,
+                        "per_ray_substep": two - one,
+                        "source_per_ray_window":
+                            lib.count_window(disp, 0, method, tab, WINDOW)}
         out["K5"] = {"per_particle_step":
                      lib.count_slab(2) - lib.count_slab(1)}
         out["K6"] = _deposit(lib)
@@ -494,7 +537,7 @@ def count() -> dict:
     return {"window": WINDOW, "ops": out}
 
 
-def _k1_needed(lib, method, compensated, steps):
+def _k1_needed(lib, disp, method, compensated, steps):
     """The operations a ray over ``steps`` substeps that K1 computes,
     counted as the function needs them: the freeze gather and the stages
     with D's gradient by the hand-written reverse sweep
@@ -503,12 +546,13 @@ def _k1_needed(lib, method, compensated, steps):
     plain counts.  K1's source runs exactly these stages, so its own count
     (``source_per_ray_window``) is the same; the forward-mode source before
     it did some five times the operations."""
-    extra = (lib.count_window(1, method, 1, steps)
-             - lib.count_window(1, method, 0, steps)) if compensated else 0
-    return lib.count_window_primal(method, steps) + extra
+    extra = (lib.count_window(disp, 1, method, 1, steps)
+             - lib.count_window(disp, 1, method, 0, steps)
+             ) if compensated else 0
+    return lib.count_window_primal(disp, method, steps) + extra
 
 
-def _window_needed(lib, method, tab, steps):
+def _window_needed(lib, disp, method, tab, steps):
     """The operations a ray over ``steps`` substeps that K2 (tab 0) or K3
     (tab 1) computes, each counted once.  The kernel repeats primal work:
     its forward sweep takes each stage's gradient of D, ``substep_vjp``
@@ -525,12 +569,13 @@ def _window_needed(lib, method, tab, steps):
 
     def split(t):
         adjoint, primal = ctypes.c_longlong(), ctypes.c_longlong()
-        lib.count_window_bwd_split(method, t, steps, ctypes.byref(adjoint),
+        lib.count_window_bwd_split(disp, method, t, steps,
+                                   ctypes.byref(adjoint),
                                    ctypes.byref(primal))
         return adjoint.value, primal.value
 
     adjoint, primal = split(tab)
-    needed = lib.count_window_primal(method, steps) + adjoint
+    needed = lib.count_window_primal(disp, method, steps) + adjoint
     if tab:
         needed += primal - split(0)[1]
     return needed

@@ -31,7 +31,8 @@ import chip_smoke
 from graph_framework_tpu_torch.kernels import (
     boris, efit_step, vmec_geom, vmec_modes)
 from graph_framework_tpu_torch.kernels import deposit as k6
-from graph_framework_tpu_torch.models.dispersion import cold_plasma
+from graph_framework_tpu_torch.models.dispersion import (
+    cold_plasma, extra_ordinary_wave, ordinary_wave)
 from graph_framework_tpu_torch.models.pic import run_pic
 from graph_framework_tpu_torch.models.rays import RayState
 from graph_framework_tpu_torch.ops.compensated import init_comp_carry
@@ -49,9 +50,9 @@ def device():
     return torch.device("cuda", 0)
 
 
-def _root(dtype, device, n=RAGGED):
+def _root(dtype, device, n=RAGGED, dispersion=cold_plasma):
     eq = chip_smoke.synthetic_equilibrium(dtype, device)
-    return eq, init_k(chip_smoke.launch(n, dtype, device), cold_plasma, eq)
+    return eq, init_k(chip_smoke.launch(n, dtype, device), dispersion, eq)
 
 
 @pytest.mark.parametrize("compensated", [False, True],
@@ -65,6 +66,48 @@ def test_kernel_matches_plain_version(device, dtype, method, compensated):
     row = chip_smoke.check_window(eq, st, method, 5, compensated)
     assert efit_step.efit_window_launches == before + 2
     assert row["fail"] == [], row
+
+
+MODES = [ordinary_wave, extra_ordinary_wave]
+
+
+@pytest.mark.parametrize("dispersion", MODES, ids=lambda d: d.__name__)
+@pytest.mark.parametrize("compensated", [False, True],
+                         ids=["plain", "compensated"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_mode_kernels_match_plain_version(device, dtype, compensated,
+                                          dispersion):
+    """K1 of the O and X modes (rk2 and rk4), and their K2/K3 (plain),
+    against the plain versions, with the separations of chip_smoke's
+    phase 3b (the other mode's window among the wrong kernels)."""
+    eq, st = _root(dtype, device, dispersion=dispersion)
+    for method in ("rk2", "rk4"):
+        row = chip_smoke.check_window(eq, st, method, 5, compensated,
+                                      dispersion)
+        assert row["fail"] == [], row
+        if not compensated:
+            chip_smoke.reset_launch_counts()
+            row = chip_smoke.check_window_bwd(eq, st, method, 5, 1,
+                                              dispersion)
+            assert chip_smoke.launch_counts() == (0, 2, 2)
+            assert row["fail"] == [], row
+
+
+@pytest.mark.parametrize("dispersion", MODES, ids=lambda d: d.__name__)
+def test_solver_runs_the_modes_through_the_kernels(device, dispersion):
+    """Solver(window_kernel=True) with an O- or X-mode dispersion: K1
+    forward, K2 under autograd, no plain fallback."""
+    eq, st = _root(torch.float32, device, dispersion=dispersion)
+    sol = chip_smoke.production_solver(eq, compensated=False,
+                                       dispersion=dispersion)
+    leaves = [leaf.detach().clone().requires_grad_(True) for leaf in st]
+    chip_smoke.reset_launch_counts()
+    loss = chip_smoke.endpoint_loss(sol.run(RayState(*leaves), 3))
+    grads = torch.autograd.grad(loss, leaves)
+    windows = 3 * (chip_smoke.SUB_STEPS // chip_smoke.FREEZE_EVERY)
+    assert chip_smoke.launch_counts() == (windows, windows, 0)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def test_solver_launches_once_per_window(device):

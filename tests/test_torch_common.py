@@ -319,6 +319,36 @@ def test_ptxas_summary_names_each_variant():
     }
 
 
+def test_ptxas_summary_names_the_modes():
+    """The O- and X-mode instances of the window kernels (their Disp
+    template argument, OrdinaryWave or ExtraOrdinaryWave, mangled after the
+    flags) get variant names of their own: omode f32/rk2/plain, K2 xmode
+    f64/rk4, ...; cold plasma's keep theirs."""
+    def entry(kernel, args, regs):
+        return [f"ptxas info    : Compiling entry function '_ZN3gft{kernel}"
+                f"{args}' for 'sm_90a'",
+                f"ptxas info    : Used {regs} registers, used 0 barriers"]
+
+    log = "\n".join(
+        entry("18efit_window_kernelIfLi2ELb0ENS_10ColdPlasmaEEEv",
+              "NS_9StatePtrsIT_EES4_", 110)
+        + entry("18efit_window_kernelIfLi2ELb1ENS_12OrdinaryWaveEEEv",
+                "NS_9StatePtrsIT_EES4_", 101)
+        + entry("18efit_window_kernelIdLi4ELb0ENS_17ExtraOrdinaryWaveEEEv",
+                "NS_9StatePtrsIT_EES4_", 202)
+        + entry("22efit_window_bwd_kernelIdLi4ELb0ENS_17ExtraOrdinaryWave"
+                "EEEv", "NS_9StatePtrsIT_EES4_S4_", 203)
+        + entry("22efit_window_bwd_kernelIfLi2ELb1ENS_12OrdinaryWaveEEEv",
+                "NS_9StatePtrsIT_EES4_S4_", 150))
+    assert chip_smoke.ptxas_summary(log) == {
+        "f32/rk2/plain": "Used 110 registers, used 0 barriers",
+        "omode f32/rk2/comp": "Used 101 registers, used 0 barriers",
+        "xmode f64/rk4/plain": "Used 202 registers, used 0 barriers",
+        "K2 xmode f64/rk4": "Used 203 registers, used 0 barriers",
+        "K3 omode f32/rk2": "Used 150 registers, used 0 barriers",
+    }
+
+
 def test_sass_per_item_reads_the_hot_loop():
     """chip_smoke's SASS reader (phases 13 and 17): a loop is a backward
     branch; the hot loop is the one whose marker count is a multiple of
@@ -344,7 +374,7 @@ def test_op_counts_match_the_sources():
     tools/count_ops.py counts over the CUDA sources as they stand.  K1's
     source runs exactly the stages its count of what the function needs
     takes (D's gradient by the hand-written reverse sweep), so its own
-    count equals that count in all four variants."""
+    count equals that count in all four variants of each dispersion."""
     if shutil.which("g++") is None:
         pytest.skip("count_ops needs g++")
     from graph_framework_tpu_torch.kernels import (
@@ -357,10 +387,11 @@ def test_op_counts_match_the_sources():
     for kernel, value in chip_smoke.WINDOW_OPS.items():
         assert ops[kernel]["per_ray_window"] == value, kernel
     assert ops["K5"]["per_particle_step"] == boris.SLAB_PUSH_OPS
-    for kernel in ("K1 rk2 plain", "K1 rk2 comp", "K1 rk4 plain",
-                   "K1 rk4 comp"):
-        assert (ops[kernel]["source_per_ray_window"]
-                == ops[kernel]["per_ray_window"]), kernel
+    for mode in count_ops.DISPERSION_LABELS:
+        for variant in ("rk2 plain", "rk2 comp", "rk4 plain", "rk4 comp"):
+            kernel = f"K1{mode} {variant}"
+            assert (ops[kernel]["source_per_ray_window"]
+                    == ops[kernel]["per_ray_window"]), kernel
     assert ops["K6"] == deposit.DEPOSIT_OPS
     assert ops["K4"] == vmec_geom.JET_OPS
     assert ops["K7"] == vmec_modes.MODE_SUM_OPS

@@ -276,6 +276,12 @@ def test_refusals(setup):
     with pytest.raises(ValueError, match="redundant"):
         Solver(cold_plasma, peq, method="rk2", frozen_cells=True,
                window_kernel=True, remat_substeps=True)
+    # the JAX package's refusals: frozen cells step rk2/rk4 only, and
+    # compensated accumulation needs a fixed-dt increment-form stepper
     for method in ("split_simplextic", "adaptive_rk4"):
-        with pytest.raises(ValueError, match="not ported"):
-            Solver(cold_plasma, peq, method=method, remat_substeps=True)
+        with pytest.raises(ValueError, match="frozen_cells supports rk2/rk4"):
+            Solver(cold_plasma, peq, method=method, frozen_cells=True,
+                   remat_substeps=True)
+        with pytest.raises(ValueError, match="compensated accumulation"):
+            Solver(cold_plasma, peq, method=method, compensated=True,
+                   remat_substeps=True)

@@ -117,11 +117,20 @@ def test_compensated_carry_is_double_word(setup):
 
 
 def test_solver_validation(setup):
-    _, peq, _, _ = setup
-    with pytest.raises(ValueError, match="not ported"):
-        Solver(cold_plasma, peq, method="split_simplextic")
-    with pytest.raises(ValueError, match="not ported"):
-        Solver(cold_plasma, peq, method="adaptive_rk4")
+    _, peq, _, proot = setup
+    # the JAX package's refusals (solver.py:182-218)
+    with pytest.raises(ValueError, match="unknown method"):
+        Solver(cold_plasma, peq, method="euler")
+    with pytest.raises(ValueError, match="fixed-dt methods only"):
+        Solver(cold_plasma, peq, method="adaptive_rk4", compensated=True)
+    with pytest.raises(ValueError, match="increment-form"):
+        Solver(cold_plasma, peq, method="split_simplextic",
+               compensated=True)
+    for method in ("split_simplextic", "adaptive_rk4"):
+        with pytest.raises(ValueError, match="frozen_cells supports"):
+            Solver(cold_plasma, peq, method=method, frozen_cells=True)
+    with pytest.raises(ValueError, match="Hamiltonian is not separable"):
+        Solver(cold_plasma, peq, method="split_simplextic").run(proot, 1)
     with pytest.raises(ValueError, match="frozen_cells"):
         Solver(cold_plasma, peq, method="rk2", freeze_every=5, sub_steps=10)
     with pytest.raises(ValueError, match="divide"):
@@ -129,7 +138,8 @@ def test_solver_validation(setup):
                freeze_every=3, sub_steps=10)
     with pytest.raises(ValueError, match="frozen_cells"):
         Solver(cold_plasma, peq, method="rk2", window_kernel=True)
-    with pytest.raises(ValueError, match="cold_plasma"):
+    with pytest.raises(ValueError, match="cold_plasma, ordinary_wave, "
+                       "extra_ordinary_wave"):
         Solver(lambda *a: a[0], peq, method="rk2", frozen_cells=True,
                window_kernel=True)
     with pytest.raises(ValueError, match="freeze_cells"):
