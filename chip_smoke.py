@@ -103,8 +103,35 @@ fused geometry jet, ``csrc/vmec_geom.cu``) and K7 (the mode sums,
    two adaptive_rk4 steps of the stiff system against its analytic
    referee.
 
+Then the xrays pipeline as users run it, through the port's CLI:
+
+19. ``cli/xrays.run_xrays``, the phase function of ``python -m
+   graph_framework_tpu_torch.cli.xrays``, on the synthetic map: cold
+   plasma, 100k rays x 100 rows x 10 steps of dt 1e-4, this script's
+   launch as CLI options, 16 rows a host block, weak-damping absorption
+   and power binning, into an in-memory stand-in of the result file
+   (``MemoryFiles``: the card's machine has no h5py).  The CLI's own stack
+   choice (frozen rk2, K = 10, compensated, K1, f32), K1's launches (100
+   windows and the warm-up step's), the last row against
+   ``Solver.trace_segmented`` bit for bit, every row finite and on the
+   table, kamp finite and, on three rows, within 1e-10 of the CPU's
+   complex128 evaluation, power <= 1 and non-increasing; the phases'
+   timings.  Then the root finder over the first 11 rows (iterations,
+   converged share, seconds).  At that launch kamp is real (zeta ~ 25)
+   and power stays 1, so 19c runs the CLI again at a launch near the
+   map's electron cyclotron resonance (100k rays x 10 rows x 10 steps):
+   power falls on at least 99% of the rays, and kamp (also at a complex
+   kx), the root finder and bin_power on the card agree with the CPU's
+   ray by ray; ``xrays_bench.bench_one`` (float at 100k rays,
+   complex_double at 10k) and ``xpic``'s phase function through K6
+   (19b);
+20. ``wofz``, ``erf_complex``, ``dawson`` and ``erfcx`` on the card in
+   complex128/float64 and complex64/float32 at about 1e6 points over every
+   branch, against scipy.special.
+
 It then prints the kernel table as one JSON line (the seven kernels and
-the O- and X-mode instances of K1, K2 and K3) and, last, the device line
+the O- and X-mode instances of K1, K2 and K3; K1's and K6's lines also
+carry their launches on the CLI paths) and, last, the device line
 ``{"ok": true, "device": {...}}``.
 
 The equilibria are built in memory (no file, no ``h5py``): a smooth
@@ -135,6 +162,9 @@ from graph_framework_tpu_torch.constants import (
 from graph_framework_tpu_torch.kernels import (
     boris, build, efit_step, vmec_geom, vmec_modes)
 from graph_framework_tpu_torch.kernels import deposit as k6
+from graph_framework_tpu_torch.cli import xpic, xrays, xrays_bench
+from graph_framework_tpu_torch.io.output import host_array
+from graph_framework_tpu_torch.models import absorption
 from graph_framework_tpu_torch.models.dispersion import (
     bohm_gross, cold_plasma, extra_ordinary_wave, ordinary_wave, stiff)
 from graph_framework_tpu_torch.models.equilibrium import (
@@ -147,6 +177,7 @@ from graph_framework_tpu_torch.models.pic import (
 from graph_framework_tpu_torch.models.rays import (
     RayDerivatives, RayState, dispersion_residual, residual_fn)
 from graph_framework_tpu_torch.models.vmec import vmec_from_tables
+from graph_framework_tpu_torch.ops import special
 from graph_framework_tpu_torch.ops.compensated import (
     CompCarry, comp_state_f64, init_comp_carry)
 from graph_framework_tpu_torch.solver import Solver, init_k, make_ray_state
@@ -393,13 +424,14 @@ def synthetic_equilibrium(dtype, device, grid=GRID, **axis):
                             dtype=dtype, device=device)
 
 
-def launch(n, dtype, device, seed=SEED):
+def launch(n, dtype, device, seed=SEED, w=W0, x=X0, kx=KX0, ky=KY0,
+           x_spread=X_SPREAD, ky_spread=KY_SPREAD):
     """n rays (as cli/xrays.py:230-259 builds them): w fixed, x and ky
     normal around the launch, the rest fixed, kx solved by init_k."""
     rng = np.random.default_rng(seed)
-    x = X0 + X_SPREAD * rng.standard_normal(n)
-    ky = KY0 + KY_SPREAD * rng.standard_normal(n)
-    return make_ray_state(n, w=W0, x=torch.from_numpy(x), kx=KX0,
+    x = x + x_spread * rng.standard_normal(n)
+    ky = ky + ky_spread * rng.standard_normal(n)
+    return make_ray_state(n, w=w, x=torch.from_numpy(x), kx=kx,
                           ky=torch.from_numpy(ky), dtype=dtype,
                           device=device)
 
@@ -410,6 +442,63 @@ def production_solver(eq, *, compensated=True, window_kernel=True,
                   sub_steps=SUB_STEPS, frozen_cells=True,
                   freeze_every=FREEZE_EVERY, compensated=compensated,
                   window_kernel=window_kernel)
+
+
+class MemoryStore:
+    """An in-memory stand-in for ``io.output.ResultFile`` (its methods,
+    no file, no h5py): each variable's rows as host numpy arrays, float64
+    or complex128 as the file stores them."""
+
+    def __init__(self, num_rays=None):
+        self.num_rays = num_rays
+        self.rows = {}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def close(self):
+        pass
+
+    def create_variable(self, name, complex_valued=False):
+        self.rows.setdefault(name, {})
+
+    def variables(self):
+        return list(self.rows)
+
+    @property
+    def num_steps(self):
+        return max((max(r) + 1 for r in self.rows.values() if r),
+                   default=0)
+
+    def write_step(self, index, values):
+        for name, value in values.items():
+            value = host_array(value)
+            kind = np.complex128 if np.iscomplexobj(value) else np.float64
+            self.rows[name][index] = value.astype(kind)
+
+    def read_step(self, index, names, complex_valued=False):
+        return {name: self.rows[name][index] for name in names}
+
+    def stack(self, name):
+        """The (rows, rays) array of one variable."""
+        return np.stack([self.rows[name][i] for i in range(self.num_steps)])
+
+    def nbytes(self):
+        return sum(a.nbytes for r in self.rows.values() for a in r.values())
+
+
+class MemoryFiles(dict):
+    """Path -> MemoryStore.  ``open`` is a store factory with
+    ``cli.open_result_file``'s signature, as the CLIs' phase functions
+    take it: mode "w" starts the path's store afresh, "r+" reopens it."""
+
+    def open(self, path, mode, num_rays=None):
+        if mode == "w":
+            self[path] = MemoryStore(num_rays)
+        return self[path]
 
 
 def leaf_deviations(a, b):
@@ -2416,6 +2505,443 @@ def vmec_kernel_records(main):
     return records
 
 
+# -- the xrays pipeline through its CLI (phases 19 and 20) -------------------
+# Phase 19 drives the port's xrays phase function (cli/xrays.run_xrays) as
+# `python -m graph_framework_tpu_torch.cli.xrays` would on the card, over
+# the synthetic map (no efit.nc, no h5py there: the rows go to
+# MemoryFiles): cold plasma, 100k rays, 100 recorded rows x 10 substeps =
+# 1000 steps of dt 1e-4 (xrays_bench's shape, uncut), this script's launch
+# as CLI options, 16 rows a host block, weak-damping absorption and power
+# binning.  kamp on three rows is evaluated again on the CPU, complex128
+# over the same f32 tables; the card's complex128 differs from it only in
+# rounding.
+PIPELINE_ROWS = 100                  # recorded rows after the launch row
+KAMP_RTOL = 1.0e-10
+KAMP_ROWS = (0, 50, 100)
+ROOT_FIND_ROWS = 11
+
+
+def xrays_args(n, *extra):
+    """The CLI options of phase 19 (``--device`` left at the card)."""
+    return xrays.build_parser().parse_args([
+        "--dispersion=cold_plasma", "--equilibrium=efit",
+        f"--num_rays={n}", f"--num_times={10 * PIPELINE_ROWS}",
+        "--sub_steps=10", f"--endtime={DT * 10 * PIPELINE_ROWS}",
+        f"--init_w_mean={W0}", f"--init_x_mean={X0}",
+        "--init_x_dist=normal", f"--init_x_sigma={X_SPREAD}",
+        f"--init_ky_mean={KY0}", "--init_ky_dist=normal",
+        f"--init_ky_sigma={KY_SPREAD}", f"--init_kx_mean={KX0}",
+        "--stream_segment=16", f"--seed={SEED}", *extra])
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def state_of_row(store, i, dtype, device):
+    """Row i of a stored trace as a RayState."""
+    row = store.read_step(i, list(absorption.STATE_NAMES))
+    return RayState(*[torch.as_tensor(row[n], dtype=dtype, device=device)
+                      for n in absorption.STATE_NAMES])
+
+
+def phase_xrays(device, n=100_000, check_launches=True, options=()):
+    """Phase 19: the xrays pipeline at full width through the CLI's phase
+    function; then the root finder over the first ROOT_FIND_ROWS rows.
+    ``options``: more CLI options (a rehearsal on the CPU names the
+    production stack's)."""
+    args = xrays.resolve_stack(xrays_args(
+        n, "--absorption_model=weak_damping", f"--device={device}",
+        *options), device)
+    stack = (args.solver, args.frozen_cells, args.freeze_every,
+             args.compensated, args.window_kernel, args.x64)
+    if check_launches and stack != ("rk2", True, 10, True, True, False):
+        raise AssertionError(f"the CLI's stack on the card: {stack}")
+    eq = synthetic_equilibrium(torch.float32, device)
+    files = MemoryFiles()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run = xrays.run_xrays(args, eq, files.open)
+    wall = time.perf_counter() - t0
+    store = files[args.output]
+    launches = efit_step.efit_window_launches
+    windows = PIPELINE_ROWS * args.sub_steps // args.freeze_every
+    warm_up = args.sub_steps // args.freeze_every
+    if check_launches and launches != windows + warm_up:
+        raise AssertionError(f"phase 19: {launches} K1 launches, expected "
+                             f"{windows} + {warm_up}")
+
+    # the trace's last row against Solver.trace_segmented from the same
+    # launch state (same kernels, same inputs: bit for bit); where phase
+    # 1's time goes: the same trace without the writer, without the
+    # residual, and the recorded steps alone (Solver.run)
+    res = residual_fn(cold_plasma, eq)
+
+    def seconds(fn):
+        sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        return out, time.perf_counter() - t0
+
+    with torch.no_grad():
+        final, seg_s = seconds(lambda: run.solver.trace_segmented(
+            run.initial, PIPELINE_ROWS, lambda i, row: None))
+        _, extras_s = seconds(lambda: run.solver.trace_segmented(
+            run.initial, PIPELINE_ROWS, lambda i, row: None, segment=16,
+            extras=lambda st: {"residual": res(st)}))
+        _, run_s = seconds(lambda: run.solver.run(run.initial,
+                                                  PIPELINE_ROWS))
+    phase1 = {"trace_s (CLI: residual, writer, store)": run.timings[
+        "trace_s"], "trace_segmented with the residual, no writer":
+        extras_s, "trace_segmented, no residual, no writer": seg_s,
+        "Solver.run (no rows)": run_s}
+    last = state_of_row(store, store.num_steps - 1, torch.float64, "cpu")
+    same = all(torch.equal(a, b.double().cpu()) for a, b in zip(last, final))
+    xyz = [torch.from_numpy(store.stack(c)) for c in ("x", "y", "z")]
+    r = torch.sqrt(xyz[0] ** 2 + xyz[1] ** 2)
+    nr, nz = eq.psi_coeffs.shape[:2]
+    leaves = [torch.from_numpy(store.stack(name))
+              for name in absorption.STATE_NAMES]
+    finite = all(bool(torch.isfinite(l).all()) for l in leaves)
+    inside = bool(((r >= eq.rmin) & (r <= eq.rmin + eq.dr * nr)
+                   & (xyz[2] >= eq.zmin)
+                   & (xyz[2] <= eq.zmin + eq.dz * nz)).all())
+    kamp = store.stack("kamp")
+    power = store.stack("power")
+
+    # kamp on three rows: the card against the CPU, complex128
+    cpu_eq = synthetic_equilibrium(torch.float32, "cpu")
+    update = absorption.make_weak_damping(cpu_eq)
+    kamp_dev = 0.0
+    with torch.no_grad():
+        for i in KAMP_ROWS:
+            want = update(state_of_row(store, i, torch.complex128, "cpu"))
+            ok = torch.isfinite(want.real) & torch.isfinite(want.imag)
+            want = torch.where(ok, want, torch.zeros_like(want)).numpy()
+            kamp_dev = max(kamp_dev, float(np.abs(kamp[i] - want).max()
+                                           / np.abs(want).max()))
+    t = run.timings
+    print(f"[19 xrays CLI] {n} rays x {PIPELINE_ROWS} rows x "
+          f"{args.sub_steps} steps, cold plasma, synthetic EFIT, "
+          f"production stack {stack}, into MemoryStore (the card has no "
+          f"h5py: no file written), {store.nbytes() / 1e9:.3f} GB of host "
+          f"rows; timings {json.dumps(t)}; wall {wall:.3f} s; {launches} "
+          f"K1 launches; last row equals trace_segmented bit for bit: "
+          f"{same}; all rows finite {finite}, in the psi grid {inside}; "
+          f"kamp finite {bool(np.isfinite(kamp).all())}, zero (scrubbed or "
+          f"undamped) {int((kamp == 0).sum())}, max |Im kamp| "
+          f"{float(np.abs(kamp.imag).max()):.6e}; kamp rows {KAMP_ROWS} "
+          f"against the CPU complex128 evaluation: {kamp_dev:.3e} (limit "
+          f"{KAMP_RTOL}); power min {float(power.min()):.9f}")
+    rates = {"trace ray-steps/s": t["trace_ray_steps_per_s"],
+             "absorption ray-rows/s": n * store.num_steps
+             / t["absorption_s"],
+             "bin_power ray-rows/s": n * store.num_steps / t["bin_power_s"]}
+    print(f"[19 xrays CLI rates] {json.dumps(rates)}; phase 1's seconds "
+          f"by what it does: {json.dumps(phase1)}")
+    if not (same and finite and inside and np.isfinite(kamp).all()
+            and kamp_dev <= KAMP_RTOL and (power <= 1.0).all()
+            and (np.diff(power, axis=0) <= 0.0).all()):
+        raise AssertionError("phase 19: the pipeline's checks failed")
+
+    # the root finder over the first rows
+    rows = MemoryStore(n)
+    for name in absorption.STATE_NAMES:
+        rows.create_variable(name)
+        for i in range(ROOT_FIND_ROWS):
+            rows.rows[name][i] = store.rows[name][i]
+    finder = absorption.make_root_finder(eq, return_diagnostics=True)
+    diags = []
+
+    def update_rf(state):
+        kamp_rf, diag = finder(state)
+        diags.append(diag)
+        return kamp_rf
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        absorption.run_absorption(rows, eq, update_fn=update_rf,
+                                  device=device)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    kamp_rf = rows.stack("kamp")
+    print(f"[19 root_find] {n} rays x {ROOT_FIND_ROWS} rows: {seconds:.3f} "
+          f"s; iterations {[d.iterations for d in diags]}; converged share "
+          f"{sum(d.converged for d in diags) / len(diags)}; final max "
+          f"|D|^2 {[float(d.residual) for d in diags]}; kamp finite "
+          f"{bool(np.isfinite(kamp_rf).all())}")
+    if not np.isfinite(kamp_rf).all():
+        raise AssertionError("phase 19: root-find kamp not finite")
+    return {"launches": launches, "timings": t}
+
+
+# Phase 19's damped leg (19c): tests/test_torch_absorption.py's "efit"
+# launch near the synthetic map's electron cyclotron resonance on its axis
+# (R = 2 m, B along y), as CLI options: w 215 /m, x normal around 2.0 m,
+# a parallel ky normal around 100 /m, kx Newton-solved from 50 /m.  zeta is
+# of order 1 there, so kamp has an imaginary part and power falls along
+# nearly every ray; the few rays launched almost parallel (kx ~ 0) get an
+# Im kamp of about -1e-7, so their power rises by about 3e-8 (the JAX
+# package's weak damping gives the same sign there), and power's
+# monotonicity is not asked here.  The card's kamp on three rows, again
+# with i 20 /m added to kx (a complex gradient of Dc), the root finder on
+# the middle row (at test_absorption.py's tolerance 1e-24) and bin_power
+# are each held to the same function on the CPU over the same rows, ray by
+# ray.
+DAMPED = dict(w=215.0, x=2.0, x_spread=0.01, ky=100.0, ky_spread=5.0,
+              kx=50.0)                  # launch()'s keywords
+DAMPED_OPTIONS = (
+    f"--init_w_mean={DAMPED['w']}", f"--init_x_mean={DAMPED['x']}",
+    f"--init_x_sigma={DAMPED['x_spread']}",
+    f"--init_ky_mean={DAMPED['ky']}",
+    f"--init_ky_sigma={DAMPED['ky_spread']}",
+    f"--init_kx_mean={DAMPED['kx']}")
+DAMPED_ROWS = 10                     # recorded rows after the launch row
+DAMPED_KAMP_ROWS = (0, 5, 10)
+DAMPED_SHARE = 0.99                  # rays whose power falls, at least
+ROOT_CHECK_RAYS = 2048               # rays the CPU root-finds again
+POWER_ATOL = 1.0e-12                 # bin_power, card against CPU (f64)
+
+
+def per_ray_deviation(got, want):
+    """max over the rays of |got - want| / |want|, where ``want`` is
+    finite, and whether ``got`` is 0 (the SAFE_MATH scrub) or non-finite
+    wherever ``want`` is not finite."""
+    got, want = np.asarray(got), np.asarray(want)
+    ok = np.isfinite(want)
+    with np.errstate(invalid="ignore"):
+        dev = np.abs(got[ok] - want[ok]) / np.abs(want[ok])
+    scrubbed = bool(((got[~ok] == 0) | ~np.isfinite(got[~ok])).all())
+    return float(dev.max()), scrubbed
+
+
+def phase_xrays_damped(device, n=100_000, check_launches=True, options=()):
+    """Phase 19c: the CLI's phase function at the damped launch
+    (DAMPED_OPTIONS), DAMPED_ROWS rows x 10 steps, weak damping and power;
+    kamp, the root finder and bin_power on the card against the CPU."""
+    args = xrays.resolve_stack(xrays_args(
+        n, f"--num_times={10 * DAMPED_ROWS}",
+        f"--endtime={DT * 10 * DAMPED_ROWS}", *DAMPED_OPTIONS,
+        "--absorption_model=weak_damping", f"--device={device}", *options),
+        device)
+    eq = synthetic_equilibrium(torch.float32, device)
+    cpu_eq = synthetic_equilibrium(torch.float32, "cpu")
+    files = MemoryFiles()
+    reset_launch_counts()
+    run = xrays.run_xrays(args, eq, files.open)
+    launches = efit_step.efit_window_launches
+    store = files[args.output]
+    kamp, power = store.stack("kamp"), store.stack("power")
+
+    # kamp on three rows, and with i 20 /m added to kx
+    weak_cpu = absorption.make_weak_damping(cpu_eq)
+    weak_dev = absorption.make_weak_damping(eq)
+    kamp_dev = kamp_dev_complex = 0.0
+    scrubbed = True
+    with torch.no_grad():
+        for i in DAMPED_KAMP_ROWS:
+            row = state_of_row(store, i, torch.complex128, "cpu")
+            dev, scr = per_ray_deviation(kamp[i], weak_cpu(row).numpy())
+            row = row._replace(kx=row.kx + 20j)
+            got = weak_dev(RayState(*[l.to(device) for l in row]))
+            dev_c, scr_c = per_ray_deviation(got.cpu().numpy(),
+                                             weak_cpu(row).numpy())
+            kamp_dev = max(kamp_dev, dev)
+            kamp_dev_complex = max(kamp_dev_complex, dev_c)
+            scrubbed = scrubbed and scr and scr_c
+
+    # the root finder on the middle row: the whole row on the card, timed;
+    # its first ROOT_CHECK_RAYS rays on the card and on the CPU
+    mid = state_of_row(store, DAMPED_ROWS // 2, torch.complex128, "cpu")
+    finder = absorption.make_root_finder(eq, tolerance=1e-24,
+                                         return_diagnostics=True)
+    with torch.no_grad():
+        sync(device)
+        t0 = time.perf_counter()
+        kamp_rf, diag = finder(RayState(*[l.to(device) for l in mid]))
+        sync(device)
+        rf_s = time.perf_counter() - t0
+        part = RayState(*[l[:ROOT_CHECK_RAYS] for l in mid])
+        got, diag_part = finder(RayState(*[l.to(device) for l in part]))
+        want, diag_cpu = absorption.make_root_finder(
+            cpu_eq, tolerance=1e-24, return_diagnostics=True)(part)
+    rf_dev, rf_scrubbed = per_ray_deviation(got.cpu().numpy(),
+                                            want.numpy())
+
+    # bin_power on the card (the CLI's) against the CPU over the same rows
+    xyz = [torch.from_numpy(store.stack(c)) for c in ("x", "y", "z")]
+    want_power, _ = absorption.bin_power(*xyz,
+                                         torch.from_numpy(kamp.imag))
+    power_dev = float(np.abs(power - want_power.numpy()).max())
+    lost = float((power[-1] < 1.0).mean())
+    t = run.timings
+    print(f"[19c xrays CLI, damped launch] {n} rays x {DAMPED_ROWS} rows x "
+          f"{args.sub_steps} steps at {' '.join(DAMPED_OPTIONS)}: timings "
+          f"{json.dumps(t)}; {launches} K1 launches; max |Im kamp| "
+          f"{float(np.abs(kamp.imag).max()):.6e}, rays with Im kamp < 0 "
+          f"on a row {int((kamp.imag < 0).any(axis=0).sum())}, zero "
+          f"(scrubbed) {int((kamp == 0).sum())}; power min "
+          f"{float(power.min()):.9f}, max {float(power.max()):.12f}, share "
+          f"of rays that lost power {lost} (at least {DAMPED_SHARE}); kamp "
+          f"rows {DAMPED_KAMP_ROWS} against the CPU, ray by ray "
+          f"{kamp_dev:.3e}, with kx + 20j {kamp_dev_complex:.3e} (limit "
+          f"{KAMP_RTOL}); root finder on row {DAMPED_ROWS // 2}: "
+          f"{rf_s:.3f} s, {diag.iterations} iterations, converged "
+          f"{diag.converged}, max |D|^2 {float(diag.residual):.3e}, max "
+          f"|Im kamp| {float(kamp_rf.imag.abs().max()):.6e}; its first "
+          f"{ROOT_CHECK_RAYS} rays against the CPU, ray by ray "
+          f"{rf_dev:.3e} ({diag_part.iterations} and "
+          f"{diag_cpu.iterations} iterations, max |D|^2 "
+          f"{float(diag_part.residual):.3e} and "
+          f"{float(diag_cpu.residual):.3e}; limit {KAMP_RTOL}); bin_power "
+          f"against the CPU {power_dev:.3e} (limit {POWER_ATOL})")
+    checks = {
+        "launches": not check_launches or launches == DAMPED_ROWS + 1,
+        "kamp finite": bool(np.isfinite(kamp).all()),
+        "damped": float(power.min()) < 0.999 and lost >= DAMPED_SHARE,
+        "kamp": kamp_dev <= KAMP_RTOL and scrubbed,
+        "kamp at complex kx": kamp_dev_complex <= KAMP_RTOL,
+        "root finder": rf_dev <= KAMP_RTOL and rf_scrubbed
+        and float(want.imag.abs().max()) > 0.01,
+        "bin_power": power_dev <= POWER_ATOL}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 19c: {failed}")
+
+
+def special_points(n, seed=SEED):
+    """About n complex points over every branch of w and erf: the
+    continued fraction's |z| >= 6 and the switch at |z| = 6, the series
+    disk |z| < 0.2, both axes, the lower half-plane, and the overflow edges
+    of exp(-z^2) on the imaginary axis."""
+    rng = np.random.default_rng(seed)
+    m = n // 5
+    ring = 6.0 * np.exp(2j * np.pi * rng.random(m)) * (
+        1.0 + 0.02 * rng.standard_normal(m))
+    edge = 1j * np.concatenate([np.linspace(-27.5, -25.5, m // 2),
+                                np.linspace(25.5, 27.5, m // 2)])
+    return np.concatenate([
+        rng.uniform(-12, 12, m) + 1j * rng.uniform(-8, 8, m),
+        ring, 0.2 * np.sqrt(rng.random(m)) * np.exp(
+            2j * np.pi * rng.random(m)),
+        rng.uniform(-10, 10, m // 2) + 0j, 1j * rng.uniform(-10, 10, m // 2),
+        edge + rng.uniform(-0.5, 0.5, edge.size)])
+
+
+# Phase 20 holds each function to scipy.special (float64 on the host, at
+# the points as the working dtype holds them) by the JAX package's test
+# limits in complex128/float64 (tests/test_special.py): wofz 5e-13 and erf
+# 2e-12 of the value's magnitude; dawson rtol 1e-12 with atol 1e-15;
+# erfcx rtol 1e-12.  complex64/float32 have no JAX test: f32 rounding,
+# about 200 ulp.  erf has complex zeros, where no relative limit holds in
+# f32, so complex64 deviations are taken against max(|value|, 1).  Points
+# count where scipy's value, and exp(-z^2) (a factor of both formulas,
+# as in the JAX package), lie inside the dtype's range.
+SPECIAL_TOL = {
+    "wofz c128": (5e-13, 0.0), "erf_complex c128": (2e-12, 0.0),
+    "dawson f64": (1e-12, 1e-15), "erfcx f64": (1e-12, 0.0),
+    "wofz c64": (2e-5, 2e-5), "erf_complex c64": (2e-5, 2e-5),
+    "dawson f32": (0.0, 1e-6), "erfcx f32": (1e-5, 0.0)}
+
+
+def phase_special(device, n=1_000_002):
+    """Phase 20: wofz, erf_complex, dawson and erfcx on the card in
+    complex128/float64 and complex64/float32 over ``special_points``
+    against scipy.special: |got - want| <= rtol |want| + atol
+    (SPECIAL_TOL) wherever scipy's value lies inside the dtype's range,
+    and the same points finite."""
+    import scipy.special as sps
+
+    z = special_points(n)
+    x = np.concatenate([z.real, z.imag])
+    reference = {"wofz": sps.wofz, "erf_complex": sps.erf,
+                 "dawson": sps.dawsn, "erfcx": sps.erfcx}
+    rows = {}
+    for tag, cdt, rdt in (("128", torch.complex128, torch.float64),
+                          ("64", torch.complex64, torch.float32)):
+        top = torch.finfo(rdt).max / 10.0
+        for name, points, dt in (("wofz", z, cdt), ("erf_complex", z, cdt),
+                                 ("dawson", x, rdt), ("erfcx", x, rdt)):
+            key = f"{name} {'c' if dt.is_complex else 'f'}" + (
+                tag if dt.is_complex else {"128": "64", "64": "32"}[tag])
+            pt = torch.as_tensor(points, device=device).to(dt)
+            getattr(special, name)(pt)       # first use: kernels' set-up
+            sync(device)
+            t0 = time.perf_counter()
+            got = getattr(special, name)(pt)
+            sync(device)
+            ms = 1e3 * (time.perf_counter() - t0)
+            host = pt.cpu().to(torch.complex128 if dt.is_complex
+                               else torch.float64).numpy()
+            want = reference[name](host)
+            got = got.cpu().to(torch.complex128 if dt.is_complex
+                               else torch.float64).numpy()
+            rtol, atol = SPECIAL_TOL[key]
+            with np.errstate(invalid="ignore", over="ignore"):
+                inside = np.isfinite(want) & (np.abs(want) < top)
+                if dt.is_complex:
+                    # exp(-z^2), a factor of both formulas, within range
+                    inside &= (host.imag ** 2 - host.real ** 2
+                               < np.log(torch.finfo(rdt).max))
+                excess = (np.abs(got - want) - rtol * np.abs(want) - atol
+                          * (np.maximum(np.abs(want), 1.0)
+                             if dt.is_complex else 1.0))[inside]
+            rows[key] = dict(points=int(pt.numel()), ms=ms,
+                             worst_excess=float(excess.max()),
+                             finite=bool(np.isfinite(got[inside]).all()))
+    print(f"[20 special functions on the card] {z.size} complex points "
+          f"(|z| = 6 ring, series disk, axes, lower half-plane, overflow "
+          f"edges), {x.size} real; per function and dtype the worst "
+          f"|got - scipy| - (rtol |scipy| + atol) (must be <= 0) and the "
+          f"second call's wall ms: {json.dumps(rows)}; limits (rtol, atol) "
+          f"{json.dumps(SPECIAL_TOL)}")
+    bad = {k: v for k, v in rows.items()
+           if not (v["worst_excess"] <= 0.0 and v["finite"])}
+    if bad:
+        raise AssertionError(f"phase 20: {bad}")
+
+
+# xrays_bench's depth in phase 19b: 20 recorded steps of 10 (the CLI's
+# default is 100; its eager rk4 is launch-bound, 32 ms a step at 100k
+# rays f32, so the rate does not depend on the depth).
+BENCH_TIMES = 200
+
+
+def phase_cli_extras(device, n_float=100_000, n_complex=10_000,
+                     particles=100_000, check_launches=True):
+    """xrays_bench's bench_one on the synthetic map (float at 100k rays,
+    complex_double at 10k), and xpic's phase function through the card's
+    K6 into MemoryStore stand-ins."""
+    out = {}
+    for name, n, dtype in (("float", n_float, torch.float32),
+                           ("complex_double", n_complex, torch.float64)):
+        eq = synthetic_equilibrium(dtype, device)
+        res = xrays_bench.bench_one(name, None, n, BENCH_TIMES, 10, eq=eq,
+                                    device=device)
+        fin = res.pop("final")
+        ok = all(bool(torch.isfinite(l).all()) for l in fin)
+        out[name] = dict(res, rays=n, finite=ok)
+        if not ok:
+            raise AssertionError(f"xrays_bench {name}: not finite")
+    stores = MemoryFiles()
+    pic_args = xpic.build_parser().parse_args([
+        f"--num_particles={particles}", "--num_grid=1000", "--num_steps=10",
+        "--dt=1e-14", f"--seed={SEED}", f"--device={device}"])
+    k6.deposit_launches = 0
+    final, rate = xpic.run_xpic(pic_args, stores.open)
+    launches = k6.deposit_launches
+    dens = stores[pic_args.fields_output].read_step(0, ["n"])["n"]
+    print(f"[19b xrays_bench and xpic CLIs] {json.dumps(out)}; xpic "
+          f"{particles} particles x 1000 grid x 10 steps: {rate:.6e} "
+          f"particle-steps/s, {launches} K6 launches, n.max() "
+          f"{float(dens.max()):.6e}, rows in MemoryStore")
+    if (check_launches and launches != 10) or not dens.max() > 0:
+        raise AssertionError("xpic CLI: K6 was not launched each step")
+    return launches
+
+
 def main():
     name, _ = phase_device()
     device = torch.device("cuda", 0)
@@ -2447,6 +2973,15 @@ def main():
     phase_k7_vs_plain(device)
     records += vmec_kernel_records(phase_vmec_main(device))
     phase_referee(device)
+    pipeline = phase_xrays(device)
+    phase_xrays_damped(device)
+    pic_cli = phase_cli_extras(device)
+    phase_special(device)
+    for record in records:
+        if record["name"] == "efit_window":
+            record["launches_xrays_cli"] = pipeline["launches"]
+        if record["name"] == "deposit":
+            record["launches_xpic_cli"] = pic_cli
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -17,13 +17,23 @@ Subpackages
 -----------
 ``ops``      table index and gathers, spline evaluation, RK, split-
              symplectic and adaptive integrators, compensated
-             accumulation, Newton iteration.
+             accumulation, Newton iteration (real and holomorphic), the
+             complex special functions (Faddeeva w, erf, plasma Z).
 ``models``   the equilibrium protocol, the analytic equilibria, EFIT,
-             VMEC, the dispersion zoo, ray equations, the Boris pusher
+             VMEC, the dispersion zoo with the hot plasmas, ray
+             equations, absorption and power binning, the Boris pusher
              (korc) and the PIC demo (pic).
+``io``       NetCDF4 result files (h5py, imported when a file opens) and
+             the asynchronous row writer.
+``cli``      the programs ``xrays`` (trace, absorption, power),
+             ``xrays_bench``, ``xkorc`` and ``xpic``; the card unless
+             ``--device`` names another device.
 ``kernels``  CUDA kernel wrappers and their build (``nvcc`` at first use).
 ``tools``    numpy spline-table builders for EFIT inputs; the kernels'
              operation counter.
+
+``postprocess`` (NaN scrub, 3D power bins over result files) is a
+module of its own, as in the JAX package.
 """
 
 __version__ = "0.1.0"

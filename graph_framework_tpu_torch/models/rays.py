@@ -20,6 +20,13 @@ instead: kvec is evaluated at a separate copy of the position, so the
 spatial gradient excludes the flow through the basis (the JAX package's
 ``reference_correction``; no effect on a Cartesian equilibrium).
 
+A complex state (the reference traces ``complex_float`` and
+``complex_double``, xrays_bench.cpp) takes holomorphic partials, as the
+JAX package's ``holomorphic=True`` gradient does: torch's autograd gives
+the conjugate of each complex derivative, and
+``ops.special.holomorphic_grad`` conjugates it back before the ratios
+-D_k/D_w and D_x/D_w are formed.
+
 An equilibrium whose ``supports_batched()`` is false takes (3,)
 positions only: D is then evaluated per ray under ``torch.func.vmap``,
 as the JAX package vmaps its per-ray function; the gradient of the sum
@@ -33,6 +40,8 @@ from typing import Callable, NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from graph_framework_tpu_torch.ops.special import holomorphic_grad
 
 
 class RayState(NamedTuple):
@@ -178,7 +187,7 @@ def make_ray_rhs(dispersion: Callable, eq, *,
                  reference_correction: bool = False):
     """Build the ray right-hand side ``rhs(state) -> RayDerivatives``:
     one ``torch.autograd.grad`` of sum(D) over (w, x, y, z, kx, ky, kz)
-    gives all seven derivatives.
+    gives all seven derivatives (holomorphic ones for a complex state).
 
     ``reference_correction``: the reference's literal generalized-
     coordinate equations (kvec at a separate copy of the position, which
@@ -206,9 +215,9 @@ def make_ray_rhs(dispersion: Callable, eq, *,
     def partials(d_fn, t, leaves, basis, create_graph):
         """The RHS from D's seven partials over ``leaves``."""
         with torch.enable_grad():
-            d = d_fn(t, *leaves, *basis).sum()
-            grads = torch.autograd.grad(d, leaves, allow_unused=True,
-                                        create_graph=create_graph)
+            d = d_fn(t, *leaves, *basis)
+            grads = holomorphic_grad(d, leaves, allow_unused=True,
+                                     create_graph=create_graph)
         dw, dx, dy, dz, dkx, dky, dkz = [
             torch.zeros_like(a) if g is None else g
             for a, g in zip(leaves, grads)]

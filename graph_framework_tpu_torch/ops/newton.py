@@ -6,7 +6,10 @@ f/f'(x)`` runs on every ray until the ensemble-wide max of f^2 drops below
 the tolerance, stagnates, oscillates with period 2, or the iteration cap
 is reached.  f' comes from ``torch.autograd.grad`` of sum(f): f is
 elementwise over rays, so the gradient of the sum is the per-ray
-derivative.
+derivative.  A complex unknown takes the holomorphic path (the JAX
+package's ``holomorphic=True``): the residual measure is |f|^2, and the
+slope is the complex derivative f', which torch's autograd gives
+conjugated (``ops.special.holomorphic_grad``).
 
 The loop is a host loop with one scalar readback per iteration (the
 reference likewise reads its max-reduction back each pass).  It runs
@@ -23,6 +26,8 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
+from graph_framework_tpu_torch.ops.special import holomorphic_grad
+
 
 class NewtonDiagnostics(NamedTuple):
     """Telemetry of one Newton solve (workflow.hpp:184-204 reports the
@@ -32,12 +37,21 @@ class NewtonDiagnostics(NamedTuple):
     converged: bool           # residual <= tolerance
 
 
-def _value_and_slope(f, x):
+def _abs2(v):
+    """|v|^2 as a real tensor (real and complex residuals)."""
+    if v.is_complex():
+        return v.real * v.real + v.imag * v.imag
+    return v * v
+
+
+def _value_and_slopes(f, xs):
+    """f at ``xs`` (detached) and its partial derivative in each: the
+    complex derivative for complex unknowns."""
     with torch.enable_grad():
-        xg = x.detach().requires_grad_(True)
-        fx = f(xg)
-        (dfx,) = torch.autograd.grad(fx.sum(), xg)
-    return fx.detach(), dfx
+        leaves = [x.detach().requires_grad_(True) for x in xs]
+        fx = f(*leaves)
+        grads = holomorphic_grad(fx, leaves)
+    return fx.detach(), grads
 
 
 def newton_solve(f: Callable, x0, *, tolerance: float = 1.0e-30,
@@ -54,7 +68,9 @@ def newton_solve(f: Callable, x0, *, tolerance: float = 1.0e-30,
       iterations >= max_iterations         (give up)
 
     with the comparisons made in the working dtype, as the JAX loop makes
-    them.  Returns ``(x, converged, NewtonDiagnostics)``.
+    them.  Returns ``(x, converged, NewtonDiagnostics)``.  A complex
+    unknown takes f as holomorphic: Newton in the complex plane with f',
+    the residual |f|^2.
 
     Gradient: when grad mode is on and ``f`` closes over tensors that
     require grad, the root x* is returned as
@@ -73,7 +89,7 @@ def newton_solve(f: Callable, x0, *, tolerance: float = 1.0e-30,
         with torch.enable_grad():
             f_attached = f(x)
         if f_attached.requires_grad:
-            _, dfx = _value_and_slope(f, x)
+            _, (dfx,) = _value_and_slopes(f, (x,))
             x = x - (f_attached - f_attached.detach()) / dfx
     return x, converged, diag
 
@@ -92,16 +108,13 @@ def newton_solve_multi(f: Callable, xs0: Sequence, *,
     NewtonDiagnostics)``; the unknowns come back detached.
     """
     xs = [x.detach() for x in xs0]
-    last = off_last = torch.tensor(torch.finfo(xs[0].dtype).max,
-                                   dtype=xs[0].dtype, device=xs[0].device)
+    real = xs[0].real.dtype
+    last = off_last = torch.tensor(torch.finfo(real).max, dtype=real,
+                                   device=xs[0].device)
     it = 0
     while True:
-        with torch.enable_grad():
-            leaves = [x.detach().requires_grad_(True) for x in xs]
-            fx = f(*leaves)
-            grads = torch.autograd.grad(fx.sum(), leaves)
-        fx = fx.detach()
-        cur = (fx * fx).max()
+        fx, grads = _value_and_slopes(f, xs)
+        cur = _abs2(fx).max()
         keep = ((cur.abs() > tolerance) & ((last - cur).abs() > tolerance)
                 & ((off_last - cur).abs() > tolerance))
         if it >= max_iterations or not bool(keep):

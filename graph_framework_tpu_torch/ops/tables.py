@@ -9,7 +9,10 @@ piecewise.hpp), with the index semantics of the reference's generated-kernel ind
 
 normalize, clamp to the table range as a float, then truncate.  The index
 carries no gradient (piecewise.hpp ``df``, :241-243): the normalized
-coordinate is detached before indexing.
+coordinate is detached before indexing.  A complex coordinate indexes by
+its real part (``compile_index`` wraps the normalized coordinate in
+``real()`` for complex scalars), so the equilibria evaluate at the complex
+positions of the absorption phase.
 
 A NaN coordinate indexes cell 0, as it does in the JAX package (its gather
 clamps the out-of-range integer a NaN casts to) and in the CUDA kernel
@@ -21,7 +24,10 @@ import torch
 
 def table_index_1d(x, scale, offset, length):
     """Clamped int64 table index of coordinate ``x`` (no gradient)."""
-    u = ((x.detach() - offset) / scale)
+    x = x.detach()
+    if x.is_complex():
+        x = x.real
+    u = (x - offset) / scale
     u = torch.nan_to_num(u, nan=0.0)
     u = torch.clamp(u, 0.0, float(length - 1))
     return u.to(torch.int64)

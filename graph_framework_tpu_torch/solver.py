@@ -11,8 +11,12 @@ cells and freeze windows; ``split_simplextic`` (position-kick-position,
 for separable Hamiltonians, checked at the first eager entry as the JAX
 package checks it); ``adaptive_rk4``, whose per-ray (dt, lambda) persist
 across recorded steps in an ``AdaptiveCarry``; ``run``, ``trace``,
-``trace_segmented``, ``carry_step_fn`` and ``step_fn``.  Reverse mode
-runs through every plain path by autograd - the gradients of trace
+``trace_streaming`` (``trace_segmented`` a row at a time),
+``trace_segmented`` (host blocks of rows, with per-row ``extras``
+evaluated on the device), ``carry_step_fn`` and ``step_fn``.  A complex
+state (``complex_float``/``complex_double``) traces with holomorphic
+derivatives, and ``init_k`` solves for a complex wave number.  Reverse
+mode runs through every plain path by autograd - the gradients of trace
 endpoints with respect to the launch state (through ``init_k``'s implicit
 root gradient) and to the spline tables - and through the window kernel
 by its backward kernels; ``remat_substeps`` checkpoints the plain path.
@@ -23,7 +27,8 @@ EFIT or VMEC (flux coordinates; frozen cells through its
 takes the dispersions it implements (``kernels.efit_step.
 KERNEL_DISPERSIONS``: cold_plasma, ordinary_wave, extra_ordinary_wave).
 Not ported: ``remat_policy``, ``block_rays`` and ``pad_rays`` (the kernel
-masks a ragged last block, so the ray count needs no padding).
+masks a ragged last block, so the ray count needs no padding), and the
+jit caches of ``make_segment_fn``/``extras_jit``.
 """
 
 from __future__ import annotations
@@ -70,14 +75,16 @@ def init_k(state: RayState, dispersion, eq, which: str = "kx", *,
     solver.hpp:252-298, dispersion.hpp:1450-1475).
 
     ``tolerance``: default None = dtype-aware - the reference's 1.0e-30
-    (newton.hpp:39) for f64, 1.0e-10 otherwise.  In f32 the residual D^2
-    bottoms out at rounding noise far above 1e-30, and further Newton
-    steps then divide that noise by a small derivative and can wander to
-    a neighbouring root; a tolerance the dtype resolves stops at the
-    first root reached.
+    (newton.hpp:39) for f64 and complex128, 1.0e-10 otherwise.  In f32
+    the residual D^2 bottoms out at rounding noise far above 1e-30, and
+    further Newton steps then divide that noise by a small derivative and
+    can wander to a neighbouring root; a tolerance the dtype resolves
+    stops at the first root reached.  A complex state takes Newton in the
+    complex plane with D's complex derivative (``ops.newton``).
     """
     if tolerance is None:
-        tolerance = 1.0e-30 if state.w.dtype == torch.float64 else 1.0e-10
+        fine = state.w.dtype in (torch.float64, torch.complex128)
+        tolerance = 1.0e-30 if fine else 1.0e-10
     d_all = dispersion_residual(dispersion, eq)
 
     def f(kval):
@@ -297,13 +304,25 @@ class Solver:
         traj = RayState(*[torch.stack(leaf) for leaf in zip(*rows)])
         return self.carry_state(carry), traj
 
+    def trace_streaming(self, state: RayState, num_steps: int,
+                        writer: Callable[[int, RayState], None]):
+        """One recorded row at a time: :meth:`trace_segmented` with
+        ``segment=1`` (host rows).  Returns the final state."""
+        return self.trace_segmented(state, num_steps, writer, segment=1)
+
     def trace_segmented(self, state: RayState, num_steps: int,
-                        writer: Callable[[int, RayState], None],
-                        segment: int = 16):
+                        writer: Callable, segment: int = 16,
+                        extras: Optional[Callable] = None):
         """Segment-buffered streaming: ``segment`` recorded rows are
         stacked on the device and copied to the host as ONE block per
-        leaf; ``writer(i, row)`` then receives host (CPU) RayState rows
-        in order, row 0 the initial state.
+        leaf; ``writer(i, row)`` then receives host (CPU) rows in order,
+        row 0 the initial state.
+
+        ``extras``: ``state -> dict of tensors``, evaluated on the device
+        for every recorded row (row 0 too) and copied in the same block;
+        the writer then receives ``(RayState, extras_dict)`` rows (the
+        per-row residual of the reference's solver kernel,
+        solver.hpp:331).
 
         On a CUDA device the copy is asynchronous into pinned memory and
         the next segment is queued before the previous block is handed to
@@ -312,6 +331,15 @@ class Solver:
         """
         step = self.carry_step_fn()
         cuda = state.x.is_cuda
+        names = None
+
+        def record(s):
+            nonlocal names
+            if extras is None:
+                return list(s)
+            ex = extras(s)
+            names = list(ex)
+            return list(s) + [ex[k] for k in names]
 
         def to_host(rows):
             block = [torch.stack(leaf) for leaf in zip(*rows)]
@@ -326,18 +354,23 @@ class Solver:
             (host, event), start = pending
             if event is not None:
                 event.synchronize()
+            nf = len(RayState._fields)
             for j in range(host[0].shape[0]):
-                writer(start + j, RayState(*[h[j] for h in host]))
+                row = RayState(*[h[j] for h in host[:nf]])
+                if extras is not None:
+                    row = (row, {k: h[j] for k, h in zip(names,
+                                                         host[nf:])})
+                writer(start + j, row)
 
         carry = self.init_carry(state)
-        pending = (to_host([state]), 0)
+        pending = (to_host([record(state)]), 0)
         i = 1
         while i <= num_steps:
             k = min(segment, num_steps - i + 1)
             rows = []
             for _ in range(k):
                 carry = step(carry)
-                rows.append(self.carry_state(carry))
+                rows.append(record(self.carry_state(carry)))
             nxt = (to_host(rows), i)
             drain(pending)
             pending = nxt

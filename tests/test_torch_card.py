@@ -18,7 +18,10 @@ push K5 and the deposit K6 are held to their plain versions within
 ``chip_smoke.K5_TOL`` and ``chip_smoke.K6_TOL`` (rounding: FMA contraction
 and another order of the sums), at ragged counts; the VMEC geometry jet K4
 and the mode sums K7 within ``chip_smoke.K4_TOL`` and ``chip_smoke.K7_TOL``
-(the order of the sums over the modes, FMA contraction).
+(the order of the sums over the modes, FMA contraction).  The xrays CLI's
+phase function takes the production stack and launches K1 on the card;
+the complex special functions, the weak damping and the root finder on
+the card agree with the CPU's (the last two at a damped launch).
 """
 
 import dataclasses
@@ -271,3 +274,83 @@ def test_vmec_modes_matches_plain_version(device, dtype):
     want = torch.stack(vmec_modes.reference_forward(u, v, *blocks, xm, xn))
     devs = chip_smoke.relative_rows(got, want)
     assert max(devs) <= chip_smoke.K7_TOL[dtype], devs
+
+
+def test_xrays_cli_takes_the_production_stack_on_the_card(device):
+    """The CLI's phase function over the synthetic map at 1029 rays x 3
+    rows: the production stack, K1 once a window plus the warm-up step,
+    finite kamp and power in the in-memory store."""
+    from graph_framework_tpu_torch.cli import xrays
+    args = xrays.resolve_stack(chip_smoke.xrays_args(
+        RAGGED, "--num_times=30", "--endtime=0.003",
+        "--absorption_model=weak_damping", f"--device={device}"), device)
+    assert (args.solver, args.window_kernel, args.x64) == ("rk2", True,
+                                                           False)
+    files = chip_smoke.MemoryFiles()
+    efit_step.efit_window_launches = 0
+    xrays.run_xrays(args, chip_smoke.synthetic_equilibrium(
+        torch.float32, device), files.open)
+    store = files[args.output]
+    assert efit_step.efit_window_launches == 3 + 1
+    assert store.num_steps == 4
+    for name in ("x", "kamp", "power"):
+        assert torch.isfinite(torch.from_numpy(store.stack(name))).all()
+
+
+@pytest.mark.parametrize("name", ["wofz", "erf_complex", "z_plasma"])
+def test_special_functions_on_the_card_match_the_cpu(device, name):
+    """complex128 on the card against the same function on the CPU, over
+    chip_smoke's points on every branch, within 1e-13 of max(|w|, 1)."""
+    import numpy as np
+    from graph_framework_tpu_torch.ops import special
+    z = torch.from_numpy(chip_smoke.special_points(20_000))
+    fn = getattr(special, name)
+    got, want = fn(z.to(device)).cpu(), fn(z)
+    ok = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), ok)
+    dev = (got - want)[ok].abs() / want[ok].abs().clamp(min=1.0)
+    assert float(dev.max()) <= 1e-13
+    assert np.isfinite(float(dev.max()))
+
+
+def _damped_state(n=RAGGED):
+    """chip_smoke's damped launch (near the synthetic map's resonance)
+    in complex128 on the CPU, kx on the cold-plasma surface."""
+    cpu_eq = chip_smoke.synthetic_equilibrium(torch.float32, "cpu")
+    return cpu_eq, init_k(chip_smoke.launch(
+        n, torch.complex128, "cpu", **chip_smoke.DAMPED), cold_plasma,
+        cpu_eq)
+
+
+@pytest.mark.parametrize("imag", [0.0, 20.0])
+def test_weak_damping_on_the_card_matches_the_cpu(device, imag):
+    """make_weak_damping in complex128 on the card against the CPU at
+    chip_smoke's damped launch (f32 tables on both), ray by ray; with
+    ``imag``, i imag /m added to kx (a complex gradient of Dc)."""
+    from graph_framework_tpu_torch.models.absorption import (
+        make_weak_damping)
+    cpu_eq, state = _damped_state()
+    state = state._replace(kx=state.kx + 1j * imag)
+    eq = chip_smoke.synthetic_equilibrium(torch.float32, device)
+    want = make_weak_damping(cpu_eq)(state)
+    got = make_weak_damping(eq)(RayState(*[l.to(device) for l in state]))
+    assert float(want.imag.abs().max()) > 0.1
+    dev, _ = chip_smoke.per_ray_deviation(got.cpu().numpy(), want.numpy())
+    assert dev <= chip_smoke.KAMP_RTOL
+
+
+def test_root_finder_on_the_card_matches_the_cpu(device):
+    """make_root_finder (tolerance 1e-24) on the card against the CPU at
+    chip_smoke's damped launch, ray by ray; both converge."""
+    from graph_framework_tpu_torch.models.absorption import make_root_finder
+    cpu_eq, state = _damped_state()
+    eq = chip_smoke.synthetic_equilibrium(torch.float32, device)
+    want, diag_cpu = make_root_finder(cpu_eq, tolerance=1e-24,
+                                      return_diagnostics=True)(state)
+    got, diag = make_root_finder(eq, tolerance=1e-24,
+                                 return_diagnostics=True)(
+        RayState(*[l.to(device) for l in state]))
+    assert diag.converged and diag_cpu.converged
+    assert float(want.imag.abs().max()) > 0.01
+    dev, _ = chip_smoke.per_ray_deviation(got.cpu().numpy(), want.numpy())
+    assert dev <= chip_smoke.KAMP_RTOL

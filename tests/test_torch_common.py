@@ -110,6 +110,13 @@ vout = Solver(cold_plasma, veq, method="rk2", dt=2.5e-6, sub_steps=2,
               frozen_cells=True, freeze_every=2).run(
     Solver(cold_plasma, veq, method="rk2", dt=2.5e-6).run(vst, 1), 1)
 assert bool(torch.isfinite(vout.kx).all())
+from graph_framework_tpu_torch import postprocess
+from graph_framework_tpu_torch.cli import xkorc, xpic, xrays, xrays_bench
+from graph_framework_tpu_torch.io import AsyncWriter, ResultFile, state_row
+from graph_framework_tpu_torch.models.absorption import make_weak_damping
+kamp = make_weak_damping(eq)(init_k(chip_smoke.launch(
+    4, torch.complex128, "cpu"), cold_plasma, eq))
+assert bool(torch.isfinite(kamp).all())
 print(sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "graph_framework_tpu"
@@ -148,7 +155,10 @@ def _entry_points(tmp_path_factory):
     device (so on the card), as a zero-argument callable."""
     from graph_framework_tpu.tools.make_splines import write_vmec_file
     from graph_framework_tpu_torch import convert
-    from graph_framework_tpu_torch.models import efit, korc, pic, vmec
+    from graph_framework_tpu_torch.cli import xkorc, xpic, xrays, xrays_bench
+    from graph_framework_tpu_torch.models import (
+        absorption, efit, korc, pic, vmec)
+    from graph_framework_tpu_torch.models.equilibrium import make_slab
     from graph_framework_tpu_torch.solver import make_ray_state
     from graph_framework_tpu_torch.tools.make_splines import (
         efit_tables, vmec_tables)
@@ -185,14 +195,43 @@ def _entry_points(tmp_path_factory):
                                                  torch.float32),
         "pic_start": lambda: pic.pic_start(8, 8),
         "run_pic": lambda: pic.run_pic(8, 8, 1),
+        "run_absorption": lambda: _run_absorption_default(),
+        "make_weak_damping": lambda: absorption.make_weak_damping(
+            make_slab())(make_ray_state(2, w=1.0, dtype=torch.complex128)),
+        "run_xrays": lambda: xrays.run_xrays(
+            xrays.build_parser().parse_args(["--num_rays=2"]), make_slab(),
+            chip_smoke.MemoryFiles().open),
+        "run_xkorc": lambda: xkorc.run_xkorc(
+            xkorc.build_parser().parse_args([
+                "--equilibrium_file=unused", "--num_particles=2",
+                "--num_steps=1"]), cpu_eq, chip_smoke.MemoryFiles().open),
+        "run_xpic": lambda: xpic.run_xpic(
+            xpic.build_parser().parse_args([
+                "--num_particles=8", "--num_grid=8", "--num_steps=1"]),
+            chip_smoke.MemoryFiles().open),
+        "bench_one": lambda: xrays_bench.bench_one(
+            "double", None, 2, 10, 10, eq=cpu_eq),
     }
+
+
+def _run_absorption_default():
+    """run_absorption without a device over a one-row in-memory trace."""
+    from graph_framework_tpu_torch.models import absorption
+    from graph_framework_tpu_torch.models.equilibrium import make_slab
+    store = chip_smoke.MemoryStore(2)
+    for name in absorption.STATE_NAMES:
+        store.create_variable(name)
+    store.write_step(0, {name: np.ones(2) for name in absorption.STATE_NAMES})
+    absorption.run_absorption(store, make_slab())
 
 
 ENTRY_POINTS = ["make_ray_state", "efit_from_tables", "make_efit",
                 "efit_from_numpy", "vmec_from_tables", "make_vmec",
                 "vmec_from_numpy", "ray_state_from_numpy",
                 "particle_state_from_numpy", "pic_state_from_numpy",
-                "run_korc", "make_deposit", "pic_start", "run_pic"]
+                "run_korc", "make_deposit", "pic_start", "run_pic",
+                "run_absorption", "make_weak_damping", "run_xrays",
+                "run_xkorc", "run_xpic", "bench_one"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -102,6 +102,27 @@ def test_trace_and_segmented_rows(setup):
     assert torch.equal(out.x, final.x)
 
 
+def test_trace_streaming_and_extras_rows(setup):
+    """trace_streaming hands trace's rows one at a time, row 0 the launch;
+    trace_segmented's ``extras`` come with every row (row 0 too) as
+    (RayState, dict) and equal the function of that row."""
+    _, peq, _, proot = setup
+    sol = Solver(cold_plasma, peq, method="rk4", dt=1e-4, sub_steps=2)
+    _, traj = sol.trace(proot, 3)
+    rows = []
+    sol.trace_streaming(proot, 3, lambda i, row: rows.append((i, row)))
+    assert [i for i, _ in rows] == list(range(4))
+    for i, row in rows:
+        assert torch.equal(row.kx, traj.kx[i]), i
+    rows = []
+    sol.trace_segmented(proot, 3, lambda i, row: rows.append((i, row)),
+                        segment=2, extras=lambda s: {"kx2": s.kx * s.kx})
+    assert [i for i, _ in rows] == list(range(4))
+    for i, (row, ex) in rows:
+        assert torch.equal(row.kx, traj.kx[i]), i
+        assert torch.equal(ex["kx2"], traj.kx[i] * traj.kx[i]), i
+
+
 def test_compensated_carry_is_double_word(setup):
     _, peq, _, proot = setup
     sol = Solver(cold_plasma, peq, method="rk2", dt=1e-4, sub_steps=10,
