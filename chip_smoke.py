@@ -18,10 +18,11 @@ failed check raises and the script exits non-zero):
 1. device: the card's name and, on its own line, ``nvidia-smi``'s
    name and power limit; no CUDA card is a failure, never a CPU run;
 2. build: ``nvcc`` builds ``csrc/*.cu`` (one process per source);
-   registers and spills of every kernel variant, the eight backward ones
-   (K2, K3 x f32, f64 x rk2, rk4) required, and none spilled for K1 f32
-   rk2 (plain and compensated) and K2 f32 rk2, the main path's forward and
-   backward;
+   registers and spills of every kernel variant, the 16 of each of the
+   eleven dispersions required (K1 f32, f64 x rk2, rk4 x plain,
+   compensated; K2, K3 x f32, f64 x rk2, rk4), and none spilled for K1 f32
+   rk2 (plain and compensated) and K2 f32 rk2 of each dispersion, the main
+   paths' forward and backward;
 3. K1 vs plain PyTorch version at 4099 rays (a ragged count): rk2/rk4
    x plain/compensated x f32/f64, one recorded step at K = 10 and K = 5,
    each within a limit that lies well below what a wrong kernel shows;
@@ -30,6 +31,13 @@ failed check raises and the script exits non-zero):
    3b. the O- and X-mode instances of K1 (all eight variants), K2 and K3
    (f32 and f64, rk2 and rk4) against their plain versions at K = 10,
    under the same limits, each also 10x below the other mode's window;
+   3c. the same for the other eight tails (cold_plasma_expansion,
+   bohm_gross, light_wave, ion_cyclotron, acoustic_wave, simple,
+   gaussian_well, stiff), each from its own launch and step
+   (TAIL_LAUNCH), each limit 10x below the tail's wrong kernels (rays that
+   stood still, stages that keep t, a backward that passes the cotangent
+   through, ...: TAIL_K1_ORDER_BLIND, TAIL_BWD_WRONGS); the last three
+   read no table and have no K3;
 4. main path at full width: 100k rays f32 compensated, then f64 plain,
    then 1M rays for 100 recorded steps; launch counts, validity,
    residuals, the f32/f64 endpoint gap, and ray-steps/s;
@@ -46,11 +54,20 @@ failed check raises and the script exits non-zero):
    the same root, the smallest w^2 - wh^2 over the run, K1's device ms
    beside its bound), then fwd+bwd over 100 recorded steps through K1 and
    K2 and table gradients over 10 through K3;
+   4e. the other eight tails' main paths: 100k rays x 100 x 10 (the
+   expansion, which users trace for ECRH, x 1000) compensated f32 rk2
+   through K1 from each one's launch (launch count, finite, on the table
+   where the tail reads it, the gap to f64 from the same root against the
+   plain version's f32 gap, TAIL_GAP_FACTOR, on a subset and over the
+   whole run), then fwd+bwd through K1 and K2 and, where the tail reads
+   the map, table gradients through K3 (the expansion 100 and 10 recorded
+   steps, the others one each);
 5. ``trace_segmented``: 32 recorded rows of 100k rays kept in memory;
 6. the plain version's ray-steps/s on the card beside the kernel's;
 7. each kernel's milliseconds per window (on the device and by CUDA
    events) beside its plain version's and its bound with the bound's
-   basis, and K3's scatter into the tables (``index_add_``) timed apart.
+   basis, each held to its limit on that main-path window, and K3's
+   scatter into the tables (``index_add_``) timed apart.
 
 The particle paths follow (``xkorc``'s Boris push, ``xpic``'s PIC loop),
 with the hand-written kernels K5 (the slab push, ``csrc/boris.cu``) and K6
@@ -117,7 +134,11 @@ Then the xrays pipeline as users run it, through the port's CLI:
    table, kamp finite and, on three rows, within 1e-10 of the CPU's
    complex128 evaluation, power <= 1 and non-increasing; the phases'
    timings.  Then the root finder over the first 11 rows (iterations,
-   converged share, seconds).  At that launch kamp is real (zeta ~ 25)
+   converged share, seconds).  19d runs the trace again with
+   ``--dispersion=cold_plasma_expansion`` (ECRH) and no stack options:
+   the production stack, 101 launches of the expansion's K1, the last row
+   against ``trace_segmented``, every row finite and on the table.  At
+   phase 19's launch kamp is real (zeta ~ 25)
    and power stays 1, so 19c runs the CLI again at a launch near the
    map's electron cyclotron resonance (100k rays x 10 rows x 10 steps):
    power falls on at least 99% of the rays, and kamp (also at a complex
@@ -130,8 +151,9 @@ Then the xrays pipeline as users run it, through the port's CLI:
    branch, against scipy.special.
 
 It then prints the kernel table as one JSON line (the seven kernels and
-the O- and X-mode instances of K1, K2 and K3; K1's and K6's lines also
-carry their launches on the CLI paths) and, last, the device line
+the instances of K1, K2 and K3 for the other ten dispersions; the lines of
+cold plasma's and the expansion's K1 and of K6 also carry their launches
+on the CLI paths) and, last, the device line
 ``{"ok": true, "device": {...}}``.
 
 The equilibria are built in memory (no file, no ``h5py``): a smooth
@@ -166,7 +188,8 @@ from graph_framework_tpu_torch.cli import xpic, xrays, xrays_bench
 from graph_framework_tpu_torch.io.output import host_array
 from graph_framework_tpu_torch.models import absorption
 from graph_framework_tpu_torch.models.dispersion import (
-    bohm_gross, cold_plasma, extra_ordinary_wave, ordinary_wave, stiff)
+    DISPERSIONS, bohm_gross, cold_plasma, extra_ordinary_wave,
+    ordinary_wave, stiff)
 from graph_framework_tpu_torch.models.equilibrium import (
     make_gaussian_density, make_no_magnetic_field, make_slab_density)
 from graph_framework_tpu_torch.models.efit import efit_from_tables
@@ -177,7 +200,7 @@ from graph_framework_tpu_torch.models.pic import (
 from graph_framework_tpu_torch.models.rays import (
     RayDerivatives, RayState, dispersion_residual, residual_fn)
 from graph_framework_tpu_torch.models.vmec import vmec_from_tables
-from graph_framework_tpu_torch.ops import special
+from graph_framework_tpu_torch.ops import integrators, special
 from graph_framework_tpu_torch.ops.compensated import (
     CompCarry, comp_state_f64, init_comp_carry)
 from graph_framework_tpu_torch.solver import Solver, init_k, make_ray_state
@@ -510,7 +533,15 @@ def leaf_deviations(a, b):
                  for ha, hb, la, lb in zip(a.hi, b.hi, a.lo, b.lo)]
     else:
         diffs = [la.double() - lb.double() for la, lb in zip(a, b)]
-    return {f: float(d.abs().max()) for f, d in zip(RayState._fields, diffs)}
+    return {f: _no_nan(d.abs().max()) for f, d in zip(RayState._fields,
+                                                      diffs)}
+
+
+def _no_nan(x):
+    """A deviation as a float, inf where it is NaN: a NaN on either side
+    fails every limit (Python's max() and <= would pass it)."""
+    x = float(x)
+    return float("inf") if x != x else x
 
 
 def leaf_errors(a, b):
@@ -526,7 +557,8 @@ def leaf_errors(a, b):
               "k": scale(ref.kx, ref.ky, ref.kz)}
     of = dict(t="t", w="w", x="pos", y="pos", z="pos",
               kx="k", ky="k", kz="k")
-    return {f: d / groups[of[f]] for f, d in leaf_deviations(a, b).items()}
+    return {f: _no_nan(d / groups[of[f]])
+            for f, d in leaf_deviations(a, b).items()}
 
 
 def in_domain(state, eq):
@@ -630,11 +662,20 @@ def phase_device():
     return name, smi
 
 
+#: The window kernels' tails by their struct names (csrc/efit_adjoint.cuh)
+#: and tags (efit_step.KERNEL_TAILS), the longer names first
+#: ("ColdPlasmaExpansion" before cold plasma, which has no tag;
+#: "ExtraOrdinaryWave" before "OrdinaryWave").
+PTXAS_TAGS = tuple(sorted(((t.struct, t.tag) for t in efit_step.KERNEL_TAILS
+                           if t.tag), key=lambda pair: -len(pair[0])))
+
+
 def ptxas_summary(log):
     """{variant: 'N registers, ... spill ...'} from nvcc's -Xptxas -v log;
     the variant is read from the mangled name of efit_window_kernel<T,
     METHOD, COMPENSATED, Disp> (K1: f32/rk2/plain, ... for cold plasma,
-    omode f32/rk2/plain and xmode f32/rk2/plain for the O and X modes), of
+    omode f32/rk2/plain, xmode f32/rk2/plain, stiff f32/rk2/plain, ... for
+    the other tails, PTXAS_TAGS), of
     efit_window_bwd_kernel<T, METHOD, TAB, Disp> (K2 f32/rk2 without the
     table cotangents, K3 f32/rk2 with them; K2 omode f32/rk2, ...), of
     slab_push_kernel<T> (K5 f32,
@@ -659,8 +700,8 @@ def ptxas_summary(log):
             out[variant] = []
         elif m:
             dtype = "f32" if m[2] == "f" else "f64"
-            mode = ("xmode " if "ExtraOrdinaryWave" in line else
-                    "omode " if "OrdinaryWave" in line else "")
+            mode = next((f"{tag} " for struct, tag in PTXAS_TAGS
+                         if struct in line), "")
             if m[1]:
                 variant = (f"{'K3' if m[4] == '1' else 'K2'} {mode}{dtype}/"
                            f"rk{m[3]}")
@@ -761,8 +802,11 @@ def phase_build():
     summary = ptxas_summary(build.build_log)
     for variant, info in summary.items():
         print(f"    {variant}: {info}")
-    modes = ("", "omode ", "xmode ")
-    window = [f"{k} {d}{t}/rk{m}" for d in modes for k in ("K2", "K3")
+    modes = [""] + [f"{tag} " for tag in KERNEL_TAGS]
+    # K3 only for the tails that read the map
+    bwd = [(k, d) for d in modes for k in ("K2", "K3")
+           if k == "K2" or reads_map(KERNEL_TAGS.get(d.strip(), cold_plasma))]
+    window = [f"{k} {d}{t}/rk{m}" for k, d in bwd
               for t in ("f32", "f64") for m in (2, 4)] + [
         f"{d}{t}/rk{m}/{c}" for d in modes for t in ("f32", "f64")
         for m in (2, 4) for c in ("plain", "comp")]
@@ -779,17 +823,17 @@ def phase_build():
 
 
 def run_windows(eq, carry, method, k, compensated, kernel,
-                dispersion=cold_plasma):
+                dispersion=cold_plasma, dt=DT):
     """One recorded step (SUB_STEPS // k freeze windows of k substeps) from
     ``carry``, through the kernel's wrapper or its plain version."""
     for _ in range(SUB_STEPS // k):
         if kernel:
-            carry = efit_step.efit_window(eq, carry, method=method, dt=DT,
+            carry = efit_step.efit_window(eq, carry, method=method, dt=dt,
                                           steps=k, compensated=compensated,
                                           dispersion=dispersion)
         else:
             carry = efit_step.frozen_window(eq, dispersion, carry,
-                                            method=method, dt=DT, steps=k,
+                                            method=method, dt=dt, steps=k,
                                             compensated=compensated)
     return carry
 
@@ -800,38 +844,50 @@ OTHER_MODE = {ordinary_wave: extra_ordinary_wave,
               extra_ordinary_wave: ordinary_wave}
 
 
-def check_window(eq, st, method, k, compensated, dispersion=cold_plasma):
+def check_window(eq, st, method, k, compensated, dispersion=cold_plasma,
+                 dt=DT):
     """Kernel against plain version over one recorded step from the state
     ``st``.  Returns a row: the worst relative leaf deviation, its limit,
     the deviations the plain version shows for a wrong kernel (the other
     Runge-Kutta order; the low words dropped; for the O and X modes, the
-    other mode's window) and ``fail``, the names of the checks that
-    failed."""
+    other mode's window; for stiff, stages that keep t) and ``fail``, the
+    names of the checks that failed."""
     key = (st.x.dtype, compensated)
     start = init_comp_carry(st) if compensated else st
     plain = run_windows(eq, start, method, k, compensated, False,
-                        dispersion)
+                        dispersion, dt)
 
     def worst(state):
         return max(leaf_errors(state, plain).values())
 
+    tag = tail_of(dispersion)
     row = {"dev": worst(run_windows(eq, start, method, k, compensated,
-                                    True, dispersion)),
-           "limit": TOL[key]}
-    if CAN_SEE_ORDER[key]:
+                                    True, dispersion, dt)),
+           "limit": TAIL_TOL.get((tag, *key), TOL[key])}
+    if CAN_SEE_ORDER[key] and tag not in TAIL_K1_ORDER_BLIND:
         other = "rk4" if method == "rk2" else "rk2"
         row["other order"] = worst(run_windows(eq, start, other, k,
                                                compensated, False,
-                                               dispersion))
+                                               dispersion, dt))
+    if CAN_SEE_ORDER[key]:
+        if dispersion is stiff:
+            with frozen_stage_t():
+                row["stages keep t"] = worst(run_windows(
+                    eq, start, method, k, compensated, False, dispersion,
+                    dt))
     if compensated:
         row["low words dropped"] = worst(init_comp_carry(run_windows(
-            eq, st, method, k, False, False, dispersion)))
+            eq, st, method, k, False, False, dispersion, dt)))
     if dispersion in OTHER_MODE:
         row["other dispersion"] = worst(run_windows(
             eq, start, method, k, compensated, False,
             OTHER_MODE[dispersion]))
+    if tag is not None:
+        moved = leaf_errors(start, plain)
+        row["stood still"] = max(moved[f] for f in RayState._fields[2:])
     row["fail"] = ([] if row["dev"] <= row["limit"] else ["dev"]) + [
-        s for s in ("other order", "low words dropped", "other dispersion")
+        s for s in ("other order", "low words dropped", "other dispersion",
+                    "stages keep t", "stood still")
         if s in row and not row[s] >= SEPARATION * row["limit"]]
     return row
 
@@ -881,7 +937,9 @@ def rhs_without_vw(dispersion, feq):
         args = [leaf.view_as(leaf) for leaf in
                 (s.w, s.x, s.y, s.z, s.kx, s.ky, s.kz)]
         g = torch.autograd.grad(d_all(s.t, *args).sum(), args,
-                                create_graph=True)
+                                create_graph=True, allow_unused=True)
+        g = [torch.zeros_like(a) if d is None else d
+             for a, d in zip(args, g)]
         inv = (1.0 / g[0]).detach()
         return RayDerivatives(-g[4] * inv, -g[5] * inv, -g[6] * inv,
                               g[1] * inv, g[2] * inv, g[3] * inv)
@@ -889,38 +947,45 @@ def rhs_without_vw(dispersion, feq):
     return rhs
 
 
-def step_vjp(eq, st, ct, method, k, how, tables, dispersion=cold_plasma):
+def step_vjp(eq, st, ct, method, k, how, tables, dispersion=cold_plasma,
+             dt=DT):
     """The VJP of one recorded step (SUB_STEPS // k plain windows) from
     ``st`` for the output cotangent ``ct``: (state cotangent, psi-table
     and profile-table cotangents or None).  ``how``: "kernel" (K2, or K3
     with ``tables``), "plain" (autograd of frozen_window), or a wrong
     backward on the plain version: "v_w dropped", "other order", "other
-    dispersion" (the other mode's, OTHER_MODE)."""
+    dispersion" (the other mode's, OTHER_MODE), "stages keep t"
+    (frozen_stage_t), or "passed through" (``ct`` itself, zero tables)."""
     inputs = [st]
     for _ in range(SUB_STEPS // k - 1):
         inputs.append(efit_step.frozen_window(
-            eq, dispersion, inputs[-1], method=method, dt=DT, steps=k,
+            eq, dispersion, inputs[-1], method=method, dt=dt, steps=k,
             compensated=False))
     order = method
     if how == "other order":
         order = "rk4" if method == "rk2" else "rk2"
     transpose = (OTHER_MODE[dispersion] if how == "other dispersion"
                  else dispersion)
+    if how == "passed through":
+        zeros = (torch.zeros_like(eq.psi_coeffs),
+                 torch.zeros_like(eq.profile_coeffs))
+        return ct, zeros if tables else None
     d_tabs = None
     for s in reversed(inputs):
         if how == "kernel":
             vjp = efit_step.efit_window_vjp(eq, s, ct, method=method,
-                                            dt=DT, steps=k, tables=tables,
+                                            dt=dt, steps=k, tables=tables,
                                             dispersion=dispersion)
-        elif how == "v_w dropped":
-            with mock.patch.object(efit_step, "make_ray_rhs",
-                                   rhs_without_vw):
+        elif how in ("v_w dropped", "stages keep t"):
+            with (mock.patch.object(efit_step, "make_ray_rhs",
+                                    rhs_without_vw)
+                  if how == "v_w dropped" else frozen_stage_t()):
                 vjp = efit_step.frozen_window_vjp_blocks(
-                    eq, s, ct, method=order, dt=DT, steps=k,
+                    eq, s, ct, method=order, dt=dt, steps=k,
                     dispersion=dispersion)
         else:
             vjp = efit_step.frozen_window_vjp_blocks(
-                eq, s, ct, method=order, dt=DT, steps=k,
+                eq, s, ct, method=order, dt=dt, steps=k,
                 dispersion=transpose)
         ct = vjp.state
         if tables:
@@ -932,38 +997,54 @@ def step_vjp(eq, st, ct, method, k, how, tables, dispersion=cold_plasma):
 
 def relative_deviations(got, want):
     """Per tensor (leaf or table): max |got - want| / max |want|."""
-    return [float((a.double() - b.double()).abs().max()
-                  / b.double().abs().max().clamp_min(1e-300))
+    return [_no_nan((a.double() - b.double()).abs().max()
+                    / b.double().abs().max().clamp_min(1e-300))
             for a, b in zip(got, want)]
 
 
-def check_window_bwd(eq, st, method, k, seed, dispersion=cold_plasma):
+def check_window_bwd(eq, st, method, k, seed, dispersion=cold_plasma,
+                     dt=DT):
     """K2 and K3 against autograd of the plain version over one recorded
     step from ``st`` with seeded cotangents.  Returns a row: the worst
     relative deviation of the state cotangent (K2 and K3) and of the
     tables (K3), their limits, what the wrong backwards show, and
-    ``fail``."""
+    ``fail``.  Cold plasma's and the modes' wrong backwards are "v_w
+    dropped", "other order" (f64) and "other dispersion" (the modes); the
+    other tails' are TAIL_BWD_WRONGS's.  A dispersion that reads no table
+    has no K3 and no table cotangents: K2 alone is held to the state's
+    limit (``"tables"`` is None), and its wrong backwards by the state
+    alone."""
     ct = random_cotangent(st, seed)
     tol = BWD_TOL[st.x.dtype]
-    want_st, want_tab = step_vjp(eq, st, ct, method, k, "plain", True,
-                                 dispersion)
-    k2, _ = step_vjp(eq, st, ct, method, k, "kernel", False, dispersion)
-    k3, k3_tab = step_vjp(eq, st, ct, method, k, "kernel", True,
-                          dispersion)
-    row = {"state": max(relative_deviations(k2, want_st)
-                        + relative_deviations(k3, want_st)),
-           "tables": max(relative_deviations(k3_tab, want_tab)),
+    tables = reads_map(dispersion)
+    want_st, want_tab = step_vjp(eq, st, ct, method, k, "plain", tables,
+                                 dispersion, dt)
+    k2, _ = step_vjp(eq, st, ct, method, k, "kernel", False, dispersion, dt)
+    row = {"state": max(relative_deviations(k2, want_st)), "tables": None,
            "limits": tol}
-    wrongs = ["v_w dropped"] + (
-        ["other order"] if CAN_SEE_ORDER[st.x.dtype, False] else []) + (
-        ["other dispersion"] if dispersion in OTHER_MODE else [])
+    if tables:
+        k3, k3_tab = step_vjp(eq, st, ct, method, k, "kernel", True,
+                              dispersion, dt)
+        row["state"] = max(row["state"],
+                           max(relative_deviations(k3, want_st)))
+        row["tables"] = max(relative_deviations(k3_tab, want_tab))
+    tag = tail_of(dispersion)
+    if tag is not None:
+        wrongs = TAIL_BWD_WRONGS[tag][st.x.dtype == torch.float64]
+    else:
+        wrongs = ["v_w dropped"] + (
+            ["other order"] if CAN_SEE_ORDER[st.x.dtype, False] else []) + (
+            ["other dispersion"] if dispersion in OTHER_MODE else [])
+    parts = ("state", "tables") if tables else ("state",)
     for how in wrongs:
-        w_st, w_tab = step_vjp(eq, st, ct, method, k, how, True, dispersion)
-        row[how] = {"state": max(relative_deviations(w_st, want_st)),
-                    "tables": max(relative_deviations(w_tab, want_tab))}
-    row["fail"] = [part for part in ("state", "tables")
+        w_st, w_tab = step_vjp(eq, st, ct, method, k, how, tables,
+                               dispersion, dt)
+        row[how] = {"state": max(relative_deviations(w_st, want_st))}
+        if tables:
+            row[how]["tables"] = max(relative_deviations(w_tab, want_tab))
+    row["fail"] = [part for part in parts
                    if not row[part] <= tol[part]] + [
-        f"{how} {part}" for how in wrongs for part in ("state", "tables")
+        f"{how} {part}" for how in wrongs for part in parts
         if not row[how][part] >= SEPARATION * tol[part]]
     return row
 
@@ -987,8 +1068,9 @@ def phase_bwd_vs_plain(device, n=4099):
         raise AssertionError(f"backward kernels vs plain: {failed}")
 
 
-#: The O and X modes the window kernels implement beside cold plasma.
-MODES = {"omode": ordinary_wave, "xmode": extra_ordinary_wave}
+#: The O and X modes the window kernels implement beside cold plasma
+#: (codes 1 and 2 of efit_step.KERNEL_TAILS), by their tags.
+MODES = {t.tag: t.dispersion for t in efit_step.KERNEL_TAILS[1:3]}
 
 
 def phase_modes_vs_plain(device, n=4099):
@@ -1017,6 +1099,117 @@ def phase_modes_vs_plain(device, n=4099):
     failed = {key: row for key, row in rows.items() if row["fail"]}
     if failed:
         raise AssertionError(f"O/X kernels vs plain: {failed}")
+
+
+# -- the other eight tails of the window kernels (phases 3c and 4e) ----------
+# Each dispersion of the kernels beside cold plasma and the two modes
+# (codes 3-10 of efit_step.KERNEL_TAILS), by the tag of its sources
+# (csrc/efit_window_<tag>.cu) and of count_ops' keys, in the order users
+# trace them through a tokamak.
+TAILS = {t.tag: t.dispersion for t in efit_step.KERNEL_TAILS[3:]}
+# Each tail's launch on the synthetic map: launch()'s keywords, the k
+# component init_k solves (None: the state as launched, D not zero) and
+# the substep dt, chosen so that every ray stays finite - and, where the
+# tail reads the map, on the table - for 1000 substeps:
+#   expansion  phase 19's launch: kx has a root near -400 /m;
+#   bohm       ky solved near 3.9e3 /m: k_par lies along the toroidal B
+#              (y at the launch), so kx barely moves it;
+#   light      phase 19's launch: kx near -395 /m;
+#   ioncyc     a fixed state with k ~ 1e-2 /m: D = wce - kperp^2 vs^2 - w^2
+#              has no real root (wce < 0: the electron's charge, as the
+#              reference writes it), and vs^2 ~ 3e9 (the ion temperature
+#              of the reference's ni = te quirk, ti ~ ne) moves the rays at
+#              some 6e4 c, so dt is 1e-9;
+#   acoustic   ky solved near 9e-3 /m, kx 0: the same vs^2, the same dt;
+#   simple     phase 19's launch;
+#   gwell      x = 0.3 m, inside the well exp(-(x^2 + y^2) / 0.1) and off
+#              the map (the tail reads no table);
+#   stiff      w = 1, x = 0.9 m, kx solved near 1e-2: dkx/dt = 1e3 kx, so
+#              dt 1e-5 keeps kx below e^10 its start over 1000 substeps,
+#              and rk2/rk4 stable (1e3 dt = 0.01).
+TAIL_LAUNCH = {
+    "expansion": ({}, "kx", DT), "bohm": (dict(ky=4000.0, ky_spread=100.0),
+                                          "ky", DT),
+    "light": ({}, "kx", DT),
+    "ioncyc": (dict(kx=0.01, ky=0.005, ky_spread=0.001), None, 1.0e-9),
+    "acoustic": (dict(kx=0.0, ky=0.01, ky_spread=0.001), "ky", 1.0e-9),
+    "simple": ({}, "kx", DT), "gwell": (dict(x=0.3), "kx", DT),
+    "stiff": (dict(w=1.0, x=0.9, kx=0.01, ky=0.0, ky_spread=0.0), "kx",
+              1.0e-5)}
+
+
+# The wrong kernels phase 3c holds each tail's kernels apart from, where
+# the dtype shows them (the separations read on the plain versions on the
+# CPU, 1024 rays, one recorded step).  K1: rays that stood still (every
+# tail, both dtypes: at least 2.4e-4 of the position's scale, ioncyc's and
+# acoustic's at dt 1e-9), the low words dropped (compensated), stiff's
+# stages that keep t (f64: 4.9e-7), and in f64 the other Runge-Kutta order
+# except for simple, whose straight rays rk2 and rk4 advance alike (read
+# 6.3e-20), and bohm, whose RHS varies too little over a window (3.9e-16).
+# K2/K3, as (f32, f64): "v_w dropped" shows where D_w depends on the state
+# beyond w (expansion 2.8e-3, gwell 2.7e-3; simple 7.3e-6, f64 only); where
+# D_w = -2w it moves w's cotangent alone (bohm 4.0e-5, light 2.3e-6,
+# ioncyc 1.5e-6 in f32), and a backward that passes the cotangent through
+# unchanged shows instead (1.5e-2 to 6.4e-2 over a window; 1 for tables;
+# simple's window is the identity within 2e-6); "other order" in f64
+# except for simple (2.9e-15); stiff's "stages keep t" in f64 (5.6e-7).
+# Table parts are held apart only where the tail reads the map.
+TAIL_K1_ORDER_BLIND = ("simple", "bohm")
+# The compensated K1's deviation is the rounding of the substeps'
+# increments, so it scales with how far a substep moves a leaf against
+# its scale: 3.2e-5 for cold plasma at its launch (TOL's readings), 3.1e-4
+# for gwell, 1.0e-2 for stiff (dkx/dt = 1e3 kx at dt 1e-5; the CPU, 512
+# rays, one rk2 substep).  Stiff's compensated limits are therefore their
+# own, about 4x above the card's readings (NVIDIA H100 80GB HBM3, 700.00
+# W, phase 3c at 4099 rays: f32 2.39e-9 rk2, 2.05e-9 rk4; f64 4.46e-18,
+# 3.18e-18) and SEPARATION below the low words dropped (f32 2.08e-7, f64
+# 3.30e-16); every other tail is held to TOL.
+TAIL_TOL = {("stiff", torch.float32, True): 1.0e-8,
+            ("stiff", torch.float64, True): 2.0e-17}
+TAIL_BWD_WRONGS = {
+    "expansion": (["v_w dropped"], ["v_w dropped", "other order"]),
+    "simple": ([], ["v_w dropped", "passed through"]),
+    "gwell": (["v_w dropped"], ["v_w dropped", "other order"]),
+    "stiff": (["passed through"],
+              ["passed through", "stages keep t", "other order"])}
+for _tag in ("bohm", "light", "ioncyc", "acoustic"):
+    TAIL_BWD_WRONGS[_tag] = (["passed through"],
+                             ["passed through", "other order"])
+
+
+def tail_of(dispersion):
+    """The TAILS tag of ``dispersion``, or None (cold plasma, a mode)."""
+    return next((t for t, d in TAILS.items() if d is dispersion), None)
+
+
+def tail_launch(tag, n, eq, seed=SEED):
+    """(launch state of ``tag``'s TAIL_LAUNCH over the synthetic map ``eq``,
+    in its dtype and on its device; its dt): n rays, the k component solved
+    by init_k where the launch names one."""
+    options, solve, dt = TAIL_LAUNCH[tag]
+    like = eq.psi_coeffs
+    state = launch(n, like.dtype, like.device, seed=seed, **options)
+    if solve is not None:
+        state = init_k(state, TAILS[tag], eq, solve)
+    return RayState(*[leaf.detach().contiguous() for leaf in state]), dt
+
+
+def reads_map(dispersion):
+    """Whether the window kernels of ``dispersion`` read the map's tables
+    (its rays must stay on the table) or not (simple, gaussian_well,
+    stiff: their rays may leave it)."""
+    return dispersion not in efit_step.TABLE_FREE
+
+
+def frozen_stage_t():
+    """A context in which the plain version's Runge-Kutta stages keep the
+    substep's t (ops/integrators.py _shift with no dt_shift): the wrong
+    window a kernel would run whose stages do not advance t, which only
+    stiff's D can tell apart."""
+    shift = integrators._shift
+    return mock.patch.object(
+        integrators, "_shift",
+        lambda state, d, f, dt_shift: shift(state, d, f, 0.0))
 
 
 def upper_hybrid_gap(eq, state):
@@ -1117,6 +1310,179 @@ def phase_modes_main(device, n=100_000, steps=1000, steps_grad=100,
             raise AssertionError(f"{mode} gradients: launches {counts}, "
                                  f"{counts_tab}; finite {finite}, {tab_ok}")
         out[mode] = (eq, st, launches, counts[1], counts_tab[2])
+    return out
+
+
+def phase_tails_vs_plain(device, n=4099):
+    """Phase 3c: each of the other eight tails' K1 (all eight variants,
+    K = 10) and K2/K3 (f32 and f64, rk2 and rk4, K = 10) against their
+    plain versions over one recorded step from the tail's own launch and
+    step (TAIL_LAUNCH), under the limits of phases 3 and 3a, each with its
+    separation from the tail's wrong kernels (TAIL_K1_ORDER_BLIND,
+    TAIL_BWD_WRONGS)."""
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        eq = synthetic_equilibrium(dtype, device)
+        for tag, disp in TAILS.items():
+            st, dt = tail_launch(tag, n, eq, seed=SEED + 1)
+            for method in ("rk2", "rk4"):
+                for comp in (False, True):
+                    rows[f"K1 {tag} {str(dtype)[6:]}/{method}/"
+                         f"{'comp' if comp else 'plain'}"] = check_window(
+                        eq, st, method, FREEZE_EVERY, comp, disp, dt)
+                rows[f"K2/K3 {tag} {str(dtype)[6:]}/{method}"] = \
+                    check_window_bwd(eq, st, method, FREEZE_EVERY,
+                                     SEED + 2, disp, dt)
+    print(f"[3c the other eight tails: K1, K2/K3 vs plain, {n} rays, 1 "
+          f"recorded step, K={FREEZE_EVERY}] worst relative deviations "
+          f"against their limits, and what a wrong kernel would show: "
+          f"{json.dumps(rows)}")
+    failed = {key: row for key, row in rows.items() if row["fail"]}
+    if failed:
+        raise AssertionError(f"tail kernels vs plain: {failed}")
+
+
+# Phase 4e: each tail's compensated f32 run through K1 against f64 from the
+# same root may lie TAIL_GAP_FACTOR times as far from it as the plain
+# version's compensated f32 run does (the first TAIL_GAP_RAYS rays over
+# TAIL_GAP_STEPS recorded steps; the plain version is too slow for the
+# whole run): the tails' D differ too much in their conditioning (acoustic
+# _wave's D is a difference of nearly equal terms, stiff's kx grows as
+# e^(1e3 t)) for cold plasma's GAP_TOL to fit them, so each is held to
+# its own plain version's f32 rounding, as K4_REFEREE_FACTOR holds K4.
+# Both gaps are the position's and k's (ray_gap), 1e-10 to 5e-8 here; the
+# kernel's source built on the host (tools/count_ops.host_library, 1024
+# rays) read 0.83 (light) to 2.64 (expansion) times the plain version's:
+# rounding in another order, with reciprocals.  A kernel with a wrong term
+# lies orders of magnitude further (phase 3c).  The whole run's gap (all
+# rays, every step) is held to the same factor of the plain version's
+# subset gap grown in proportion to the steps, as rounding that adds up in
+# one direction grows (NVIDIA H100 80GB HBM3, 700.00 W, phase 4e: the
+# whole-run gaps read 0.51 (ioncyc) to 2.43 (gwell) times that).
+TAIL_GAP_FACTOR = 5.0
+TAIL_GAP_RAYS, TAIL_GAP_STEPS = 4099, 20
+
+
+def ray_gap(a, b):
+    """The largest relative deviation of the position and wave-vector
+    leaves (leaf_errors): t's is the f32 rounding of dt alone (2.5e-8 at dt
+    1e-4) and w does not move, so they would hide the rays' own gap."""
+    errors = leaf_errors(a, b)
+    return max(errors[f] for f in RayState._fields[2:])
+
+
+def tail_solver(eq, dispersion, dt, *, compensated=True,
+                window_kernel=True):
+    """production_solver for a tail's dispersion and step."""
+    return Solver(dispersion, eq, method="rk2", dt=dt,
+                  sub_steps=SUB_STEPS, frozen_cells=True,
+                  freeze_every=FREEZE_EVERY, compensated=compensated,
+                  window_kernel=window_kernel)
+
+
+def phase_tails_main(device, n=100_000, steps=100, steps_long=1000,
+                     steps_grad=100, steps_tab=10, check_launches=True):
+    """Phase 4e: the other eight tails at full width - n rays x steps x
+    SUB_STEPS compensated f32 rk2 K = 10 through K1 (cold_plasma_expansion,
+    which users trace for ECRH, steps_long) from each tail's launch - then
+    f64 plain through K1 from the same root (the endpoint gap, and
+    TAIL_GAP_FACTOR against the plain version's f32 gap), and gradients:
+    fwd+bwd through K1 and K2 (the expansion steps_grad recorded steps,
+    the others one) and, where the tail reads the map, table gradients
+    through K3 (steps_tab, one; the others' tables take none).
+    ``check_launches``: hold the launch counts (a rehearsal on the CPU,
+    where the wrappers launch nothing, does not).  Returns {tag: (eq,
+    launch state, dt, K1, K2, K3 launches (None: no K3))}."""
+    out = {}
+    windows = SUB_STEPS // FREEZE_EVERY
+    eq = synthetic_equilibrium(torch.float32, device)
+    eq64 = synthetic_equilibrium(torch.float64, device)
+    for tag, disp in TAILS.items():
+        long = tag == "expansion"
+        k1_steps = steps_long if long else steps
+        (st, dt), init_s = timed(lambda: tail_launch(tag, n, eq),
+                                 pick=lambda o: o[0])
+        reset_launch_counts()
+        (final, carry), secs = timed(
+            lambda: tail_solver(eq, disp, dt).run(st, k1_steps,
+                                                  return_carry=True),
+            pick=lambda o: o[0])
+        launches = efit_step.efit_window_launches
+        finite = all(bool(torch.isfinite(leaf).all()) for leaf in final)
+        frac = (float(in_domain(final, eq).double().mean())
+                if reads_map(disp) else None)
+        same = RayState(*[leaf.double() for leaf in st])
+        final64 = tail_solver(eq64, disp, dt, compensated=False).run(
+            same, k1_steps)
+        gap = ray_gap(comp_state_f64(carry), final64)
+        sub = RayState(*[leaf[:TAIL_GAP_RAYS].contiguous() for leaf in st])
+        ref = tail_solver(eq64, disp, dt, compensated=False).run(
+            RayState(*[leaf.double() for leaf in sub]), TAIL_GAP_STEPS)
+        gaps = {}
+        for name, kernel in (("kernel", True), ("plain", False)):
+            _, c = tail_solver(eq, disp, dt, window_kernel=kernel).run(
+                sub, TAIL_GAP_STEPS, return_carry=True)
+            gaps[name] = ray_gap(comp_state_f64(c), ref)
+        rate = n * k1_steps * SUB_STEPS / secs
+        gap_limit = (TAIL_GAP_FACTOR * gaps["plain"]
+                     * max(k1_steps, TAIL_GAP_STEPS) / TAIL_GAP_STEPS)
+        print(f"[4e {tag} main f32 compensated] {n} rays x {k1_steps} x "
+              f"{SUB_STEPS}, dt {dt}: init {init_s:.3f} s, run {secs:.3f} s "
+              f"= {rate:.6e} ray-steps/s; {launches} K1 launches; finite "
+              f"{finite}; in table {frac}; largest relative gap of the "
+              f"position and k to f64 from the same root {gap:.3e} (limit "
+              f"{gap_limit:.3e}); over {TAIL_GAP_STEPS} steps of "
+              f"{TAIL_GAP_RAYS} rays the kernel's gap {gaps['kernel']:.3e} "
+              f"and the plain version's {gaps['plain']:.3e} (factor limit "
+              f"{TAIL_GAP_FACTOR})")
+        if ((check_launches and launches != k1_steps * windows)
+                or not finite
+                or frac not in (None, 1.0)
+                or not gaps["kernel"] <= TAIL_GAP_FACTOR * gaps["plain"]
+                or not gap <= gap_limit):
+            raise AssertionError(
+                f"{tag} main path: {launches} K1 launches (expected "
+                f"{k1_steps * windows}), finite {finite}, in table {frac}, "
+                f"gaps {gaps}, whole run {gap} (limit {gap_limit})")
+
+        g_steps, t_steps = (steps_grad, steps_tab) if long else (1, 1)
+        sol = tail_solver(eq, disp, dt, compensated=False)
+        leaves = [leaf.detach().clone().requires_grad_(True) for leaf in st]
+        reset_launch_counts()
+        (_, grads), secs = timed(lambda: _loss_and_grads(
+            lambda: sol.run(RayState(*leaves), g_steps), leaves),
+            pick=lambda o: RayState(*o[1]))
+        counts = launch_counts()
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        tab_text, counts_tab, tab_ok = "the tables take none", None, True
+        if reads_map(disp):
+            psi = eq.psi_coeffs.clone().requires_grad_(True)
+            prof = eq.profile_coeffs.clone().requires_grad_(True)
+            eqt = dataclasses.replace(eq, psi_coeffs=psi,
+                                      profile_coeffs=prof)
+            reset_launch_counts()
+            _, tab_grads = _loss_and_grads(
+                lambda: tail_solver(eqt, disp, dt, compensated=False).run(
+                    st, t_steps), [psi, prof])
+            counts_tab = launch_counts()
+            tab_ok = all(bool(torch.isfinite(g).all())
+                         and float(g.abs().max()) > 0 for g in tab_grads)
+            tab_text = (f"table gradients over {t_steps} steps: launches "
+                        f"{counts_tab}, finite and nonzero {tab_ok}")
+        print(f"[4e {tag} fwd+bwd f32 rk2] {n} rays x {g_steps} x "
+              f"{SUB_STEPS}: {secs:.3f} s = "
+              f"{n * g_steps * SUB_STEPS / secs:.6e} fwd+bwd ray-steps/s "
+              f"(first pass); launches K1/K2/K3 {counts}; finite {finite}; "
+              f"{tab_text}")
+        if (check_launches and (
+                counts != (g_steps * windows, g_steps * windows, 0)
+                or counts_tab not in (None, (t_steps * windows, 0,
+                                             t_steps * windows)))
+                or not (finite and tab_ok)):
+            raise AssertionError(f"{tag} gradients: launches {counts}, "
+                                 f"{counts_tab}; finite {finite}, {tab_ok}")
+        out[tag] = (eq, st, dt, launches, counts[1],
+                    counts_tab and counts_tab[2])
     return out
 
 
@@ -1472,46 +1838,56 @@ def phase_plain_timing(eq, state, kernel_rate, steps=2):
           f" x{kernel_rate / rate:.1f})")
 
 
-def kernel_record(eq, state, launches, mode=""):
+#: Every dispersion of the window kernels but cold plasma, by its tag.
+KERNEL_TAGS = {**MODES, **TAILS}
+
+
+def kernel_record(eq, state, launches, mode="", dt=DT, busy=True):
     """The kernel line of K1 for the dispersion of ``mode`` ("": cold
-    plasma, or a key of MODES): kernel vs plain on one main-path window
-    (100k rays, f32 compensated rk2, K = 10), error and milliseconds of
-    each."""
-    disp = MODES.get(mode, cold_plasma)
+    plasma, or a key of KERNEL_TAGS) at its step ``dt``: kernel vs plain on
+    one main-path window (100k rays, f32 compensated rk2, K = 10), error
+    and milliseconds of each; with ``busy``, also the kernel's busy share
+    of 50 recorded steps of Solver.run."""
+    disp = KERNEL_TAGS.get(mode, cold_plasma)
     tag = f" {mode}" if mode else ""
     carry = init_comp_carry(state)
-    kern = run_windows(eq, carry, "rk2", FREEZE_EVERY, True, True, disp)
-    plain = run_windows(eq, carry, "rk2", FREEZE_EVERY, True, False, disp)
+    kern = run_windows(eq, carry, "rk2", FREEZE_EVERY, True, True, disp, dt)
+    plain = run_windows(eq, carry, "rk2", FREEZE_EVERY, True, False, disp,
+                        dt)
     err = max(d for f, d in leaf_deviations(kern, plain).items()
               if f not in ("t", "w"))
     rel = max(leaf_errors(kern, plain).values())
-    if not rel <= TOL[torch.float32, True]:
+    if not rel <= TAIL_TOL.get((mode, torch.float32, True),
+                               TOL[torch.float32, True]):
         raise AssertionError(f"main-path window{tag}: kernel vs plain {rel}")
 
     def kern_call():
-        return efit_step.efit_window(eq, carry, method="rk2", dt=DT,
+        return efit_step.efit_window(eq, carry, method="rk2", dt=dt,
                                      steps=FREEZE_EVERY, compensated=True,
                                      dispersion=disp)
 
     def plain_call():
         return efit_step.frozen_window(eq, disp, carry, method="rk2",
-                                       dt=DT, steps=FREEZE_EVERY,
+                                       dt=dt, steps=FREEZE_EVERY,
                                        compensated=True)
 
     ms = event_ms(kern_call, 20)
     plain_ms = event_ms(plain_call, 3)
     kernel_ms, _, _ = profile_kernel(
         lambda: [kern_call() for _ in range(20)])
-    sol = production_solver(eq, dispersion=disp)
-    launch_ms, seen, wall_ms = profile_kernel(lambda: sol.run(state, 50))
-    busy_ms = None if launch_ms is None else launch_ms * seen
-    share = None if busy_ms is None else busy_ms / wall_ms
+    share_text = ""
+    if busy:
+        sol = production_solver(eq, dispersion=disp)
+        launch_ms, seen, wall_ms = profile_kernel(lambda: sol.run(state, 50))
+        busy_ms = None if launch_ms is None else launch_ms * seen
+        share = None if busy_ms is None else busy_ms / wall_ms
+        share_text = (f"; over 50 recorded steps of Solver.run the kernel "
+                      f"is busy {busy_ms} of {wall_ms:.3f} device ms (share "
+                      f"{share})")
     print(f"[7{tag} kernel time] {state.x.shape[0]} rays, f32 compensated "
           f"rk2 K=10: {ms:.4f} ms per window call (CUDA events, wrapper "
           f"included); kernel on the device {kernel_ms} ms (profiler); "
-          f"plain version {plain_ms:.4f} ms per window; over 50 "
-          f"recorded steps of Solver.run the kernel is busy {busy_ms} of "
-          f"{wall_ms:.3f} device ms (share {share})")
+          f"plain version {plain_ms:.4f} ms per window{share_text}")
     b_ms, b_by, basis = window_bound(eq, state.x.shape[0],
                                      f"K1{tag} rk2 comp")
     print(f"[7 efit_window{tag} bound] {b_ms:.4f} ms, by {b_by} ({basis})")
@@ -1525,22 +1901,25 @@ def kernel_record(eq, state, launches, mode=""):
             "library_ms": None}
 
 
-def bwd_kernel_records(eq, state, launches, launches_tab, mode=""):
+def bwd_kernel_records(eq, state, launches, launches_tab, mode="",
+                       dt=DT):
     """The K2 and K3 lines (phase d) for the dispersion of ``mode`` (as
-    kernel_record): each backward kernel against its plain version on one
-    main-path window (100k rays, f32 plain rk2, K = 10, seeded
-    cotangents): absolute error and milliseconds, by CUDA events per
-    wrapper call and by the profiler on the device."""
+    kernel_record; no K3 line for a tail that reads no table): each
+    backward kernel against its plain version on one main-path window
+    (100k rays, f32 plain rk2, K = 10, seeded cotangents), held to
+    BWD_TOL as phase 3a holds them: absolute error and milliseconds, by
+    CUDA events per wrapper call and by the profiler on the device."""
     ct = random_cotangent(state, SEED + 4)
     tag = f" {mode}" if mode else ""
-    kw = dict(method="rk2", dt=DT, steps=FREEZE_EVERY,
-              dispersion=MODES.get(mode, cold_plasma))
+    disp = KERNEL_TAGS.get(mode, cold_plasma)
+    kw = dict(method="rk2", dt=dt, steps=FREEZE_EVERY, dispersion=disp)
+    tol = BWD_TOL[state.x.dtype]
     records = []
     for tables, name, line, count, plain in (
             (False, "efit_window_bwd", 260, launches,
              efit_step.frozen_window_vjp),
             (True, "efit_window_bwd_tab", 318, launches_tab,
-             efit_step.frozen_window_vjp_blocks)):
+             efit_step.frozen_window_vjp_blocks))[:1 + reads_map(disp)]:
         def kern_call():
             return efit_step.efit_window_vjp(eq, state, ct, tables=tables,
                                              **kw)
@@ -1550,13 +1929,19 @@ def bwd_kernel_records(eq, state, launches, launches_tab, mode=""):
 
         got, want = kern_call(), plain_call()
         pairs = list(zip(got.state, want if not tables else want.state))
+        dev = {"state": max(relative_deviations(*zip(*pairs)))}
         if tables:
-            pairs += [(got.psi_block, want.psi_block),
+            blocks = [(got.psi_block, want.psi_block),
                       (got.prof_block, want.prof_block)]
+            dev["tables"] = max(relative_deviations(*zip(*blocks)))
+            pairs += blocks
             if not (torch.equal(got.psi_cell, want.psi_cell)
                     and torch.equal(got.prof_cell, want.prof_cell)):
                 raise AssertionError(f"{name}: cells differ from the "
                                      f"plain version's")
+        if not all(dev[part] <= tol[part] for part in dev):
+            raise AssertionError(f"main-path window {name}{tag}: kernel vs "
+                                 f"plain {dev}, limits {tol}")
         err = max(float((a.double() - b.double()).abs().max())
                   for a, b in pairs)
         ms = event_ms(kern_call, 10)
@@ -1578,7 +1963,8 @@ def bwd_kernel_records(eq, state, launches, launches_tab, mode=""):
               f"events, wrapper included); kernel on the device "
               f"{kernel_ms} ms (profiler); plain version "
               f"(autograd of frozen_window) {plain_ms:.4f} ms; max abs "
-              f"error {err:.3e}{scatter}")
+              f"error {err:.3e}; relative deviations {dev} (limits "
+              f"{tol}){scatter}")
         b_ms, b_by, basis = window_bound(
             eq, state.x.shape[0], f"{'K3' if tables else 'K2'}{tag} rk2")
         print(f"[7 {name}{tag} bound] {b_ms:.4f} ms, by {b_by} ({basis})")
@@ -1652,7 +2038,18 @@ PIC_TOL = 1.0e-5
 WINDOW_OPS = {"K1 rk2 comp": 8812, "K2 rk2": 22892, "K3 rk2": 26212,
               "K1 omode rk2 comp": 6252, "K2 omode rk2": 15172,
               "K3 omode rk2": 18172, "K1 xmode rk2 comp": 6712,
-              "K2 xmode rk2": 16552, "K3 xmode rk2": 19552}
+              "K2 xmode rk2": 16552, "K3 xmode rk2": 19552,
+              "K1 expansion rk2 comp": 8332, "K2 expansion rk2": 21212,
+              "K3 expansion rk2": 24212, "K1 bohm rk2 comp": 6152,
+              "K2 bohm rk2": 14352, "K3 bohm rk2": 17672,
+              "K1 light rk2 comp": 5152, "K2 light rk2": 11252,
+              "K3 light rk2": 14252, "K1 ioncyc rk2 comp": 7112,
+              "K2 ioncyc rk2": 17032, "K3 ioncyc rk2": 20672,
+              "K1 acoustic rk2 comp": 6752, "K2 acoustic rk2": 15932,
+              "K3 acoustic rk2": 19572, "K1 simple rk2 comp": 1260,
+              "K2 simple rk2": 2210, "K1 gwell rk2 comp": 1440,
+              "K2 gwell rk2": 2790, "K1 stiff rk2 comp": 1050,
+              "K2 stiff rk2": 1400}
 # Peak rates of one H100 SXM (NVIDIA's data sheet): f32 and f64 outside the
 # tensor cores, and the HBM rate.  bound_ms is the larger of ops / peak and
 # bytes / rate.
@@ -1670,15 +2067,19 @@ def bound(ops, nbytes, dtype):
 
 def window_bound(eq, n, kernel):
     """One f32 window of ``kernel`` (a key of WINDOW_OPS: "K1 rk2 comp",
-    "K2 omode rk2", ...) over n rays: WINDOW_OPS a ray; the bytes of the
-    state leaves in and out (16 + 16 compensated for K1; 8 in, 8
-    cotangents in and 8 out for K2; and K3's 32 block cotangents and 2
-    cell rows a ray), and the two tables read once.  Returns (bound_ms,
+    "K2 omode rk2", ...; a tail that reads no table has no K3) over n
+    rays: WINDOW_OPS a ray; the bytes of the state leaves in and out (16 +
+    16 compensated for K1; 8 in, 8 cotangents in and 8 out for K2; and
+    K3's 32 block cotangents and 2 cell rows a ray), and the two tables
+    read once (none for a tail that reads no table).  Returns (bound_ms,
     bound_by, both sides as text)."""
     size = 4
     per_ray = {"K1": 32 * size, "K2": 24 * size,
                "K3": 56 * size + 16}[kernel[:2]]
+    tag = kernel.split()[1]
     tables = size * (eq.psi_coeffs.numel() + eq.profile_coeffs.numel())
+    if tag in TAILS and not reads_map(TAILS[tag]):
+        tables = 0
     ops, nbytes = WINDOW_OPS[kernel] * n, per_ray * n + tables
     return (*bound(ops, nbytes, torch.float32),
             f"{WINDOW_OPS[kernel]} operations a ray and window: "
@@ -2546,14 +2947,19 @@ def state_of_row(store, i, dtype, device):
                       for n in absorption.STATE_NAMES])
 
 
-def phase_xrays(device, n=100_000, check_launches=True, options=()):
+def phase_xrays(device, n=100_000, check_launches=True, options=(),
+                with_absorption=True, label="19"):
     """Phase 19: the xrays pipeline at full width through the CLI's phase
     function; then the root finder over the first ROOT_FIND_ROWS rows.
     ``options``: more CLI options (a rehearsal on the CPU names the
-    production stack's)."""
+    production stack's; phase 19d the dispersion); without
+    ``with_absorption`` the trace alone (phase 1), checked as phase 19
+    checks it, with no weak damping, kamp or root finder."""
     args = xrays.resolve_stack(xrays_args(
-        n, "--absorption_model=weak_damping", f"--device={device}",
-        *options), device)
+        n, *(["--absorption_model=weak_damping"] if with_absorption
+             else []),
+        f"--device={device}", *options), device)
+    disp = DISPERSIONS[args.dispersion]
     stack = (args.solver, args.frozen_cells, args.freeze_every,
              args.compensated, args.window_kernel, args.x64)
     if check_launches and stack != ("rk2", True, 10, True, True, False):
@@ -2569,14 +2975,14 @@ def phase_xrays(device, n=100_000, check_launches=True, options=()):
     windows = PIPELINE_ROWS * args.sub_steps // args.freeze_every
     warm_up = args.sub_steps // args.freeze_every
     if check_launches and launches != windows + warm_up:
-        raise AssertionError(f"phase 19: {launches} K1 launches, expected "
-                             f"{windows} + {warm_up}")
+        raise AssertionError(f"phase {label}: {launches} K1 launches, "
+                             f"expected {windows} + {warm_up}")
 
     # the trace's last row against Solver.trace_segmented from the same
     # launch state (same kernels, same inputs: bit for bit); where phase
     # 1's time goes: the same trace without the writer, without the
     # residual, and the recorded steps alone (Solver.run)
-    res = residual_fn(cold_plasma, eq)
+    res = residual_fn(disp, eq)
 
     def seconds(fn):
         sync(device)
@@ -2608,6 +3014,21 @@ def phase_xrays(device, n=100_000, check_launches=True, options=()):
     inside = bool(((r >= eq.rmin) & (r <= eq.rmin + eq.dr * nr)
                    & (xyz[2] >= eq.zmin)
                    & (xyz[2] <= eq.zmin + eq.dz * nz)).all())
+    t = run.timings
+    trace_text = (
+        f"{n} rays x {PIPELINE_ROWS} rows x {args.sub_steps} steps, "
+        f"{args.dispersion}, synthetic EFIT, production stack {stack}, into "
+        f"MemoryStore (the card has no h5py: no file written), "
+        f"{store.nbytes() / 1e9:.3f} GB of host rows; timings "
+        f"{json.dumps(t)}; wall {wall:.3f} s; {launches} K1 launches; last "
+        f"row equals trace_segmented bit for bit: {same}; all rows finite "
+        f"{finite}, in the psi grid {inside}")
+    if not with_absorption:
+        print(f"[{label} xrays CLI] {trace_text}; phase 1's seconds by what "
+              f"it does: {json.dumps(phase1)}")
+        if not (same and finite and inside):
+            raise AssertionError(f"phase {label}: the trace's checks failed")
+        return {"launches": launches, "timings": t}
     kamp = store.stack("kamp")
     power = store.stack("power")
 
@@ -2622,14 +3043,7 @@ def phase_xrays(device, n=100_000, check_launches=True, options=()):
             want = torch.where(ok, want, torch.zeros_like(want)).numpy()
             kamp_dev = max(kamp_dev, float(np.abs(kamp[i] - want).max()
                                            / np.abs(want).max()))
-    t = run.timings
-    print(f"[19 xrays CLI] {n} rays x {PIPELINE_ROWS} rows x "
-          f"{args.sub_steps} steps, cold plasma, synthetic EFIT, "
-          f"production stack {stack}, into MemoryStore (the card has no "
-          f"h5py: no file written), {store.nbytes() / 1e9:.3f} GB of host "
-          f"rows; timings {json.dumps(t)}; wall {wall:.3f} s; {launches} "
-          f"K1 launches; last row equals trace_segmented bit for bit: "
-          f"{same}; all rows finite {finite}, in the psi grid {inside}; "
+    print(f"[19 xrays CLI] {trace_text}; "
           f"kamp finite {bool(np.isfinite(kamp).all())}, zero (scrubbed or "
           f"undamped) {int((kamp == 0).sum())}, max |Im kamp| "
           f"{float(np.abs(kamp.imag).max()):.6e}; kamp rows {KAMP_ROWS} "
@@ -2951,6 +3365,7 @@ def main():
     phase_kernel_vs_plain(device)
     phase_bwd_vs_plain(device)
     phase_modes_vs_plain(device)
+    phase_tails_vs_plain(device)
     out, eq32, st32 = phase_main(device)
     counts, counts_tab = phase_grad_main(device)
     phase_grad_fd(device)
@@ -2962,6 +3377,9 @@ def main():
     for mode, (eq, st, k1, k2, k3) in phase_modes_main(device).items():
         records.append(kernel_record(eq, st, k1, mode))
         records += bwd_kernel_records(eq, st, k2, k3, mode)
+    for tag, (eq, st, dt, k1, k2, k3) in phase_tails_main(device).items():
+        records.append(kernel_record(eq, st, k1, tag, dt, busy=False))
+        records += bwd_kernel_records(eq, st, k2, k3, tag, dt)
     del eq, st
     phase_slab_vs_plain(device)
     slab = phase_slab_push(device)
@@ -2974,12 +3392,17 @@ def main():
     records += vmec_kernel_records(phase_vmec_main(device))
     phase_referee(device)
     pipeline = phase_xrays(device)
+    expansion = phase_xrays(
+        device, options=("--dispersion=cold_plasma_expansion",),
+        with_absorption=False, label="19d")
     phase_xrays_damped(device)
     pic_cli = phase_cli_extras(device)
     phase_special(device)
     for record in records:
         if record["name"] == "efit_window":
             record["launches_xrays_cli"] = pipeline["launches"]
+        if record["name"] == "efit_window expansion":
+            record["launches_xrays_cli"] = expansion["launches"]
         if record["name"] == "deposit":
             record["launches_xpic_cli"] = pic_cli
     print(json.dumps({"kernels": records}))

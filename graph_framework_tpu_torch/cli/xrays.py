@@ -20,8 +20,8 @@ package:
 
 ``--device`` (default ``cuda``) picks the torch device: the card unless
 ``--device=cpu`` is given; there is no fallback to the CPU.  On the card,
-an EFIT run with no stack options takes the production stack when the
-dispersion is one the window kernel implements (:func:`resolve_stack`).
+an EFIT run with no stack options takes the production stack, for every
+dispersion of ``--dispersion`` (:func:`resolve_stack`).
 ``--window_kernel`` runs each freeze window as one launch of the CUDA
 window kernel (the JAX package's ``--pallas_window``).  Not carried
 over: ``--pallas_block_rows`` and the ray padding (the kernel masks a
@@ -142,10 +142,11 @@ def resolve_stack(args, device):
     2, 1) dividing sub_steps, compensated, the window kernel, f32 - is
     taken on a CUDA device over EFIT when no integrator or stack option
     was given and the dispersion is one the window kernel implements
-    (``kernels.efit_step.KERNEL_DISPERSIONS``).  Otherwise the
-    reference's defaults hold: rk4 in f64.  An explicit
-    ``--window_kernel`` with a dispersion the kernel does not implement
-    raises ValueError, on every device."""
+    (``kernels.efit_step.KERNEL_DISPERSIONS``: every dispersion of
+    DISPERSION_CHOICES).  Otherwise the reference's defaults hold: rk4 in
+    f64.  An explicit ``--window_kernel`` with a dispersion the kernel
+    does not implement (a hot plasma) raises ValueError, on every
+    device."""
     from graph_framework_tpu_torch.kernels.efit_step import (
         KERNEL_DISPERSIONS, kernel_dispersion_code)
     from graph_framework_tpu_torch.models.dispersion import DISPERSIONS

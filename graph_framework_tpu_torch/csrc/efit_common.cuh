@@ -7,9 +7,9 @@
 // kx, ky, kz) - by ray_grad, the forward-mode gradient the host test holds
 // the hand-written one to.  Every kernel (K1, K2, K3) takes D's gradient by
 // the reverse sweep written by hand for its dispersion (efit_adjoint.cuh:
-// cold plasma in cold_plasma_D's operation order, the O and X modes in
-// their plain versions'), on T or on Dual<T, 1>; the stepping templates
-// live there too.
+// cold plasma in cold_plasma_D's operation order, the other ten real
+// dispersions in their plain versions'), on T or on Dual<T, 1>; the
+// stepping templates live there too.
 //
 // Dual is generic in its tangent count and mixes with plain T coefficients
 // (scalar_t<S>).  Only templates and inline functions live here: every .cu
@@ -38,6 +38,8 @@ __device__ __forceinline__ float gsqrt(float a) { return sqrtf(a); }
 __device__ __forceinline__ double gsqrt(double a) { return sqrt(a); }
 __device__ __forceinline__ float recip(float a) { return 1.0f / a; }
 __device__ __forceinline__ double recip(double a) { return 1.0 / a; }
+__device__ __forceinline__ float gexp(float a) { return expf(a); }
+__device__ __forceinline__ double gexp(double a) { return exp(a); }
 __device__ __forceinline__ float gmax(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double gmax(double a, double b) { return fmax(a, b); }
 __device__ __forceinline__ float gmin(float a, float b) { return fminf(a, b); }
@@ -70,6 +72,34 @@ struct ScalarOf<Dual<T, N>> {
 };
 template <typename S>
 using scalar_t = typename ScalarOf<S>::type;
+
+// the value of a scalar S, and a constant of type S (no tangent)
+template <typename S>
+struct Lift {
+  static __device__ __forceinline__ S of(S v) { return v; }
+  static __device__ __forceinline__ S value(const S& a) { return a; }
+};
+template <typename T, int N>
+struct Lift<Dual<T, N>> {
+  static __device__ __forceinline__ Dual<T, N> of(T v) {
+    Dual<T, N> r;
+    r.v = v;
+#pragma unroll
+    for (int i = 0; i < N; ++i) r.d[i] = T(0);
+    return r;
+  }
+  static __device__ __forceinline__ T value(const Dual<T, N>& a) {
+    return a.v;
+  }
+};
+template <typename S>
+__device__ __forceinline__ S lift(scalar_t<S> v) {
+  return Lift<S>::of(v);
+}
+template <typename S>
+__device__ __forceinline__ scalar_t<S> value_of(const S& a) {
+  return Lift<S>::value(a);
+}
 
 // a variable: value v, tangent k seeded with 1
 template <typename T, int N>
@@ -203,6 +233,15 @@ __device__ __forceinline__ Dual<T, N> operator/(const Dual<T, N>& a,
 }
 
 template <typename T, int N>
+__device__ __forceinline__ Dual<T, N> gexp(const Dual<T, N>& a) {
+  Dual<T, N> r;
+  r.v = gexp(a.v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * r.v;
+  return r;
+}
+
+template <typename T, int N>
 __device__ __forceinline__ Dual<T, N> gsqrt(const Dual<T, N>& a) {
   Dual<T, N> r;
   r.v = gsqrt(a.v);
@@ -244,6 +283,11 @@ struct Params {
   // electrons (charge -q) and the one ion species (deuterium, charge +q)
   T kpe, kce, kpi, kci;
   T dt, half, sixth;   // dt, dt/2, dt/6, each rounded once from double
+  // the pressure profile's scale; 2q/(me c^2) (bohm_gross's vth^2 per te),
+  // q/(mi c^2) and 3q/(mi c^2) (the sound speed's te and ti factors,
+  // acoustic_wave and ion_cyclotron), folded in double as the plain
+  // versions fold them
+  T pres_scale, kvt, kvs, kvs3;
   int nr, nz, npsi;
 };
 
@@ -382,10 +426,15 @@ __device__ __forceinline__ void ray_grad(const T s[8], const Frozen<T>& f,
 }
 
 // state + h * derivs on the six integrated leaves (ops/integrators.py
-// _shift; t does not enter D)
-template <typename T>
+// _shift).  With USES_T (a dispersion whose D reads t: stiff) t advances by
+// h as well, as the plain version's stages do; every other D ignores t, and
+// the stage keeps it.
+template <bool USES_T = false, typename T>
 __device__ __forceinline__ void shift(const T s[8], const T d[6], T h, T o[8]) {
-  o[ST_T] = s[ST_T];
+  if constexpr (USES_T)
+    o[ST_T] = s[ST_T] + h;
+  else
+    o[ST_T] = s[ST_T];
   o[ST_W] = s[ST_W];
 #pragma unroll
   for (int j = 0; j < 6; ++j) o[ST_X + j] = s[ST_X + j] + h * d[j];
@@ -447,6 +496,10 @@ Params<T> make_params(const double* a, int nr, int nz, int npsi) {
   p.dt = T(a[12]);
   p.half = T(a[12] / 2.0);
   p.sixth = T(a[12] / 6.0);
+  p.pres_scale = T(a[13]);
+  p.kvt = T(a[14]);
+  p.kvs = T(a[15]);
+  p.kvs3 = T(a[16]);
   p.nr = nr;
   p.nz = nz;
   p.npsi = npsi;

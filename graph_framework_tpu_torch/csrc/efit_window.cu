@@ -1,6 +1,6 @@
 // K1's C interface and its cold-plasma instantiations (the kernel template is
-// in efit_window.cuh; the O and X modes' instantiations in
-// efit_window_omode.cu and efit_window_xmode.cu).
+// in efit_window.cuh; every other dispersion's instantiations in
+// efit_window_<tail>.cu).
 
 #include "efit_window.cuh"
 
@@ -16,12 +16,13 @@ template int launch<ColdPlasma, double>(GFT_WINDOW_LAUNCH_ARGS);
 // ---------------------------------------------------------------------------
 
 // Advance n rays through one freeze window of `steps` substeps.
-//   dtype: 0 = float, 1 = double;  disp: the dispersion, 0 = cold_plasma,
-//     1 = ordinary_wave, 2 = extra_ordinary_wave;  method: 2 = rk2, 4 = rk4;
+//   dtype: 0 = float, 1 = double;  disp: the dispersion's code
+//     (GFT_DISPERSIONS, efit_adjoint.cuh);  method: 2 = rk2, 4 = rk4;
 //   compensated: 0/1 (8 or 16 state arrays in state_in/state_out, in the
 //     order t w x y z kx ky kz, then the 8 low words);
 //   psi: (nr*nz, 16) cell-major bicubic table; prof: (npsi, 16) profiles;
-//   params: rmin dr zmin dz psimin dpsi ne_scale te_scale kpe kce kpi kci dt.
+//   params: rmin dr zmin dz psimin dpsi ne_scale te_scale kpe kce kpi kci dt
+//     pres_scale kvt kvs kvs3 (efit_common.cuh Params).
 // Launches on `stream` and returns at once: 0, a cudaError_t from the
 // launch, or -1 for an argument the kernel does not take.
 extern "C" int gft_efit_window(int dtype, int disp, int method,
@@ -42,11 +43,15 @@ extern "C" int gft_efit_window(int dtype, int disp, int method,
               : gft::launch<gft::D, double>(method, compensated, steps, n, \
                                             state_in, state_out, psi, nr,  \
                                             nz, prof, npsi, params, st))
-  if (disp == 0) return GFT_LAUNCH(ColdPlasma);
-  if (disp == 1) return GFT_LAUNCH(OrdinaryWave);
-  if (disp == 2) return GFT_LAUNCH(ExtraOrdinaryWave);
+#define GFT_CASE(code, D) \
+  case code:              \
+    return GFT_LAUNCH(D);
+  switch (disp) {
+    GFT_DISPERSIONS(GFT_CASE)
+    default: return gft::kInvalidArgument;
+  }
+#undef GFT_CASE
 #undef GFT_LAUNCH
-  return gft::kInvalidArgument;
 }
 
 extern "C" const char* gft_error_string(int code) {

@@ -1,8 +1,9 @@
 // One freeze window of the EFIT ray trace, written by hand for Hopper
 // (sm_90a): the kernel template of K1 (the C interface and the cold-plasma
-// instantiations are in efit_window.cu, those of the O and X modes in
-// efit_window_omode.cu and efit_window_xmode.cu, so that three nvcc
-// processes compile them side by side).
+// instantiations are in efit_window.cu, those of every other dispersion in
+// efit_window_<tail>.cu - omode, xmode, expansion, bohm, light, ioncyc,
+// acoustic, simple, gwell, stiff - so that eleven nvcc processes compile
+// them side by side).
 //
 // Replaces the TPU kernel graph_framework_tpu/pallas/efit_step.py::
 // _window_kernel (launched by make_frozen_window_step._fwd_impl).  It
@@ -20,26 +21,30 @@
 //     (ops/tables.py semantics), the 16 psi coefficients of cell (i, j)
 //     from the cell-major (nr*nz, 16) table, psi at the base, the psi-cell
 //     index and the 16 profile coefficients from the (npsi, 16) table.  It
-//     then runs all K substeps against those registers.
+//     then runs all K substeps against those registers.  A dispersion that
+//     reads no table (simple, gaussian_well, stiff) skips the gather: its
+//     rays may leave the grid, as the plain version's may.
 //   * The right-hand side is D's gradient by a reverse sweep written by
 //     hand (efit_adjoint<Disp>, efit_adjoint.cuh: the algebra of the
-//     dispersion - models/dispersion.py cold_plasma, ordinary_wave or
-//     extra_ordinary_wave - over models/efit.py FrozenCellEfit, in the
-//     plain version's operation order, then its sweep back from dD = 1),
-//     the same sweep the backward kernels K2 and K3 run
-//     (efit_window_bwd.cuh), through the same stepping templates.  The TPU
-//     kernel traced jax.grad of D instead; CUDA has no autodiff, so each
-//     dispersion the kernel serves has a tail of its own.
+//     dispersion - each of the eleven real ones of models/dispersion.py -
+//     over models/efit.py FrozenCellEfit, in the plain version's operation
+//     order, then its sweep back from dD = 1), the same sweep the backward
+//     kernels K2 and K3 run (efit_window_bwd.cuh), through the same
+//     stepping templates.  The TPU kernel traced jax.grad of D instead;
+//     CUDA has no autodiff, so each dispersion the kernel serves has a tail
+//     of its own.  The stages advance t as the plain version's do, for the
+//     one D that reads it (stiff).
 //
 // What bounds it on this card: arithmetic.  Per ray and window it moves
 // 64 B of state in and out (128 B compensated) in f32 and gathers 128 B of
 // coefficients, which stay in the 50 MB L2 (a 129 x 129 psi table is about
 // 1 MB in f32).  Against that stand 8812 operations a ray and window for
 // cold plasma (rk2, compensated, K = 10; tools/count_ops.py, which also
-// counts the O and X modes: 6252 and 6712), all of which the function
-// needs.  The design before this one evaluated cold_plasma_D on Dual<T, 7>
-// numbers seeded on (w, x, y, z, kx, ky, kz): 44 892 operations a ray and
-// window, five times as many, and the f64 variants spilled.  The sweep
+// counts every other tail: 1050 for stiff to 8332 for the expansion), all
+// of which the function needs.  The design before this one evaluated
+// cold_plasma_D on Dual<T, 7> numbers seeded on (w, x, y, z, kx, ky, kz):
+// 44 892 operations a ray and window, five times as many, and the f64
+// variants spilled.  The sweep
 // divides by reciprocals (1/r, 1/w, 1/|B|, 1/den per species; 1/dr, 1/dz,
 // 1/dpsi once), where the plain version divides.  wgmma and TMA have
 // nothing to do here: there is no matrix product, and the loads are a few
@@ -88,7 +93,7 @@ efit_window_kernel(StatePtrs<T> in, StatePtrs<T> out,
     for (int k = 0; k < 8; ++k) lo[k] = in.p[8 + k][i];
   }
 
-  const Frozen<T> f = freeze(s, psi_tab, prof_tab, p);
+  const Frozen<T> f = freeze_for<Disp>(s, psi_tab, prof_tab, p);
 
   for (int step = 0; step < steps; ++step) {
     if (COMP) {
@@ -153,12 +158,11 @@ int launch(int method, int compensated, int steps, long long n,
       int npsi, const double *params, cudaStream_t stream
 
 // each dispersion's instantiations are compiled in a source of their own
-extern template int launch<ColdPlasma, float>(GFT_WINDOW_LAUNCH_ARGS);
-extern template int launch<ColdPlasma, double>(GFT_WINDOW_LAUNCH_ARGS);
-extern template int launch<OrdinaryWave, float>(GFT_WINDOW_LAUNCH_ARGS);
-extern template int launch<OrdinaryWave, double>(GFT_WINDOW_LAUNCH_ARGS);
-extern template int launch<ExtraOrdinaryWave, float>(GFT_WINDOW_LAUNCH_ARGS);
-extern template int launch<ExtraOrdinaryWave, double>(GFT_WINDOW_LAUNCH_ARGS);
+#define GFT_EXTERN_WINDOW(code, D)                              \
+  extern template int launch<D, float>(GFT_WINDOW_LAUNCH_ARGS); \
+  extern template int launch<D, double>(GFT_WINDOW_LAUNCH_ARGS);
+GFT_DISPERSIONS(GFT_EXTERN_WINDOW)
+#undef GFT_EXTERN_WINDOW
 
 }  // namespace gft
 

@@ -1,11 +1,12 @@
-// The C interface of the window backward and the cold-plasma K2's float
-// instantiation (kernels in efit_window_bwd.cuh).
+// The C interface of the window backward and cold plasma's K2 and K3
+// instantiations, f32 and f64 (kernels in efit_window_bwd.cuh; every other
+// dispersion's in efit_window_bwd_<tag>.cu).
 
 #include "efit_window_bwd.cuh"
 
 namespace gft {
 
-template int launch_bwd<ColdPlasma, float, false>(const BwdArgs&);
+template int launch_bwd_of<ColdPlasma>(int, bool, const BwdArgs&);
 
 }  // namespace gft
 
@@ -23,7 +24,8 @@ template int launch_bwd<ColdPlasma, float, false>(const BwdArgs&);
 //   dpsi, dprof: null for K2; for K3 two (16, n) arrays (coefficient-major)
 //     that receive each ray's psi- and profile-block cotangents, and cell,
 //     pcell two (n,) int64 arrays that receive the table rows of its blocks
-//     (all four null, or none).
+//     (all four null, or none; none for a dispersion that reads no table,
+//     which has no K3).
 // Launches on `stream` and returns at once: 0, a cudaError_t from the
 // launch, or -1 for an argument the kernel does not take.
 extern "C" int gft_efit_window_bwd(int dtype, int disp, int method,
@@ -44,14 +46,12 @@ extern "C" int gft_efit_window_bwd(int dtype, int disp, int method,
                        nz, prof, npsi, params, dpsi, dprof, cell, pcell,
                        static_cast<cudaStream_t>(stream)};
   const bool tab = given == 4;
-#define GFT_LAUNCH_BWD(D)                                               \
-  (dtype == 0 ? (tab ? gft::launch_bwd<gft::D, float, true>(a)          \
-                     : gft::launch_bwd<gft::D, float, false>(a))        \
-              : (tab ? gft::launch_bwd<gft::D, double, true>(a)         \
-                     : gft::launch_bwd<gft::D, double, false>(a)))
-  if (disp == 0) return GFT_LAUNCH_BWD(ColdPlasma);
-  if (disp == 1) return GFT_LAUNCH_BWD(OrdinaryWave);
-  if (disp == 2) return GFT_LAUNCH_BWD(ExtraOrdinaryWave);
-#undef GFT_LAUNCH_BWD
-  return gft::kInvalidArgument;
+#define GFT_CASE(code, D) \
+  case code:              \
+    return gft::launch_bwd_of<gft::D>(dtype, tab, a);
+  switch (disp) {
+    GFT_DISPERSIONS(GFT_CASE)
+    default: return gft::kInvalidArgument;
+  }
+#undef GFT_CASE
 }

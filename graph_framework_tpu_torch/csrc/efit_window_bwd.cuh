@@ -1,6 +1,6 @@
 // The backward of one freeze window of the EFIT ray trace, written by hand
 // for Hopper (sm_90a): two kernels from one template, for each dispersion
-// the window kernel K1 serves (ColdPlasma, OrdinaryWave, ExtraOrdinaryWave:
+// the window kernel K1 serves (the eleven real dispersions' tails of
 // efit_adjoint.cuh).
 //
 // K2 replaces graph_framework_tpu/pallas/efit_step.py::_window_bwd_kernel
@@ -32,22 +32,26 @@
 //        reverse, the hand-written reverse sweep of D (efit_adjoint<Disp>,
 //        efit_adjoint.cuh) run once on Dual<T, 1> with the inputs'
 //        tangents seeded with v.
-//        t's cotangent passes through unchanged; w is not integrated but D
+//        t's cotangent passes through unchanged, and where D reads t
+//        (stiff, whose stages advance t) it also collects H v's t part,
+//        the tangent of D's partial over t; w is not integrated but D
 //        depends on it, so it collects H v's w part.
-//   3. K3 also needs the six quantities through which D depends on the
+//   3. K3 also needs the seven quantities through which D depends on the
 //      blocks (the bicubic value and its u, v derivatives; the ne, te, fpol
-//      profile values; te's is zero for the O and X modes, whose D does not
-//      read it): the same sweep gives their adjoints B = dD/dq and,
-//      as their tangents, A = the derivative of B along v.  Each quantity
-//      is linear in its block with weights W = u^a v^b (and their u, v
-//      derivatives) or up^k, so a coefficient's cotangent is A W + B (dW
-//      along v).
+//      and pressure profile values, each zero where D does not read it):
+//      the same sweep gives their adjoints B = dD/dq and, as their
+//      tangents, A = the derivative of B along v.  Each quantity is linear
+//      in its block with weights W = u^a v^b (and their u, v derivatives)
+//      or up^k, so a coefficient's cotangent is A W + B (dW along v).  A
+//      dispersion that reads no table (simple, gaussian_well, stiff) skips
+//      the gather and the shared blocks, and has no K3: its tables take no
+//      gradient (launch_bwd_of refuses its table outputs).
 //
 // What bounds it on this card: arithmetic.  Per ray and window it moves
 // 128 B of state and cotangent in and 64 B out (plus 256 B of block
 // cotangents for K3) in f32.  For cold plasma the function needs 22 892
 // operations (K3 26 212) at K = 10, rk2, each once (tools/count_ops.py,
-// which counts the O and X modes too); this source
+// which counts every other tail too); this source
 // does 38 065 (K3 41 385), because it takes each stage's gradient of D
 // three times: in the forward sweep, again in substep_vjp, and as the
 // value part of the Dual<T, 1> sweep.  Storing them would cost registers
@@ -76,11 +80,14 @@
 // to autograd of the plain window.  tests/test_torch_efit_bwd_host.py runs
 // this source on the host, against the plain versions.
 //
-// Build: each launch_bwd<Disp, T, TAB> is instantiated in a source of its
-// own (efit_window_bwd.cu: cold-plasma K2 float, with the C interface;
-// efit_window_bwd_f64.cu, efit_window_bwd_tab.cu,
-// efit_window_bwd_tab_f64.cu; efit_window_bwd_{omode,xmode}{,_f64,_tab,
-// _tab_f64}.cu), so that twelve nvcc processes compile them side by side.
+// Build: each dispersion's launch_bwd_of<Disp> - its K2 and, where it
+// reads the map, its K3, f32 and f64 - is instantiated in a source of its
+// own (efit_window_bwd.cu: cold plasma's, with the C interface;
+// efit_window_bwd_<tag>.cu for the other ten), so that eleven nvcc
+// processes compile them side by side, beside K1's eleven.  A source
+// an instantiation (44) took the card's build from 22 s to 50 s: each nvcc
+// costs 2-6 CPU seconds, and 59 of them finished together after 33-49 s,
+// with 3.4 of the 8 cores busy.
 
 #pragma once
 
@@ -111,13 +118,15 @@ __device__ __forceinline__ T prof_coef(const SharedBlocks<T>& f, int k) {
 
 // The VJP at one stage point s (8 leaves) with the partials g and the RHS
 // F there, for the cotangent c on F: adds H v to acc[7] (w, x, y, z, kx,
-// ky, kz) and, with TAB, the block cotangents to dpsi[16] and dprof[16].
+// ky, kz) and, where D reads t, its t part to acc_t, and, with TAB, the
+// block cotangents to dpsi[16] and dprof[16].
 template <typename Disp, typename T, bool TAB>
 __device__ __forceinline__ void stage_vjp(const T s[8], const T g[7],
                                           const T F[6], const T c[6],
                                           const SharedBlocks<T>& f,
                                           const Params<T>& p, T acc[7],
-                                          T dpsi[16], T dprof[16]) {
+                                          T& acc_t, T dpsi[16],
+                                          T dprof[16]) {
   using D1 = Dual<T, 1>;
 
   const T inv = T(1) / g[0];
@@ -133,16 +142,21 @@ __device__ __forceinline__ void stage_vjp(const T s[8], const T g[7],
   }
 
   // forward over reverse: the adjoint sweep on one tangent seeded with dir
-  D1 st[7], gv[7], bv[6], uvp[3];
+  // (t's tangent is 0: the RHS does not depend on D's partial over t)
+  D1 st[7], gv[7], gt, bv[7], uvp[3];
   const int from[7] = {ST_W, ST_X, ST_Y, ST_Z, ST_KX, ST_KY, ST_KZ};
 #pragma unroll
   for (int q = 0; q < 7; ++q) {
     st[q].v = s[from[q]];
     st[q].d[0] = dir[q];
   }
-  efit_adjoint<Disp>(st, f, p, gv, bv, uvp);
+  D1 tt;
+  tt.v = s[ST_T];
+  tt.d[0] = T(0);
+  efit_adjoint<Disp>(st, tt, f, p, gv, &gt, bv, uvp);
 #pragma unroll
   for (int q = 0; q < 7; ++q) acc[q] += gv[q].d[0];
+  if constexpr (Disp::kUsesT) acc_t += gt.d[0];
 
   if constexpr (TAB) {
     // Coefficient (a, b) of the psi block weighs val by P = u^a v^b,
@@ -155,9 +169,9 @@ __device__ __forceinline__ void stage_vjp(const T s[8], const T g[7],
     // Written out power by power, with no product by a constant 0 or 1.
     const T u = uvp[0].v, v = uvp[1].v, up = uvp[2].v;
     const T du = uvp[0].d[0], dv = uvp[1].d[0], dup = uvp[2].d[0];
-    T A[6], B[6];
+    T A[7], B[7];
 #pragma unroll
-    for (int m = 0; m < 6; ++m) {
+    for (int m = 0; m < 7; ++m) {
       A[m] = bv[m].d[0];
       B[m] = bv[m].v;
     }
@@ -179,13 +193,14 @@ __device__ __forceinline__ void stage_vjp(const T s[8], const T g[7],
       dpsi[a * 4 + 3] += X[a] * (v2 * v) + T(3) * (Y[a] * v2) +
                          T(6) * (Z[a] * v);
     }
-    // profile rows ne, te, fpol (pressure does not enter D; te not the O
-    // and X modes' D, whose row stays zero): weights up^k
+    // profile rows ne, te, fpol and pressure (b[3..6]; te's and the
+    // pressure's rows stay zero where D does not read them): weights up^k
     const T up2 = up * up;
-    const int row[3] = {0, 1, 3};
+    const int row[4] = {0, 1, 3, 2};
 #pragma unroll
-    for (int m = 0; m < 3; ++m) {
+    for (int m = 0; m < 4; ++m) {
       if (m == 1 && !Disp::kUsesTe) continue;
+      if (m == 3 && !Disp::kUsesPres) continue;
       const T a = A[3 + m], bd = B[3 + m] * dup;
       T* d = dprof + row[m] * 4;
       d[0] += a;
@@ -204,33 +219,34 @@ __device__ __forceinline__ void substep_vjp(const T s[8],
                                             const SharedBlocks<T>& f,
                                             const Params<T>& p, T ct[8],
                                             T dpsi[16], T dprof[16]) {
-  T acc[7];
+  T acc[7], acc_t = T(0);
 #pragma unroll
   for (int q = 0; q < 7; ++q) acc[q] = T(0);
   T g1[7], d1[6], s2[8], g2[7], d2[6], c[6];
+  constexpr bool kT = Disp::kUsesT;
   AdjointGrad<Disp>::grad(s, f, p, g1);
   AdjointGrad<Disp>::rhs(g1, d1);
   if (METHOD == 2) {
     // inc = dt/2 (d1 + d2), d2 = F(s + dt d1)
-    shift(s, d1, p.dt, s2);
+    shift<kT>(s, d1, p.dt, s2);
     AdjointGrad<Disp>::grad(s2, f, p, g2);
     AdjointGrad<Disp>::rhs(g2, d2);
 #pragma unroll
     for (int j = 0; j < 6; ++j) c[j] = p.half * ct[ST_X + j];
-    stage_vjp<Disp, T, TAB>(s2, g2, d2, c, f, p, acc, dpsi, dprof);
+    stage_vjp<Disp, T, TAB>(s2, g2, d2, c, f, p, acc, acc_t, dpsi, dprof);
 #pragma unroll
     for (int j = 0; j < 6; ++j) c[j] = p.half * ct[ST_X + j] + p.dt * acc[1 + j];
   } else {
     // inc = dt/6 (d1 + 2 (d2 + d3) + d4): d2 = F(s + dt/2 d1),
     // d3 = F(s + dt/2 d2), d4 = F(s + dt d3)
     T s3[8], g3[7], d3[6], s4[8], g4[7], d4[6], a[7];
-    shift(s, d1, p.half, s2);
+    shift<kT>(s, d1, p.half, s2);
     AdjointGrad<Disp>::grad(s2, f, p, g2);
     AdjointGrad<Disp>::rhs(g2, d2);
-    shift(s, d2, p.half, s3);
+    shift<kT>(s, d2, p.half, s3);
     AdjointGrad<Disp>::grad(s3, f, p, g3);
     AdjointGrad<Disp>::rhs(g3, d3);
-    shift(s, d3, p.dt, s4);
+    shift<kT>(s, d3, p.dt, s4);
     AdjointGrad<Disp>::grad(s4, f, p, g4);
     AdjointGrad<Disp>::rhs(g4, d4);
     const T third = T(2) * p.sixth;
@@ -238,28 +254,30 @@ __device__ __forceinline__ void substep_vjp(const T s[8],
     for (int q = 0; q < 7; ++q) a[q] = T(0);
 #pragma unroll
     for (int j = 0; j < 6; ++j) c[j] = p.sixth * ct[ST_X + j];
-    stage_vjp<Disp, T, TAB>(s4, g4, d4, c, f, p, a, dpsi, dprof);
+    stage_vjp<Disp, T, TAB>(s4, g4, d4, c, f, p, a, acc_t, dpsi, dprof);
 #pragma unroll
     for (int q = 0; q < 7; ++q) {
       acc[q] += a[q];
       if (q > 0) c[q - 1] = third * ct[ST_X + q - 1] + p.dt * a[q];
       a[q] = T(0);
     }
-    stage_vjp<Disp, T, TAB>(s3, g3, d3, c, f, p, a, dpsi, dprof);
+    stage_vjp<Disp, T, TAB>(s3, g3, d3, c, f, p, a, acc_t, dpsi, dprof);
 #pragma unroll
     for (int q = 0; q < 7; ++q) {
       acc[q] += a[q];
       if (q > 0) c[q - 1] = third * ct[ST_X + q - 1] + p.half * a[q];
       a[q] = T(0);
     }
-    stage_vjp<Disp, T, TAB>(s2, g2, d2, c, f, p, a, dpsi, dprof);
+    stage_vjp<Disp, T, TAB>(s2, g2, d2, c, f, p, a, acc_t, dpsi, dprof);
 #pragma unroll
     for (int q = 0; q < 7; ++q) {
       acc[q] += a[q];
       if (q > 0) c[q - 1] = p.sixth * ct[ST_X + q - 1] + p.half * a[q];
     }
   }
-  stage_vjp<Disp, T, TAB>(s, g1, d1, c, f, p, acc, dpsi, dprof);
+  stage_vjp<Disp, T, TAB>(s, g1, d1, c, f, p, acc, acc_t, dpsi, dprof);
+  // every stage's t is the input's plus a constant
+  if constexpr (kT) ct[ST_T] += acc_t;
   ct[ST_W] += acc[0];
 #pragma unroll
   for (int j = 0; j < 6; ++j) ct[ST_X + j] += acc[1 + j];
@@ -274,24 +292,33 @@ efit_window_bwd_kernel(StatePtrs<T> in, StatePtrs<T> ct_in,
                        T* __restrict__ dprof_out,
                        long long* __restrict__ cell_out,
                        long long* __restrict__ pcell_out) {
+  static_assert(Disp::kReadsEq || !TAB,
+                "a dispersion that reads no table has no block cotangents");
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
   T base[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) base[k] = in.p[k][i];
-  __shared__ T blocks[32][kThreads];
-  const Frozen<T> fz = freeze(base, psi_tab, prof_tab, p);
+  Frozen<T> fz{};
+  const volatile T* col = nullptr;
+  if constexpr (Disp::kReadsEq) {
+    __shared__ T blocks[32][kThreads];
+    fz = freeze(base, psi_tab, prof_tab, p);
 #pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    blocks[k][threadIdx.x] = fz.psi[k];
-    blocks[16 + k][threadIdx.x] = fz.prof[k];
+    for (int k = 0; k < 16; ++k) {
+      blocks[k][threadIdx.x] = fz.psi[k];
+      blocks[16 + k][threadIdx.x] = fz.prof[k];
+    }
+    col = &blocks[0][threadIdx.x];
   }
-  const SharedBlocks<T> f{&blocks[0][threadIdx.x], fz.iu, fz.jv, fz.pidx};
+  const SharedBlocks<T> f{col, fz.iu, fz.jv, fz.pidx};
 
-  // forward sweep: the input of every stride-th substep
+  // forward sweep: the input of every stride-th substep (and its t where
+  // D reads t)
   const int stride = (steps + kSlots - 1) / kSlots;
   T slot[kSlots][6];
+  T slot_t[Disp::kUsesT ? kSlots : 1];
   {
     T s[8];
 #pragma unroll
@@ -300,6 +327,7 @@ efit_window_bwd_kernel(StatePtrs<T> in, StatePtrs<T> ct_in,
       if (k % stride == 0) {
 #pragma unroll
         for (int j = 0; j < 6; ++j) slot[k / stride][j] = s[ST_X + j];
+        if constexpr (Disp::kUsesT) slot_t[k / stride] = s[ST_T];
       }
       if (k + 1 < steps) substep<Disp, T, METHOD>(s, f, p);
     }
@@ -315,7 +343,10 @@ efit_window_bwd_kernel(StatePtrs<T> in, StatePtrs<T> ct_in,
   }
   for (int k = steps - 1; k >= 0; --k) {
     T s[8];
-    s[ST_T] = base[ST_T];
+    if constexpr (Disp::kUsesT)
+      s[ST_T] = slot_t[k / stride];
+    else
+      s[ST_T] = base[ST_T];
     s[ST_W] = base[ST_W];
 #pragma unroll
     for (int j = 0; j < 6; ++j) s[ST_X + j] = slot[k / stride][j];
@@ -386,15 +417,26 @@ int launch_bwd(const BwdArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// each instantiation is compiled in its own source (see Build above)
-#define GFT_EXTERN_BWD(D)                                      \
-  extern template int launch_bwd<D, float, false>(const BwdArgs&);  \
-  extern template int launch_bwd<D, double, false>(const BwdArgs&); \
-  extern template int launch_bwd<D, float, true>(const BwdArgs&);   \
-  extern template int launch_bwd<D, double, true>(const BwdArgs&);
-GFT_EXTERN_BWD(ColdPlasma)
-GFT_EXTERN_BWD(OrdinaryWave)
-GFT_EXTERN_BWD(ExtraOrdinaryWave)
+// K2 (tab false) or K3 of the dispersion Disp, f32 (dtype 0) or f64: a
+// dispersion that reads no table has no K3, and its table outputs are
+// refused (kernels/efit_step.py keeps its tables out of autograd).
+template <typename Disp>
+int launch_bwd_of(int dtype, bool tab, const BwdArgs& a) {
+  if (tab) {
+    if constexpr (Disp::kReadsEq)
+      return dtype == 0 ? launch_bwd<Disp, float, true>(a)
+                        : launch_bwd<Disp, double, true>(a);
+    else
+      return kInvalidArgument;
+  }
+  return dtype == 0 ? launch_bwd<Disp, float, false>(a)
+                    : launch_bwd<Disp, double, false>(a);
+}
+
+// each dispersion's is instantiated in a source of its own (see Build above)
+#define GFT_EXTERN_BWD(code, D) \
+  extern template int launch_bwd_of<D>(int, bool, const BwdArgs&);
+GFT_DISPERSIONS(GFT_EXTERN_BWD)
 #undef GFT_EXTERN_BWD
 
 }  // namespace gft

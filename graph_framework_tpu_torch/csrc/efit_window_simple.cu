@@ -1,0 +1,11 @@
+// K1's instantiations for models/dispersion.py simple; the kernel template
+// is in efit_window.cuh, the C interface in efit_window.cu.
+
+#include "efit_window.cuh"
+
+namespace gft {
+
+template int launch<Simple, float>(GFT_WINDOW_LAUNCH_ARGS);
+template int launch<Simple, double>(GFT_WINDOW_LAUNCH_ARGS);
+
+}  // namespace gft

@@ -16,17 +16,19 @@ compensated TwoSum accumulation.
   :func:`frozen_window`, the second also with the gathered coefficient
   blocks as autograd leaves (their per-ray cotangents).
 * :func:`efit_window` is the wrapper.  The kernels implement the
-  dispersions of :data:`KERNEL_DISPERSIONS` (cold_plasma, ordinary_wave,
-  extra_ordinary_wave: a hand-written reverse sweep of each D, csrc/
-  efit_adjoint.cuh); any other raises, on every device.  For CPU tensors,
-  and only then, the wrapper runs the plain versions with the dispersion.
+  dispersions of :data:`KERNEL_DISPERSIONS`, every real dispersion of
+  ``models.dispersion.DISPERSIONS`` (a hand-written reverse sweep of each
+  D, csrc/efit_adjoint.cuh); the two hot plasmas, which are complex only,
+  raise, on every device.  For CPU tensors, and only then, the wrapper
+  runs the plain versions with the dispersion.
   For CUDA tensors it launches the hand-written kernels
   (``csrc/efit_window*.cu`` forward, ``csrc/efit_window_bwd*.cu``
   backward; built by ``nvcc`` on first use, kernels/build.py) or raises:
   there is no fallback.  When the state or
   the spline tables require grad, the plain window goes through
   :class:`EfitWindow`, whose backward launches K2 or, when a table needs a
-  gradient, K3 and scatters its block cotangents into the tables.  The
+  gradient, K3 and scatters its block cotangents into the tables (the
+  tables of a dispersion that reads none take no gradient).  The
   compensated window is forward-only, as in the JAX package.
   ``efit_window_launches``, ``efit_window_bwd_launches`` and
   ``efit_window_bwd_tab_launches`` count the kernel launches.
@@ -44,7 +46,9 @@ from torch.autograd.function import once_differentiable
 from graph_framework_tpu_torch.constants import (
     C, EPSILON0, ME, Q)
 from graph_framework_tpu_torch.models.dispersion import (
-    cold_plasma, extra_ordinary_wave, ordinary_wave)
+    acoustic_wave, bohm_gross, cold_plasma, cold_plasma_expansion,
+    extra_ordinary_wave, gaussian_well, ion_cyclotron, light_wave,
+    ordinary_wave, simple, stiff)
 from graph_framework_tpu_torch.models.rays import RayState, make_ray_rhs
 from graph_framework_tpu_torch.ops.compensated import (
     CompCarry, compensated_stepper)
@@ -60,23 +64,60 @@ efit_window_bwd_tab_launches = 0
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 _METHOD_CODES = {"rk2": 2, "rk4": 4}
 
-#: The dispersions the window kernels implement, by the code their C
-#: interfaces take (csrc/efit_window.cu, efit_window_bwd.cu: the
-#: dispersion tails ColdPlasma, OrdinaryWave and ExtraOrdinaryWave of
-#: csrc/efit_adjoint.cuh).
-KERNEL_DISPERSIONS = {cold_plasma: 0, ordinary_wave: 1,
-                      extra_ordinary_wave: 2}
+class KernelTail(NamedTuple):
+    """One dispersion of the window kernels: its tail struct in
+    csrc/efit_adjoint.cuh (listed, by code, in that file's
+    GFT_DISPERSIONS), the tag of its instantiation units
+    (csrc/efit_window_<tag>.cu, efit_window_bwd_<tag>.cu; cold plasma's are
+    efit_window.cu and efit_window_bwd.cu) and of tools/count_ops' keys,
+    and whether its D reads the map's tables (the struct's kReadsEq)."""
+    dispersion: object
+    tag: str
+    struct: str
+    reads_map: bool
+
+
+#: The dispersions the window kernels implement - every real dispersion of
+#: models.dispersion.DISPERSIONS - in the order of the code their C
+#: interfaces take (csrc/efit_window.cu, efit_window_bwd.cu).
+KERNEL_TAILS = (
+    KernelTail(cold_plasma, "", "ColdPlasma", True),
+    KernelTail(ordinary_wave, "omode", "OrdinaryWave", True),
+    KernelTail(extra_ordinary_wave, "xmode", "ExtraOrdinaryWave", True),
+    KernelTail(cold_plasma_expansion, "expansion", "ColdPlasmaExpansion",
+               True),
+    KernelTail(bohm_gross, "bohm", "BohmGross", True),
+    KernelTail(light_wave, "light", "LightWave", True),
+    KernelTail(ion_cyclotron, "ioncyc", "IonCyclotron", True),
+    KernelTail(acoustic_wave, "acoustic", "AcousticWave", True),
+    KernelTail(simple, "simple", "Simple", False),
+    KernelTail(gaussian_well, "gwell", "GaussianWell", False),
+    KernelTail(stiff, "stiff", "Stiff", False))
+
+#: Each dispersion of KERNEL_TAILS by its code.
+KERNEL_DISPERSIONS = {t.dispersion: code
+                      for code, t in enumerate(KERNEL_TAILS)}
+
+#: The dispersions whose D reads no table (csrc/efit_adjoint.cuh's analytic
+#: tails): their kernels gather no blocks, and they have no K3 - their
+#: tables take no gradient (efit_window keeps the tables out of the
+#: autograd graph).
+TABLE_FREE = frozenset(t.dispersion for t in KERNEL_TAILS
+                       if not t.reads_map)
 
 
 def kernel_dispersion_code(dispersion) -> int:
     """The kernels' code of ``dispersion``; ValueError for a dispersion
-    they do not implement."""
+    they do not implement: the hot plasmas, which take complex states
+    only (the JAX window kernel's RHS is not holomorphic either), and
+    anything that is not a dispersion of the zoo."""
     code = KERNEL_DISPERSIONS.get(dispersion)
     if code is None:
-        names = ", ".join(d.__name__ for d in KERNEL_DISPERSIONS)
+        name = getattr(dispersion, "__name__", dispersion)
         raise ValueError(
-            f"the window kernel implements {names}, not "
-            f"{getattr(dispersion, '__name__', dispersion)!r}")
+            f"the window kernel implements the real dispersions of "
+            f"models.dispersion.DISPERSIONS, not {name!r}: the hot plasmas "
+            f"are complex only and run on the plain path")
     return code
 
 
@@ -164,18 +205,30 @@ def frozen_window_vjp_blocks(eq, state, ct, *, method, dt, steps,
 
 
 def kernel_params(eq, dt):
-    """The kernel's 13 float parameters (csrc/efit_window.cu
-    gft_efit_window): the grid and profile normalization, the plasma and
-    cyclotron frequency factors folded in double exactly as
-    constants.plasma_frequency_squared / cyclotron_frequency fold them,
-    and dt."""
+    """The kernel's 17 float parameters (csrc/efit_window.cu
+    gft_efit_window, csrc/efit_common.cuh Params): the grid and profile
+    normalization, the plasma and cyclotron frequency factors folded in
+    double exactly as constants.plasma_frequency_squared /
+    cyclotron_frequency fold them (the electron's with its charge -q), dt,
+    the pressure's scale, and the thermal factors of bohm_gross (2q/(me
+    c^2)) and of the sound speed (q/(mi c^2), 3q/(mi c^2)) as
+    models/dispersion.py folds them."""
     mi = eq.ion_masses[0]
     qi = float(eq.ion_charges[0]) * Q
+    c2 = C * C
     return [eq.rmin, eq.dr, eq.zmin, eq.dz, eq.psimin, eq.dpsi,
             eq.ne_scale, eq.te_scale,
             Q * Q / (EPSILON0 * ME * C * C), -Q / (ME * C),
             qi * qi / (EPSILON0 * mi * C * C), qi / (mi * C),
-            float(dt)]
+            float(dt), eq.pres_scale, 2.0 * Q / (ME * c2),
+            Q / (mi * c2), 3.0 * Q / (mi * c2)]
+
+
+def kernel_param_array(eq, dt):
+    """:func:`kernel_params` as the ``const double*`` the C interfaces
+    take."""
+    values = kernel_params(eq, dt)
+    return (ctypes.c_double * len(values))(*values)
 
 
 def _leaves(carry, compensated):
@@ -234,7 +287,7 @@ def _launch(eq, leaves, dispersion, method, dt, steps, compensated):
     if n == 0:
         return outs
     lib = build.load()
-    params = (ctypes.c_double * 13)(*kernel_params(eq, dt))
+    params = kernel_param_array(eq, dt)
     psi, prof = eq.psi_coeffs, eq.profile_coeffs
     with torch.cuda.device(x.device):
         rc = lib.gft_efit_window(
@@ -266,7 +319,7 @@ def _launch_bwd(eq, leaves, cts, dispersion, method, dt, steps, tables):
         cells = torch.empty((2, n), dtype=torch.int64, device=x.device)
     if n:
         lib = build.load()
-        params = (ctypes.c_double * 13)(*kernel_params(eq, dt))
+        params = kernel_param_array(eq, dt)
         psi, prof = eq.psi_coeffs, eq.profile_coeffs
         with torch.cuda.device(x.device):
             rc = lib.gft_efit_window_bwd(
@@ -310,8 +363,14 @@ def efit_window_vjp(eq, state, ct, *, method, dt, steps, tables=False,
 
     CPU tensors run :func:`frozen_window_vjp` (``tables=False``) or
     :func:`frozen_window_vjp_blocks`; CUDA tensors launch K2 or K3 on the
-    current stream.  Anything the kernels do not take raises."""
+    current stream.  Anything the kernels do not take raises, and so does
+    ``tables`` for a dispersion that reads no table (TABLE_FREE), which
+    has no block cotangents and no K3."""
     kernel_dispersion_code(dispersion)
+    if tables and dispersion in TABLE_FREE:
+        raise ValueError(
+            f"{dispersion.__name__} reads no table: it has no block "
+            f"cotangents (call with tables=False)")
     leaves, cts = list(state), [c.contiguous() for c in ct]
     if _device_of(leaves).type == "cpu":
         return _window_vjp(eq, dispersion, RayState(*leaves),
@@ -355,7 +414,8 @@ class EfitWindow(torch.autograd.Function):
     recomputes inside K2 - or K3 when ``psi_table`` or ``prof_table``
     needs a gradient, whose block cotangents are then scattered into the
     tables.  ``eq`` supplies the grid scalars; its tables are replaced by
-    the two passed in.
+    the two passed in (:func:`efit_window` passes them detached for a
+    dispersion that reads no table, TABLE_FREE).
     """
 
     @staticmethod
@@ -397,8 +457,8 @@ def efit_window(eq, carry, *, method, dt, steps, compensated,
                 dispersion=cold_plasma):
     """Advance ``carry`` (RayState, or CompCarry when ``compensated``)
     through one freeze window of ``steps`` substeps of the rays of
-    ``dispersion`` (one of :data:`KERNEL_DISPERSIONS`; any other raises)
-    over the EFIT equilibrium ``eq``.
+    ``dispersion`` (one of :data:`KERNEL_DISPERSIONS`; a hot plasma
+    raises) over the EFIT equilibrium ``eq``.
 
     CPU tensors run :func:`frozen_window`; CUDA tensors launch the kernel
     on the current stream and return new tensors (the kernel allocates
@@ -406,21 +466,27 @@ def efit_window(eq, carry, *, method, dt, steps, compensated,
     and a state leaf or ``eq``'s ``psi_coeffs`` / ``profile_coeffs``
     requires grad, the plain window runs through :class:`EfitWindow` (K1
     forward, K2/K3 backward on CUDA); the compensated window then raises,
-    since it is forward-only.  Anything the kernels do not take raises.
+    since it is forward-only.  The tables of a dispersion that reads no
+    table (TABLE_FREE) stay out of the autograd graph on every device: D
+    does not read them, and they take no gradient.  Anything the kernels
+    do not take raises.
     """
     kernel_dispersion_code(dispersion)
     leaves = _leaves(carry, compensated)
     device = _device_of(leaves)
+    if dispersion in TABLE_FREE:
+        eq = _with_tables(eq, eq.psi_coeffs.detach(),
+                          eq.profile_coeffs.detach())
+    tables = [eq.psi_coeffs, eq.profile_coeffs]
     wants_grad = torch.is_grad_enabled() and any(
-        a.requires_grad for a in leaves + [eq.psi_coeffs, eq.profile_coeffs])
+        a.requires_grad for a in leaves + tables)
     if wants_grad:
         if compensated:
             raise ValueError(
                 "the compensated window is forward-only (as in the JAX "
                 "package): take gradients through compensated=False")
         return RayState(*EfitWindow.apply(eq, dispersion, method, dt, steps,
-                                          eq.psi_coeffs, eq.profile_coeffs,
-                                          *leaves))
+                                          *tables, *leaves))
     if device.type == "cpu":
         return frozen_window(eq, dispersion, carry, method=method, dt=dt,
                              steps=steps, compensated=compensated)

@@ -60,7 +60,11 @@ def _plasma_quantities(x, y, r, psi_r, psi_z, vals, base):
     pres = base.pres_scale * vals[..., 2]
     b = _magnetic_field(x, y, r, psi_r, psi_z, vals[..., 3])
     ni = te                              # ni = te quirk (:1361)
-    ti = (pres - ne * te * Q_ROUNDED) / (ni * Q_ROUNDED)
+    # (pres - ne te q) / (ni q), the reference's ti (:1358), with q divided
+    # out first: ni q is about 3e-16, and autograd's second derivatives
+    # of a quotient by it take its cube, which is below f32's range (NaN
+    # gradients of acoustic_wave and ion_cyclotron in f32)
+    ti = (pres / Q_ROUNDED - ne * te) / ni
     return PlasmaQuantities(b=b, ne=ne, te=te, ni=(ni,), ti=(ti,))
 
 

@@ -24,8 +24,8 @@ The compensated window kernel is forward-only.  The equilibrium may be
 EFIT or VMEC (flux coordinates; frozen cells through its
 ``freeze_cells``, the fused geometry kernel K4 through its
 ``fused_mode_sums``), or an analytic one; the window kernel is EFIT's and
-takes the dispersions it implements (``kernels.efit_step.
-KERNEL_DISPERSIONS``: cold_plasma, ordinary_wave, extra_ordinary_wave).
+takes every real dispersion (``kernels.efit_step.KERNEL_DISPERSIONS``);
+the two hot plasmas, complex only, are refused.
 Not ported: ``remat_policy``, ``block_rays`` and ``pad_rays`` (the kernel
 masks a ragged last block, so the ray count needs no padding), and the
 jit caches of ``make_segment_fn``/``extras_jit``.

@@ -14,8 +14,9 @@ forward-mode dual numbers of the window kernels included - before the
 compiler contracts any pair into an FMA.
 
 Prints one JSON object: operations per ray and window of K substeps for
-the window kernels K1 (rk2/rk4, plain/compensated), K2 and K3 (rk2/rk4),
-for each dispersion they implement (cold plasma, the O and the X mode),
+the window kernels K1 (rk2/rk4, plain/compensated), K2 and K3 (rk2/rk4;
+no K3 for a dispersion that reads no table), for each dispersion they
+implement (the eleven of DISPERSION_LABELS),
 at K = 10 (the main path's freeze window) and per substep.  Each counts
 what the function needs (``_k1_needed``, ``_window_needed``): K1's
 source does just that, K2/K3's repeat the primal work, and the sources'
@@ -50,6 +51,8 @@ import subprocess
 import sys
 import tempfile
 
+from graph_framework_tpu_torch.kernels import efit_step
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 
 #: Substeps per window of the main path (chip_smoke.FREEZE_EVERY).
@@ -57,9 +60,11 @@ WINDOW = 10
 #: Modes of the reference's VMEC file, K4's count's layout (10 runs).
 REFERENCE_MODES = 86
 #: The window kernels' dispersions in the order of their codes
-#: (kernels/efit_step.py KERNEL_DISPERSIONS), as the keys name them: "K1
-#: rk2 comp" is cold plasma's, "K1 omode rk2 comp" the O mode's.
-DISPERSION_LABELS = ("", " omode", " xmode")
+#: (kernels/efit_step.py KERNEL_TAILS), as the keys name them: "K1 rk2
+#: comp" is cold plasma's, "K1 omode rk2 comp" the O mode's.  A dispersion
+#: that reads no table has no K3 and no K3 key.
+DISPERSION_LABELS = tuple(f" {t.tag}" if t.tag else ""
+                          for t in efit_step.KERNEL_TAILS)
 
 _RUNTIME = r"""
 #pragma once
@@ -170,6 +175,7 @@ struct Counted {
   // comparisons count nothing (they are not arithmetic)
   friend bool operator<(Counted a, Counted b) { return a.v < b.v; }
   friend bool operator>=(Counted a, Counted b) { return a.v >= b.v; }
+  friend bool operator==(Counted a, Counted b) { return a.v == b.v; }
   static Counted op(double r, bool tag, int n = 1) {
     (g_split && !tag ? g_untagged_ops : g_ops) += n;
     return Counted(r, tag);
@@ -184,6 +190,7 @@ struct Counted {
   friend Counted gsqrt(Counted a) { return op(std::sqrt(a.v), a.tag); }
   friend Counted bsqrt(Counted a) { return op(std::sqrt(a.v), a.tag); }
   friend Counted dexp(Counted a) { return op(std::exp(a.v), a.tag); }
+  friend Counted gexp(Counted a) { return op(std::exp(a.v), a.tag); }
   friend Counted recip(Counted a) { return op(1.0 / a.v, a.tag); }
   // a reciprocal square root or a reciprocal counts one, as a root does
   friend Counted brsqrt(Counted a) { return op(1.0 / std::sqrt(a.v), a.tag); }
@@ -217,8 +224,9 @@ static long long cells[2];
 
 Params<Counted> params() {
   // a 2 x 2 psi grid and 2 profile cells; the values only need to be finite
-  const double a[13] = {1.0, 1.0, -1.0, 1.0, 0.0, 1.0, 1e18, 1e3,
-                        3.0e-3, -5.0e2, 1.0e-6, 0.3, 1e-4};
+  const double a[17] = {1.0, 1.0, -1.0, 1.0, 0.0, 1.0, 1e18, 1e3,
+                        3.0e-3, -5.0e2, 1.0e-6, 0.3, 1e-4,
+                        1.0, 3.9e-3, 5.3e-10, 1.6e-9};
   for (int k = 0; k < 64; ++k) psi[k] = 0.01 * (k % 7);
   for (int k = 0; k < 32; ++k) prof[k] = 0.1 * (k % 5) + 0.5;
   const double s[8] = {0.0, 500.0, 1.5, 0.1, 0.2, -400.0, 150.0, 10.0};
@@ -232,16 +240,20 @@ StatePtrs<Counted> ptrs(Counted* base) {
   return p;
 }
 
+// K2, or K3 where Disp reads the map (a dispersion that reads no table has
+// no K3: nothing runs)
 template <typename Disp>
 void run_bwd(int method, int tab, int steps, const Params<Counted>& p) {
   if (method == 2 && !tab)
     efit_window_bwd_kernel<Counted, 2, false, Disp>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
-  if (method == 2 && tab)
-    efit_window_bwd_kernel<Counted, 2, true, Disp>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
   if (method == 4 && !tab)
     efit_window_bwd_kernel<Counted, 4, false, Disp>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
-  if (method == 4 && tab)
-    efit_window_bwd_kernel<Counted, 4, true, Disp>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
+  if constexpr (Disp::kReadsEq) {
+    if (method == 2 && tab)
+      efit_window_bwd_kernel<Counted, 2, true, Disp>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
+    if (method == 4 && tab)
+      efit_window_bwd_kernel<Counted, 4, true, Disp>(ptrs(state), ptrs(cts), ptrs(outs), psi, prof, p, steps, 1, blocks, blocks + 16, cells, cells + 1);
+  }
 }
 
 template <typename Disp>
@@ -261,7 +273,7 @@ long long primal(int method, int steps, const Params<Counted>& p) {
   Counted s[8];
   for (int k = 0; k < 8; ++k) s[k] = state[k];
   g_ops = 0;
-  const Frozen<Counted> f = freeze(s, psi, prof, p);
+  const Frozen<Counted> f = freeze_for<Disp>(s, psi, prof, p);
   for (int k = 0; k < steps; ++k) {
     if (method == 2) substep<Disp, Counted, 2>(s, f, p);
     else substep<Disp, Counted, 4>(s, f, p);
@@ -269,12 +281,17 @@ long long primal(int method, int steps, const Params<Counted>& p) {
   return g_ops;
 }
 
-// the dispersion codes of kernels/efit_step.py KERNEL_DISPERSIONS
-#define GFT_BY_DISP(disp, call)                         \
-  do {                                                  \
-    if ((disp) == 0) { using Disp = ColdPlasma; call; } \
-    if ((disp) == 1) { using Disp = OrdinaryWave; call; } \
-    if ((disp) == 2) { using Disp = ExtraOrdinaryWave; call; } \
+// `call` with Disp the tail of the code disp (GFT_DISPERSIONS)
+#define GFT_DISP_IF(code, D) \
+  if (gft_disp == (code)) gft_call(D{});
+#define GFT_BY_DISP(disp, call)                    \
+  do {                                             \
+    const int gft_disp = (disp);                   \
+    auto gft_call = [&](auto tail) {               \
+      using Disp = decltype(tail);                 \
+      call;                                        \
+    };                                             \
+    GFT_DISPERSIONS(GFT_DISP_IF)                   \
   } while (0)
 }  // namespace gft
 
@@ -502,7 +519,8 @@ def count() -> dict:
                      "count_vmec_modes"):
             getattr(lib, name).restype = ctypes.c_longlong
         out = {}
-        for disp, mode in enumerate(DISPERSION_LABELS):
+        for disp, (mode, tail) in enumerate(
+                zip(DISPERSION_LABELS, efit_step.KERNEL_TAILS)):
             for method in (2, 4):
                 for flag, name in enumerate(("plain", "comp")):
                     one, two, per_window = (
@@ -513,7 +531,7 @@ def count() -> dict:
                         "per_ray_substep": two - one,
                         "source_per_ray_window":
                             lib.count_window(disp, 1, method, flag, WINDOW)}
-            for name, tab in (("K2", 0), ("K3", 1)):
+            for name, tab in (("K2", 0), ("K3", 1))[:1 + tail.reads_map]:
                 for method in (2, 4):
                     one, two, per_window = (
                         _window_needed(lib, disp, method, tab, k)

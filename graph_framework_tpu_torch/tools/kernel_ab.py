@@ -8,7 +8,8 @@ unpacked ``git archive`` of an earlier commit, say).  Each tree builds and
 runs its own package, in a subprocess whose working directory is that
 tree, in the order other, this, this, other.  A run measures at the main
 path's shapes: K1 one f32 compensated rk2 window of K = 10 substeps over
-100k rays and over 1M rays of ``chip_smoke.launch`` (kx from ``init_k``);
+100k rays and over 1M rays of ``chip_smoke.launch`` (kx from ``init_k``),
+and the O and X modes' K1 likewise over 100k rays;
 K6 one deposit of 1M particles onto 1000 grid points f32 from
 ``run_pic``'s start (``pic_start``), its device time the sum of all the
 device work of a call (the two trees launch different kernels); K5 one
@@ -18,8 +19,8 @@ modes f32 at the VMEC launch (``chip_smoke.vmec_launch``), and again with
 every ray's s at 0.5 (one radial cell); for each the median device ms of
 the launches in a profiler trace and the CUDA-event ms of a wrapper call
 (``chip_smoke.profile_kernel``, ``device_work``, ``event_ms``), and
-registers and spills of K1's, K4's, K5's and K6's variants from the build's
-ptxas log.  This tree's
+registers and spills of the variants of K1, K2 and K3 of cold plasma and
+the two modes, and of K4, K5 and K6, from the build's ptxas log.  This tree's
 ``chip_smoke.sass_per_item`` then counts each tree's SASS instructions a
 K5 step and a K4 mode.  Prints one JSON line per run.  Needs a CUDA card.
 """
@@ -39,7 +40,8 @@ import json, torch
 import chip_smoke as c
 from graph_framework_tpu_torch.kernels import boris, build, efit_step, vmec_geom
 from graph_framework_tpu_torch.kernels import deposit as k6
-from graph_framework_tpu_torch.models.dispersion import cold_plasma
+from graph_framework_tpu_torch.models.dispersion import (
+    cold_plasma, extra_ordinary_wave, ordinary_wave)
 from graph_framework_tpu_torch.models.korc import (
     ParticleState, initialize_gamma)
 from graph_framework_tpu_torch.models.pic import make_grid, pic_start
@@ -56,6 +58,17 @@ for rays in (100_000, 1_000_000):
         eq, carry, method="rk2", dt=c.DT, steps=c.FREEZE_EVERY,
         compensated=True)
     k1[rays] = dict(
+        ms=c.profile_kernel(lambda: [window() for _ in range(20)])[0],
+        events_ms=c.event_ms(window, 20))
+    del carry
+modes = {}
+for name, disp in (("omode", ordinary_wave), ("xmode", extra_ordinary_wave)):
+    carry = init_comp_carry(init_k(c.launch(100_000, torch.float32, dev),
+                                   disp, eq))
+    window = lambda: efit_step.efit_window(
+        eq, carry, method="rk2", dt=c.DT, steps=c.FREEZE_EVERY,
+        compensated=True, dispersion=disp)
+    modes[name] = dict(
         ms=c.profile_kernel(lambda: [window() for _ in range(20)])[0],
         events_ms=c.event_ms(window, 20))
     del carry
@@ -92,12 +105,16 @@ k4_one_cell = c.profile_kernel(
     lambda: [vmec_geom.geometry_jet(*one_cell, tables) for _ in range(20)],
     kernel=("vmec_geom_kernel",))[0]
 summary = c.ptxas_summary(build.build_log)
+# the variants both trees build: cold plasma's (no tag) and the modes'
+kept = ("f32", "f64", "omode", "xmode", "K2", "K3", "K4", "K5", "K6")
+same = lambda k: (k.split()[0].split("/")[0] in kept
+                  and (k.split()[0] not in ("K2", "K3")
+                       or k.split()[1].split("/")[0] in kept))
 print(json.dumps(dict(
-    library=str(build.library_path()), k1=k1, k6_ms=k6_ms,
+    library=str(build.library_path()), k1=k1, k1_modes=modes, k6_ms=k6_ms,
     k6_events_ms=k6_events, k5_ms=k5, k5_events_ms=k5_events,
     k4_ms=k4, k4_events_ms=k4_events, k4_one_cell_ms=k4_one_cell,
-    ptxas={k: v for k, v in summary.items()
-           if k[:3] in ("f32", "f64", "K4 ", "K5 ", "K6 ")})))
+    ptxas={k: v for k, v in summary.items() if same(k)})))
 """
 
 

@@ -97,6 +97,29 @@ def test_mode_kernels_match_plain_version(device, dtype, compensated,
             assert row["fail"] == [], row
 
 
+@pytest.mark.parametrize("tag", list(chip_smoke.TAILS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_tail_kernels_match_plain_version(device, dtype, tag):
+    """K1 (all four variants) and K2/K3 (K2 alone where the tail reads no
+    table) of the other eight tails against the plain versions from each
+    tail's launch, with the separations of chip_smoke's phase 3c."""
+    eq = chip_smoke.synthetic_equilibrium(dtype, device)
+    st, dt = chip_smoke.tail_launch(tag, 300, eq)
+    disp = chip_smoke.TAILS[tag]
+    for method in ("rk2", "rk4"):
+        for compensated in (False, True):
+            row = chip_smoke.check_window(eq, st, method, 5, compensated,
+                                          disp, dt)
+            assert row["fail"] == [], row
+        chip_smoke.reset_launch_counts()
+        row = chip_smoke.check_window_bwd(eq, st, method, 5, 1, disp, dt)
+        # no K3 where the tail reads no table
+        assert chip_smoke.launch_counts() == (
+            0, 2, 2 if chip_smoke.reads_map(disp) else 0)
+        assert row["fail"] == [], row
+
+
 @pytest.mark.parametrize("dispersion", MODES, ids=lambda d: d.__name__)
 def test_solver_runs_the_modes_through_the_kernels(device, dispersion):
     """Solver(window_kernel=True) with an O- or X-mode dispersion: K1
@@ -295,6 +318,24 @@ def test_xrays_cli_takes_the_production_stack_on_the_card(device):
     assert store.num_steps == 4
     for name in ("x", "kamp", "power"):
         assert torch.isfinite(torch.from_numpy(store.stack(name))).all()
+
+
+def test_xrays_cli_traces_the_expansion_on_the_card(device):
+    """cold_plasma_expansion (ECRH) through the CLI's phase function, no
+    stack options: the production stack and its K1, 1029 rays x 3 rows."""
+    from graph_framework_tpu_torch.cli import xrays
+    args = xrays.resolve_stack(chip_smoke.xrays_args(
+        RAGGED, "--num_times=30", "--endtime=0.003",
+        "--dispersion=cold_plasma_expansion", f"--device={device}"), device)
+    assert (args.solver, args.window_kernel, args.x64) == ("rk2", True,
+                                                           False)
+    files = chip_smoke.MemoryFiles()
+    efit_step.efit_window_launches = 0
+    xrays.run_xrays(args, chip_smoke.synthetic_equilibrium(
+        torch.float32, device), files.open)
+    store = files[args.output]
+    assert efit_step.efit_window_launches == 3 + 1
+    assert torch.isfinite(torch.from_numpy(store.stack("kx"))).all()
 
 
 @pytest.mark.parametrize("name", ["wofz", "erf_complex", "z_plasma"])

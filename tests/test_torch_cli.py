@@ -170,16 +170,21 @@ def _args(*extra):
     return xrays.build_parser().parse_args(list(extra))
 
 
+_PRODUCTION = ("rk2", True, 10, False)
+
+
 @pytest.mark.parametrize("device,dispersion,want", [
-    ("cuda", "cold_plasma", ("rk2", True, 10, False)),
-    ("cuda", "extra_ordinary_wave", ("rk2", True, 10, False)),
-    ("cuda", "bohm_gross", ("rk4", False, 1, True)),
+    ("cuda", "cold_plasma", _PRODUCTION),
+    ("cuda", "extra_ordinary_wave", _PRODUCTION),
+    ("cuda", "bohm_gross", _PRODUCTION),
     ("cpu", "cold_plasma", ("rk4", False, 1, True)),
-])
+] + [("cuda", name, _PRODUCTION) for name in xrays.DISPERSION_CHOICES
+     if name not in ("cold_plasma", "extra_ordinary_wave", "bohm_gross")])
 def test_resolve_stack(device, dispersion, want):
-    """On the card over EFIT, a dispersion the window kernel implements
-    takes the production stack (frozen rk2, freeze_every 10, compensated,
-    window kernel, f32); another dispersion, or the CPU, rk4 in f64."""
+    """On the card over EFIT, every dispersion of --dispersion (each one
+    the window kernel implements) takes the production stack (frozen rk2,
+    freeze_every 10, compensated, window kernel, f32); the CPU rk4 in
+    f64."""
     got = xrays.resolve_stack(
         _args("--equilibrium=efit", f"--dispersion={dispersion}"), device)
     assert (got.solver, got.window_kernel, got.freeze_every,
@@ -208,10 +213,20 @@ def test_resolve_stack_respects_explicit_options():
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 def test_explicit_window_kernel_refuses_other_dispersions(device):
-    with pytest.raises(ValueError, match="window kernel implements"):
-        xrays.resolve_stack(_args(
-            "--equilibrium=efit", "--dispersion=bohm_gross",
-            "--frozen_cells", "--window_kernel"), device)
+    """The window kernel takes every dispersion of --dispersion; the hot
+    plasmas (complex only, not among its choices) are refused where
+    resolve_stack meets them, on every device."""
+    for name in ("hot_plasma", "hot_plasma_expansion"):
+        args = _args("--equilibrium=efit", "--frozen_cells",
+                     "--window_kernel")
+        args.dispersion = name
+        with pytest.raises(ValueError, match="hot plasmas are complex"):
+            xrays.resolve_stack(args, device)
+    for name in xrays.DISPERSION_CHOICES:
+        got = xrays.resolve_stack(_args(
+            "--equilibrium=efit", f"--dispersion={name}", "--frozen_cells",
+            "--window_kernel"), device)
+        assert got.window_kernel, name
 
 
 def _jax_bench(dtype, path, num_rays, num_times, sub_steps):
@@ -302,7 +317,7 @@ def test_xpic_files_match_jax_layout(tmp_path):
 
 
 def test_chip_smoke_pipeline_phases_run_on_the_cpu():
-    """chip_smoke's phases 19, 19b, 19c and 20 at a few rays on the CPU
+    """chip_smoke's phases 19, 19d, 19b, 19c and 20 at a few rays on the CPU
     (the kernels' plain versions; the CLI's stack named explicitly, since
     it takes the production stack on the card only), so that their checks
     are exercised before a chip run: the CLI's phase function into the
@@ -314,6 +329,10 @@ def test_chip_smoke_pipeline_phases_run_on_the_cpu():
     out = chip_smoke.phase_xrays(cpu, n=64, check_launches=False,
                                  options=stack)
     assert out["timings"]["solver"] == "rk2"
+    out = chip_smoke.phase_xrays(
+        cpu, n=64, check_launches=False, with_absorption=False, label="19d",
+        options=stack + ("--dispersion=cold_plasma_expansion",))
+    assert out["timings"]["dispersion"] == "cold_plasma_expansion"
     chip_smoke.phase_xrays_damped(cpu, n=300, check_launches=False,
                                   options=stack)
     assert chip_smoke.phase_cli_extras(cpu, n_float=16, n_complex=8,

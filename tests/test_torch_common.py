@@ -425,6 +425,10 @@ def test_op_counts_match_the_sources():
     ops = counted["ops"]
     for kernel, value in chip_smoke.WINDOW_OPS.items():
         assert ops[kernel]["per_ray_window"] == value, kernel
+    # a bound for every backward kernel there is, and only for those (no
+    # K3 for a tail that reads no table)
+    assert {k for k in ops if k[:2] in ("K2", "K3") and k.endswith("rk2")} \
+        == {k for k in chip_smoke.WINDOW_OPS if k[:2] in ("K2", "K3")}
     assert ops["K5"]["per_particle_step"] == boris.SLAB_PUSH_OPS
     for mode in count_ops.DISPERSION_LABELS:
         for variant in ("rk2 plain", "rk2 comp", "rk4 plain", "rk4 comp"):

@@ -6,21 +6,32 @@ with ``g++`` over the stand-in runtime of ``tools/count_ops.py``, whose
 launch walks every (block, thread) of the grid: the C function
 ``gft_efit_window_bwd`` then runs on CPU tensors exactly as the card runs
 it, FMA contraction aside (``-ffp-contract=off``).  Each of the eight
-variants (rk2/rk4 x f32/f64 x K2/K3) of each dispersion the kernels
-implement (cold plasma, the O and the X mode) runs over 64 rays of
-chip_smoke's launch (kx solved for that dispersion) for one substep, the
+variants (rk2/rk4 x f32/f64 x K2/K3) of each of the eleven dispersions the
+kernels implement runs over 64 rays (cold plasma and the two modes from
+chip_smoke's launch with kx solved for each, the other eight from their
+own launches and steps, ``chip_smoke.TAIL_LAUNCH``) for one substep, the
 main path's window (K = 10) and a window longer than the kernel's stored
 slots (which recomputes from a checkpoint), and is held to
 ``efit_step.frozen_window_vjp`` / ``frozen_window_vjp_blocks`` (autograd
 of the plain window): per state leaf and per block tensor, relative to its
 largest magnitude, f64 within 1e-12 and f32 within ``chip_smoke.BWD_TOL``;
-the block cells equal.  A hand-written adjoint wrong by one term fails
-here, before any card run.
+the block cells equal.  A dispersion that reads no table (simple,
+gaussian_well, stiff) has no K3: the C interface refuses the table outputs
+(-1), the wrapper raises, and the plain version's block cotangents are
+zero.  In f64 each tail beside cold plasma and the two modes also lies
+SEPARATION times its limit from a backward that passes the cotangent
+through unchanged (in f32 the window's Jacobian differs from the identity
+by less than the rounding for some: simple's by 2e-7 a substep), and
+stiff's from the backward of the window whose stages keep t
+(``chip_smoke.frozen_stage_t``).  A hand-written adjoint wrong by one
+term, or a t cotangent that misses D's t partial, fails here, before any
+card run.
 
 Two more cases hold the hand-written gradients of D (``csrc/
 efit_adjoint.cuh``) in f64: cold plasma's to ``ray_grad``'s forward-mode
-gradient, and each dispersion's to autograd of its plain version over the
-same frozen blocks.  Skipped where ``g++`` is missing.
+gradient, and each dispersion's, its partial over t included, to autograd
+of its plain version over the same frozen blocks.  Skipped where ``g++``
+is missing.
 """
 
 import ctypes
@@ -33,7 +44,7 @@ import torch
 import chip_smoke
 from graph_framework_tpu_torch.kernels import build, efit_step
 from graph_framework_tpu_torch.models.dispersion import (
-    cold_plasma, extra_ordinary_wave, ordinary_wave)
+    cold_plasma, extra_ordinary_wave, ordinary_wave, stiff)
 from graph_framework_tpu_torch.models.rays import (
     RayState, dispersion_residual)
 from graph_framework_tpu_torch.solver import init_k
@@ -49,17 +60,31 @@ STEPS = [1, chip_smoke.FREEZE_EVERY, 20]
 F64_TOL = 1.0e-12
 GRAD_TOL = 1.0e-13
 
-DISPERSIONS = [cold_plasma, ordinary_wave, extra_ordinary_wave]
+DISPERSIONS = ([cold_plasma, ordinary_wave, extra_ordinary_wave]
+               + list(chip_smoke.TAILS.values()))
+TAG = {disp: tag for tag, disp in chip_smoke.TAILS.items()}
 
-_SOURCES = [f"efit_window_bwd{mode}{part}.cu"
-            for mode in ("", "_omode", "_xmode")
-            for part in ("", "_f64", "_tab", "_tab_f64")]
+_SOURCES = [f"efit_window_bwd{'_' * bool(t.tag)}{t.tag}.cu"
+            for t in efit_step.KERNEL_TAILS]
 
-# D's gradients at n states, each (n, 7) row-major: the hand-written
-# adjoint of the dispersion `disp` (the one the kernels run) and, for cold
-# plasma, forward mode (ray_grad).
+# D's gradients at n states, each (n, 8) row-major: the hand-written
+# adjoint of the dispersion `disp` (the one the kernels run) over (w, x, y,
+# z, kx, ky, kz) and t (zero where D does not read t) and, for cold
+# plasma, forward mode (ray_grad, t's column zero).
 _GRAD_HARNESS = r"""
 #include "efit_adjoint.cuh"
+namespace gft {
+template <typename Disp>
+void d_grad(const double s[8], const Frozen<double>& f,
+            const Params<double>& p, double g[8]) {
+  const double st[7] = {s[ST_W], s[ST_X], s[ST_Y], s[ST_Z],
+                        s[ST_KX], s[ST_KY], s[ST_KZ]};
+  double b[7], uvp[3];
+  g[7] = 0.0;
+  efit_adjoint<Disp>(st, s[ST_T], f, p, g, g + 7, b, uvp);
+}
+}  // namespace gft
+
 extern "C" void gft_d_grads(int disp, long long n,
                             const double* const* state, const double* psi,
                             int nr, int nz, const double* prof, int npsi,
@@ -71,11 +96,15 @@ extern "C" void gft_d_grads(int disp, long long n,
     double s[8];
     for (int k = 0; k < 8; ++k) s[k] = state[k][i];
     const Frozen<double> f = freeze(s, psi, prof, p);
-    if (disp == 0) AdjointGrad<ColdPlasma>::grad(s, f, p, g_adj + 7 * i);
-    if (disp == 1) AdjointGrad<OrdinaryWave>::grad(s, f, p, g_adj + 7 * i);
-    if (disp == 2)
-      AdjointGrad<ExtraOrdinaryWave>::grad(s, f, p, g_adj + 7 * i);
-    ray_grad(s, f, p, g_fwd + 7 * i);
+    double* g = g_adj + 8 * i;
+#define GFT_CASE(code, D) \
+  case code:              \
+    d_grad<D>(s, f, p, g); \
+    break;
+    switch (disp) { GFT_DISPERSIONS(GFT_CASE) }
+#undef GFT_CASE
+    ray_grad(s, f, p, g_fwd + 8 * i);
+    g_fwd[8 * i + 7] = 0.0;
   }
 }
 """
@@ -83,9 +112,9 @@ extern "C" void gft_d_grads(int disp, long long n,
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    """The host build of the four backward sources and the gradient
-    harness, with ``gft_efit_window_bwd`` typed as kernels/build.py types
-    it."""
+    """The host build of the backward sources (one a dispersion) and the
+    gradient harness, with ``gft_efit_window_bwd`` typed as
+    kernels/build.py types it."""
     units = {f"{name[:-3]}.cpp": f'#include "{name}"\n' for name in _SOURCES}
     units["d_grads.cpp"] = _GRAD_HARNESS
     lib = ctypes.CDLL(str(count_ops.host_library(
@@ -107,30 +136,36 @@ def host_lib(tmp_path_factory):
 @pytest.fixture(scope="module")
 def inputs():
     """{(dtype, dispersion): (equilibrium, launch state, output
-    cotangent)}: 64 rays of chip_smoke's launch, kx solved by init_k for
-    the dispersion, seeded normal cotangents."""
+    cotangent, dt)}: 64 rays of chip_smoke's launch with kx solved by
+    init_k for cold plasma and the two modes, and of each other tail's own
+    launch; seeded normal cotangents."""
     out = {}
     for dtype in (torch.float32, torch.float64):
         eq = chip_smoke.synthetic_equilibrium(dtype, "cpu")
         for disp in DISPERSIONS:
-            st = init_k(chip_smoke.launch(N, dtype, "cpu",
-                                          seed=chip_smoke.SEED + 1),
-                        disp, eq)
+            if disp in TAG:
+                st, dt = chip_smoke.tail_launch(TAG[disp], N, eq,
+                                                seed=chip_smoke.SEED + 1)
+            else:
+                st, dt = init_k(chip_smoke.launch(
+                    N, dtype, "cpu", seed=chip_smoke.SEED + 1), disp,
+                    eq), chip_smoke.DT
             st = RayState(*[leaf.detach().contiguous() for leaf in st])
             out[dtype, disp] = (eq, st, chip_smoke.random_cotangent(
-                st, chip_smoke.SEED + 2))
+                st, chip_smoke.SEED + 2), dt)
     return out
 
 
-def _host_vjp(lib, eq, state, ct, method, steps, tables, disp=cold_plasma):
+def _host_vjp(lib, eq, state, ct, method, steps, tables, disp=cold_plasma,
+              dt=chip_smoke.DT, rc_want=0):
     """``gft_efit_window_bwd`` on CPU tensors: a WindowVjp, as
-    efit_step._launch_bwd returns it on the card."""
+    efit_step._launch_bwd returns it on the card (None where the call
+    returns ``rc_want``, not 0)."""
     x = state.x
     outs = [torch.empty_like(a) for a in state]
     blocks = torch.full((2, 16, N), float("nan"), dtype=x.dtype)
     cells = torch.full((2, N), -1, dtype=torch.int64)
-    params = (ctypes.c_double * 13)(*efit_step.kernel_params(
-        eq, chip_smoke.DT))
+    params = efit_step.kernel_param_array(eq, dt)
     psi, prof = eq.psi_coeffs, eq.profile_coeffs
     extra = ([blocks[0].data_ptr(), blocks[1].data_ptr(),
               cells[0].data_ptr(), cells[1].data_ptr()] if tables
@@ -142,7 +177,9 @@ def _host_vjp(lib, eq, state, ct, method, steps, tables, disp=cold_plasma):
         build.pointers(list(ct)), build.pointers(outs), psi.data_ptr(),
         psi.shape[0], psi.shape[1], prof.data_ptr(), prof.shape[0], params,
         *extra, None)
-    assert rc == 0
+    assert rc == rc_want
+    if rc:
+        return None
     if not tables:
         return efit_step.WindowVjp(RayState(*outs))
     return efit_step.WindowVjp(RayState(*outs), blocks[0].t(), blocks[1].t(),
@@ -159,17 +196,35 @@ def test_kernel_source_matches_plain_version(host_lib, inputs, dtype, method,
                                              steps, kernel, disp):
     """K2 (state cotangent) and K3 (and the block cotangents and cells)
     from their CUDA source against autograd of the plain window."""
-    eq, st, ct = inputs[dtype, disp]
+    eq, st, ct, dt = inputs[dtype, disp]
     tables = kernel == "K3"
-    kw = dict(method=method, dt=chip_smoke.DT, steps=steps)
-    got = _host_vjp(host_lib, eq, st, ct, method, steps, tables, disp)
+    kw = dict(method=method, dt=dt, steps=steps)
     want = efit_step.frozen_window_vjp_blocks(eq, st, ct, dispersion=disp,
                                               **kw)
+    if tables and not chip_smoke.reads_map(disp):
+        # no K3: its tables take no gradient
+        _host_vjp(host_lib, eq, st, ct, method, steps, True, disp, dt,
+                  rc_want=-1)
+        with pytest.raises(ValueError, match="reads no table"):
+            efit_step.efit_window_vjp(eq, st, ct, tables=True,
+                                      dispersion=disp, **kw)
+        assert not (want.psi_block.any() or want.prof_block.any())
+        return
+    got = _host_vjp(host_lib, eq, st, ct, method, steps, tables, disp, dt)
     tol = (chip_smoke.BWD_TOL[dtype] if dtype == torch.float32
            else {"state": F64_TOL, "tables": F64_TOL})
     state_dev = chip_smoke.relative_deviations(got.state, want.state)
     assert max(state_dev) <= tol["state"], dict(zip(RayState._fields,
                                                     state_dev))
+    if disp in TAG and dtype == torch.float64:
+        passed = max(chip_smoke.relative_deviations(ct, want.state))
+        assert passed > chip_smoke.SEPARATION * tol["state"], passed
+    if disp is stiff and dtype == torch.float64:
+        with chip_smoke.frozen_stage_t():
+            held = efit_step.frozen_window_vjp(eq, st, ct, dispersion=disp,
+                                               **kw)
+        wrong = max(chip_smoke.relative_deviations(held, want.state))
+        assert wrong > chip_smoke.SEPARATION * tol["state"], wrong
     if tables:
         block_dev = chip_smoke.relative_deviations(
             [got.psi_block, got.prof_block],
@@ -181,13 +236,12 @@ def test_kernel_source_matches_plain_version(host_lib, inputs, dtype, method,
 
 def _d_grads(lib, eq, state, disp):
     """(hand-written gradient of ``disp``'s D, cold plasma's forward-mode
-    gradient) at ``state``, each (N, 7)."""
-    params = (ctypes.c_double * 13)(*efit_step.kernel_params(
-        eq, chip_smoke.DT))
+    gradient) at ``state``, each (N, 8): (w, x, y, z, kx, ky, kz, t)."""
+    params = efit_step.kernel_param_array(eq, chip_smoke.DT)
     psi, prof = eq.psi_coeffs, eq.profile_coeffs
     leaves = [leaf.detach().contiguous() for leaf in state]
-    g_adj = np.zeros((N, 7))
-    g_fwd = np.zeros((N, 7))
+    g_adj = np.zeros((N, 8))
+    g_fwd = np.zeros((N, 8))
     lib.gft_d_grads(efit_step.kernel_dispersion_code(disp), N,
                     build.pointers(leaves), psi.data_ptr(), psi.shape[0],
                     psi.shape[1], prof.data_ptr(), prof.shape[0], params,
@@ -199,13 +253,14 @@ def test_adjoint_gradient_matches_forward_mode(host_lib, inputs):
     """The hand-written gradient of D, over (w, x, y, z, kx, ky, kz), is
     ray_grad's forward-mode gradient to 1e-13 of each partial's largest
     magnitude (f64, the launch and a state a window later)."""
-    eq, st, _ = inputs[torch.float64, cold_plasma]
+    eq, st, _, _ = inputs[torch.float64, cold_plasma]
     later = efit_step.frozen_window(eq, cold_plasma, st, method="rk2",
                                     dt=chip_smoke.DT,
                                     steps=chip_smoke.FREEZE_EVERY,
                                     compensated=False)
     for state in (st, later):
         g_adj, g_fwd = _d_grads(host_lib, eq, state, cold_plasma)
+        g_adj, g_fwd = g_adj[:, :7], g_fwd[:, :7]
         assert np.isfinite(g_fwd).all() and np.abs(g_fwd).max() > 0
         rel = np.abs(g_adj - g_fwd).max(axis=0) / np.abs(g_fwd).max(axis=0)
         assert rel.max() <= GRAD_TOL, rel
@@ -213,15 +268,20 @@ def test_adjoint_gradient_matches_forward_mode(host_lib, inputs):
 
 @pytest.mark.parametrize("disp", DISPERSIONS, ids=lambda d: d.__name__)
 def test_adjoint_gradient_matches_autograd(host_lib, inputs, disp):
-    """Each dispersion's hand-written gradient of D is autograd's gradient
-    of its plain version over the same frozen blocks, to 1e-13 of each
-    partial's largest magnitude (f64, the launch)."""
-    eq, st, _ = inputs[torch.float64, disp]
+    """Each dispersion's hand-written gradient of D, over (w, x, y, z, kx,
+    ky, kz) and t, is autograd's gradient of its plain version over the
+    same frozen blocks, to 1e-13 of each partial's largest magnitude (f64,
+    the launch; a partial that is zero everywhere must be zero)."""
+    eq, st, _, _ = inputs[torch.float64, disp]
     g_adj, _ = _d_grads(host_lib, eq, st, disp)
     feq = eq.freeze_cells(torch.stack([st.x, st.y, st.z]))
-    leaves = [a.clone().requires_grad_(True) for a in st[1:]]
-    d = dispersion_residual(disp, feq)(st.t, *leaves).sum()
-    want = torch.stack(torch.autograd.grad(d, leaves), dim=1).numpy()
+    leaves = [a.clone().requires_grad_(True) for a in st]
+    d = dispersion_residual(disp, feq)(*leaves).sum()
+    grads = torch.autograd.grad(d, leaves, allow_unused=True)
+    grads = [torch.zeros_like(a) if g is None else g
+             for a, g in zip(leaves, grads)]
+    want = torch.stack(grads[1:] + grads[:1], dim=1).numpy()
     assert np.isfinite(want).all()
-    rel = np.abs(g_adj - want).max(axis=0) / np.abs(want).max(axis=0)
+    scale = np.abs(want).max(axis=0)
+    rel = np.abs(g_adj - want).max(axis=0) / np.where(scale > 0, scale, 1.0)
     assert rel.max() <= GRAD_TOL, rel

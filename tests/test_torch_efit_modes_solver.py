@@ -1,5 +1,6 @@
 """The O- and X-mode window kernels through the Solver, their refusals
-and their gradients, against the JAX package.
+and their gradients, against the JAX package; the other eight tails
+through the Solver; the hot plasmas' refusals.
 
 As tests/test_torch_efit_modes.py (the windows themselves): the plain
 versions on the CPU against the JAX window kernel in interpret mode, 256
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from graph_framework_tpu.models import dispersion as jax_disp
 from graph_framework_tpu.pallas.efit_step import make_frozen_window_step
 from graph_framework_tpu.solver import Solver as JaxSolver
@@ -43,26 +45,49 @@ def test_solver_window_kernel_takes_the_modes(eqs, name):
     assert all(torch.equal(a, b) for a, b in zip(got, same))
 
 
-def test_kernels_refuse_other_dispersions(eqs):
-    """The window kernels implement cold plasma and the two modes only:
-    any other dispersion raises, on the CPU as on the card, with no
-    fallback to the plain version."""
+@pytest.mark.parametrize("entry", ["Solver", "efit_window",
+                                   "efit_window_vjp"])
+@pytest.mark.parametrize("name", ["hot_plasma", "hot_plasma_expansion"])
+def test_kernels_refuse_other_dispersions(eqs, name, entry):
+    """The window kernels implement every real dispersion; the hot
+    plasmas, complex only, raise at each entry point, on the CPU as on
+    the card, with no fallback to the plain version."""
     _, peq = eqs
     _, proot = roots(eqs, "ordinary_wave")
-    for name in ("bohm_gross", "light_wave", "cold_plasma_expansion"):
-        disp = dispersion.DISPERSIONS[name]
-        with pytest.raises(ValueError, match="implements cold_plasma"):
+    disp = dispersion.DISPERSIONS[name]
+    with pytest.raises(ValueError, match="hot plasmas are complex"):
+        if entry == "Solver":
             Solver(disp, peq, method="rk2", frozen_cells=True,
                    window_kernel=True)
-        with pytest.raises(ValueError, match="implements cold_plasma"):
+        elif entry == "efit_window":
             efit_step.efit_window(peq, proot, method="rk2", dt=DT, steps=2,
                                   compensated=False, dispersion=disp)
-        with pytest.raises(ValueError, match="implements cold_plasma"):
+        else:
             efit_step.efit_window_vjp(peq, proot, proot, method="rk2",
                                       dt=DT, steps=2, dispersion=disp)
-    assert set(efit_step.KERNEL_DISPERSIONS) == {
-        dispersion.cold_plasma, dispersion.ordinary_wave,
-        dispersion.extra_ordinary_wave}
+    real = {d for n, d in dispersion.DISPERSIONS.items()
+            if not n.startswith("hot_plasma")}
+    assert set(efit_step.KERNEL_DISPERSIONS) == real
+    assert sorted(efit_step.KERNEL_DISPERSIONS.values()) == list(range(11))
+
+
+@pytest.mark.parametrize("tag", list(chip_smoke.TAILS))
+def test_solver_window_kernel_takes_the_tails(eqs, tag):
+    """Solver(window_kernel=True) with each of the other eight tails (its
+    plain window here, no launch) gives the port's own frozen path exactly,
+    from the tail's launch; the JAX comparison of the windows is
+    tests/test_torch_efit_tails.py's."""
+    _, peq = eqs
+    disp = chip_smoke.TAILS[tag]
+    proot, dt = chip_smoke.tail_launch(tag, 256, peq)
+    kw = dict(method="rk2", dt=dt, sub_steps=SUB_STEPS, frozen_cells=True,
+              freeze_every=5, compensated=True)
+    efit_step.efit_window_launches = 0
+    got = Solver(disp, peq, window_kernel=True, **kw).run(proot, STEPS)
+    same = Solver(disp, peq, **kw).run(proot, STEPS)
+    assert all(torch.equal(a, b) for a, b in zip(got, same))
+    assert all(bool(torch.isfinite(leaf).all()) for leaf in got)
+    assert efit_step.efit_window_launches == 0
 
 
 @pytest.mark.parametrize("name", MODES)

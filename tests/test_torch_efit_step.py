@@ -12,6 +12,9 @@ The kernel itself only runs on a CUDA card: tests/test_torch_card.py
 holds it to the plain version there and skips elsewhere.
 """
 
+import dataclasses
+import re
+
 import jax
 import pytest
 import torch
@@ -22,8 +25,10 @@ from graph_framework_tpu.ops.compensated import (
 from graph_framework_tpu.pallas.efit_step import make_frozen_window_step
 from graph_framework_tpu.solver import (
     Solver as JaxSolver, init_k as jax_init_k)
-from graph_framework_tpu_torch.kernels import efit_step
-from graph_framework_tpu_torch.models.dispersion import cold_plasma
+from graph_framework_tpu_torch.kernels import build, efit_step
+from graph_framework_tpu_torch.models.dispersion import (
+    cold_plasma, gaussian_well, simple, stiff)
+from graph_framework_tpu_torch.models.rays import RayState
 from graph_framework_tpu_torch.ops.compensated import (
     comp_state, init_comp_carry)
 from graph_framework_tpu_torch.solver import Solver, init_k
@@ -123,15 +128,71 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(setup):
 
 
 def test_kernel_params_fold_the_constants(setup):
-    """The kernel's frequency factors are constants.py's, folded in
-    double the same way."""
+    """The kernel's frequency factors are constants.py's, and its thermal
+    factors models/dispersion.py's, folded in double the same way."""
     from graph_framework_tpu_torch.constants import (
-        ME, Q, cyclotron_frequency, plasma_frequency_squared)
+        C, ME, Q, cyclotron_frequency, plasma_frequency_squared)
 
     _, peq, _, _ = setup
     p = efit_step.kernel_params(peq, DT)
+    mi = peq.ion_masses[0]
     assert p[8] == plasma_frequency_squared(1.0, Q, ME)
     assert p[9] == cyclotron_frequency(-Q, 1.0, ME)
-    assert p[10] == plasma_frequency_squared(1.0, Q, peq.ion_masses[0])
-    assert p[11] == cyclotron_frequency(Q, 1.0, peq.ion_masses[0])
-    assert p[12] == DT and len(p) == 13
+    assert p[10] == plasma_frequency_squared(1.0, Q, mi)
+    assert p[11] == cyclotron_frequency(Q, 1.0, mi)
+    assert p[12] == DT and len(p) == 17
+    assert p[13] == peq.pres_scale
+    # bohm_gross's vth^2 and _sound_speed2's factors (dispersion.py: _C2)
+    assert p[14] == 2.0 * Q / (ME * (C * C))
+    assert p[15] == Q / (mi * (C * C))
+    assert p[16] == 3.0 * Q / (mi * (C * C))
+    assert len(efit_step.kernel_param_array(peq, DT)) == 17
+
+
+def test_kernel_tails_match_the_sources():
+    """KERNEL_TAILS is the CUDA sources' list: GFT_DISPERSIONS
+    (csrc/efit_adjoint.cuh) names the same tail structs under the same
+    codes, each struct's kReadsEq is its reads_map, and each tail has its
+    K1 and K2/K3 instantiation units."""
+    csrc = build.CSRC
+    text = (csrc / "efit_adjoint.cuh").read_text()
+    body = re.search(r"#define GFT_DISPERSIONS\(X\)(.*?)\n\n", text, re.S)[1]
+    listed = [(int(code), name)
+              for code, name in re.findall(r"X\((\d+), (\w+)\)", body)]
+    assert listed == [(code, t.struct)
+                      for code, t in enumerate(efit_step.KERNEL_TAILS)]
+    for t in efit_step.KERNEL_TAILS:
+        flag = re.search(rf"struct {t.struct} {{\s*static constexpr bool "
+                         rf"kReadsEq = (true|false)", text)[1]
+        assert flag == ("true" if t.reads_map else "false"), t.struct
+        suffix = f"_{t.tag}" if t.tag else ""
+        k1 = (csrc / f"efit_window{suffix}.cu").read_text()
+        bwd = (csrc / f"efit_window_bwd{suffix}.cu").read_text()
+        assert f"template int launch<{t.struct}, float>" in k1
+        assert f"template int launch_bwd_of<{t.struct}>" in bwd
+    assert efit_step.TABLE_FREE == {simple, gaussian_well, stiff}
+
+
+def test_table_free_tails_keep_the_tables_out_of_autograd(setup):
+    """A dispersion that reads no table has no K3: efit_window keeps the
+    tables out of the autograd graph (D does not read them), and
+    efit_window_vjp refuses ``tables``; a dispersion that reads the map
+    takes table gradients."""
+    _, peq, _, proot = setup
+    psi = peq.psi_coeffs.clone().requires_grad_(True)
+    eq = dataclasses.replace(peq, psi_coeffs=psi)
+    kw = dict(method="rk2", dt=DT, steps=2, compensated=False)
+    out = efit_step.efit_window(eq, proot, dispersion=simple, **kw)
+    assert not out.x.requires_grad
+    leaves = [a.clone().requires_grad_(True) for a in proot]
+    out = efit_step.efit_window(eq, RayState(*leaves), dispersion=simple,
+                                **kw)
+    grads = torch.autograd.grad(out.kx.sum(), [psi] + leaves,
+                                allow_unused=True)
+    assert grads[0] is None and grads[1 + 5] is not None
+    with pytest.raises(ValueError, match="reads no table"):
+        efit_step.efit_window_vjp(eq, proot, proot, method="rk2", dt=DT,
+                                  steps=2, tables=True, dispersion=stiff)
+    out = efit_step.efit_window(eq, proot, dispersion=cold_plasma, **kw)
+    (g,) = torch.autograd.grad(out.x.sum(), [psi])
+    assert float(g.abs().max()) > 0
