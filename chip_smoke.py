@@ -47,6 +47,18 @@ failed check raises and the script exits non-zero):
    second finds it cached (K1 and K2 launch counts, finite gradients,
    ray-steps/s, the memory the autograd graph holds) - then table
    gradients over 100k x 100 x 10 through K3;
+   4b5. (phase b5) config 5, the gradient of the absorbed power with
+   respect to the psi tables and the launch kz (bench.py run_config5) in
+   its kernel form at bench's shape: 1M rays f32 x 20 x 10 rk4, K = 10,
+   weak damping after each recorded step, 8 ray batches; first at 4099
+   rays against its plain frozen form on the card (BWD_TOL), then twice
+   at 1M (K1 and K3 launches, one each a window, no K2; the value between
+   0 and the ray count; finite gradients, dL/dpsi nonzero; fwd+bwd
+   ray-steps/s, peak memory), and one batch's device time split between
+   K1, K3, the scatter and the eager weak damping;
+   4b6. (phase b6) ``Solver(remat_policy=...)``: None against
+   "spline_jet" at 100k rays on the plain frozen path with
+   ``remat_substeps``, seconds, peak memory and equal gradients;
    4c'. (phase c) the gradient through ``init_k`` and the kernels against
    central differences, f64;
    4d. the O- and X-mode main paths: 100k rays x 1000 x 10 compensated f32
@@ -186,7 +198,7 @@ from graph_framework_tpu_torch.kernels import (
 from graph_framework_tpu_torch.kernels import deposit as k6
 from graph_framework_tpu_torch.cli import xpic, xrays, xrays_bench
 from graph_framework_tpu_torch.io.output import host_array
-from graph_framework_tpu_torch.models import absorption
+from graph_framework_tpu_torch.models import absorbed_power, absorption
 from graph_framework_tpu_torch.models.dispersion import (
     DISPERSIONS, bohm_gross, cold_plasma, extra_ordinary_wave,
     ordinary_wave, stiff)
@@ -336,10 +348,38 @@ GAP_TOL = {"f32 root": 5.0e-7, "own root": 1.0e-5}
 # transpose (read 2.6e-9 state, 2.8e-5 tables).
 BWD_TOL = {torch.float32: {"state": 2.0e-5, "tables": 1.0e-4},
            torch.float64: {"state": 2.0e-14, "tables": 2.5e-13}}
+# Config 5's K3 line (a 125k-ray batch at CONFIG5_LAUNCH, rk4, dt 1 / 200,
+# seeded cotangents) cannot take BWD_TOL: 6 cm outside the resonance the
+# window's transpose is ill-conditioned in f32, and the f32 plain version
+# itself lies up to 40x BWD_TOL from the plain version in f64 on the same
+# inputs (x's cotangent; the record prints it).  There the kernel is held
+# to the f64 plain version instead, as phase 14 holds K4: per part (state,
+# tables), at most BWD_REFEREE_FACTOR times as far from it as the f32
+# plain version.  The loss's own cotangents are better conditioned: phase
+# b5's referee holds that batch's value and gradients to BWD_TOL.
+BWD_REFEREE_FACTOR = 2.0
 # Phase c: the directional derivative along the gradient against central
 # differences (tests/test_gradients.py's rtol and step sizes).
 FD_RTOL = 1.0e-5
 FD_STEP = {"launch": 1.0e-3, "psi_coeffs": 1.0e-7}
+
+
+# -- config 5: the gradient of the absorbed power (phase b5) -----------------
+# bench.py's run_config5 at its shape (1M rays f32, 20 recorded steps x 10
+# substeps, dt 1 / 200, K = 10, 8 ray batches) on the synthetic map.  The
+# launch must absorb: at the main path's launch zeta ~ 25, kamp is real and
+# the loss would be 0.  w 250 /m puts the electron cyclotron resonance at
+# R = 1.64 m (ec = 410 / R /m); the rays start 6 cm outside it with kx > 0
+# (kx solved from 200 /m: 181-210 /m) and move away from it, so the damping
+# is strongest at the start and no ray crosses the resonance, where the weak
+# damping's Dw / (khat . dDc/dk) and its gradient blow up.  About a quarter
+# of the power is absorbed (phase b5: 237751 of 1M rays, NVIDIA H100 80GB
+# HBM3, 700.00 W).  kz0 50 /m, well away from 0, where the up-down symmetric
+# map makes dL/dkz vanish.
+CONFIG5_KZ = 50.0
+CONFIG5_LAUNCH = dict(w=250.0, x=1.7, x_spread=0.005, kx=200.0, ky=100.0,
+                      ky_spread=5.0, kz=CONFIG5_KZ)   # launch()'s keywords
+CONFIG5_STEPS, CONFIG5_SUB, CONFIG5_BATCHES = 20, 10, 8
 
 
 def synthetic_samples(grid=GRID, z_axis=0.0, psi_axis=0.0):
@@ -448,14 +488,14 @@ def synthetic_equilibrium(dtype, device, grid=GRID, **axis):
 
 
 def launch(n, dtype, device, seed=SEED, w=W0, x=X0, kx=KX0, ky=KY0,
-           x_spread=X_SPREAD, ky_spread=KY_SPREAD):
+           x_spread=X_SPREAD, ky_spread=KY_SPREAD, kz=0.0):
     """n rays (as cli/xrays.py:230-259 builds them): w fixed, x and ky
     normal around the launch, the rest fixed, kx solved by init_k."""
     rng = np.random.default_rng(seed)
     x = x + x_spread * rng.standard_normal(n)
     ky = ky + ky_spread * rng.standard_normal(n)
     return make_ray_state(n, w=w, x=torch.from_numpy(x), kx=kx,
-                          ky=torch.from_numpy(ky), dtype=dtype,
+                          ky=torch.from_numpy(ky), kz=kz, dtype=dtype,
                           device=device)
 
 
@@ -627,19 +667,27 @@ def profile_kernel(fn, kernel=("efit_window_kernel",)):
     return per_launch, counts[0], start.elapsed_time(stop)
 
 
-def device_work(fn, part=None):
-    """Run fn once under torch.profiler: (the device operations the CUDA
-    trace holds - kernels, copies, fills - and their summed device ms;
-    with ``part``, also the summed ms of those whose name holds it)."""
+def cuda_events(fn):
+    """Run fn once under torch.profiler: (the CUDA events of its trace -
+    kernels, copies, fills - and the call's wall ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA], wall_ms
+
+
+def device_work(fn, part=None):
+    """Run fn once under torch.profiler: (the device operations the CUDA
+    trace holds - kernels, copies, fills - and their summed device ms;
+    with ``part``, also the summed ms of those whose name holds it)."""
+    events, _ = cuda_events(fn)
     total = sum(e.device_time_total for e in events) / 1000.0
     if part is None:
         return len(events), total
@@ -927,10 +975,12 @@ def random_cotangent(like, seed):
                       .to(like.x) for _ in RayState._fields])
 
 
-def rhs_without_vw(dispersion, feq):
+def rhs_without_vw(dispersion, feq, keep_local_graph=True):
     """A wrong ray RHS for the separation check: the values of
     make_ray_rhs, but 1/D_w is held constant in the transpose, so the
-    cotangent loses D_w's dependence on the state (v_w of the kernels)."""
+    cotangent loses D_w's dependence on the state (v_w of the kernels).
+    Plain autograd: ``keep_local_graph`` (make_ray_rhs's) has no use
+    here."""
     d_all = dispersion_residual(dispersion, feq)
 
     def rhs(s):
@@ -1673,6 +1723,178 @@ def phase_grad_main(device, n=100_000, steps=1000, steps_tab=100):
     return counts, counts_tab
 
 
+def device_split(fn, parts):
+    """Run fn once under torch.profiler: the device ms of the CUDA
+    operations whose names hold each of ``parts``' substrings (a dict label
+    -> tuple of substrings; the first label that matches takes an
+    operation) and of the others ("other"), their total, and the wall ms
+    of the call."""
+    events, wall_ms = cuda_events(fn)
+    split = {label: 0.0 for label in (*parts, "other")}
+    for e in events:
+        label = next((k for k, names in parts.items()
+                      if any(name in e.name for name in names)), "other")
+        split[label] += e.device_time_total / 1000.0
+    return split, sum(split.values()), wall_ms
+
+
+def phase_config5(device, n=1_000_000, n_ref=4099, steps=CONFIG5_STEPS,
+                  batches=CONFIG5_BATCHES, check_launches=True):
+    """Phase b5: config 5, the gradient of the absorbed power with respect
+    to the psi tables and the launch kz (bench.py run_config5), in its
+    kernel form at bench's shape: n rays f32, ``steps`` recorded steps x
+    CONFIG5_SUB substeps of rk4 in windows of K = 10, weak damping after
+    each recorded step, in ``batches`` ray batches whose losses and
+    gradients add up (models.absorbed_power.absorbed_power_grad).  First
+    the referee: over n_ref rays and over the first batch (the shape each
+    K1 and K3 launch of the path sees), the kernel form against the plain
+    frozen form on the card (value and dL/dkz to BWD_TOL's state limit
+    relative to themselves, dL/dpsi to its tables limit relative to its
+    largest magnitude).  Then two passes over the n rays (the first
+    allocates): K1, K2 and K3 launches (one K1 and one K3 a window, no
+    K2), the value between 0 and n, finite gradients, dL/dpsi nonzero;
+    fwd+bwd ray-steps/s of the second pass (bench.py:1047's definition),
+    its peak memory, and one batch's device time split between K1, K3,
+    the scatter into the tables and the eager rest (the weak damping and
+    its double backward), with the device's busy share of a batch of the
+    second pass (the device ms over that pass's seconds a batch: the
+    profiler slows the host several times over).  Returns the second
+    pass's launch counts, the equilibrium and the first batch's launch
+    state (kz set to kz0), for the K1 and K3 lines at that batch.
+    ``check_launches``: hold the launch counts (not on CPU tensors, where
+    no kernel launches)."""
+    sub, nb = CONFIG5_SUB, batches
+    eq = synthetic_equilibrium(torch.float32, device)
+    root = init_k(launch(n, torch.float32, device, **CONFIG5_LAUNCH),
+                  cold_plasma, eq)
+    psi, kz0 = eq.psi_coeffs, CONFIG5_KZ
+    batch = absorbed_power.ray_batches(root, nb)[0]
+
+    def grad(state, form, batches=1):
+        return absorbed_power.absorbed_power_grad(
+            eq, state, steps, sub, psi, kz0, form=form, batches=batches)
+
+    tol = BWD_TOL[torch.float32]
+    limits = {"value": tol["state"], "dL/dkz": tol["state"],
+              "dL/dpsi": tol["tables"]}
+    for part in (RayState(*[leaf[:n_ref] for leaf in root]), batch):
+        t0 = time.perf_counter()
+        got, want = grad(part, "kernel"), grad(part, "frozen")
+        seconds = time.perf_counter() - t0
+        dev = {"value": relative_deviations([got[0]], [want[0]])[0],
+               "dL/dkz": relative_deviations([got[1][1]], [want[1][1]])[0],
+               "dL/dpsi": relative_deviations([got[1][0]],
+                                              [want[1][0]])[0]}
+        print(f"[b5 config 5 referee] {part.x.shape[0]} rays, kernel form "
+              f"against the plain frozen form on the card: value "
+              f"{float(got[0]):.6f} / {float(want[0]):.6f}, dL/dkz "
+              f"{float(got[1][1]):.6e} / {float(want[1][1]):.6e}; relative "
+              f"deviations {json.dumps(dev)} (limits {json.dumps(limits)}); "
+              f"both forms {seconds:.3f} s")
+        if not all(dev[k] <= limits[k] for k in dev):
+            raise AssertionError(f"config 5 referee at {part.x.shape[0]} "
+                                 f"rays: {dev}, limits {limits}")
+        del got, want
+
+    windows = nb * steps * (sub // absorbed_power.FREEZE_EVERY)
+    for attempt in ("first pass", "second pass"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        value, (g_psi, g_kz) = grad(root, "kernel", nb)
+        torch.cuda.synchronize()
+        float(value)
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() - before
+        finite = bool(torch.isfinite(g_psi).all() and torch.isfinite(g_kz))
+        rate = n * steps * sub / seconds
+        print(f"[b5 config 5 kernel form, {attempt}] {n} rays f32 x {steps} "
+              f"x {sub} rk4 K={absorbed_power.FREEZE_EVERY} in {nb} batches "
+              f"at w {CONFIG5_LAUNCH['w']} /m, R {CONFIG5_LAUNCH['x']} m, "
+              f"kz0 {kz0} /m: {seconds:.3f} s = {rate:.6e} fwd+bwd "
+              f"ray-steps/s; launches K1/K2/K3 {counts} ({windows} windows); "
+              f"peak memory above the inputs {peak / 1e9:.3f} GB "
+              f"(max_memory_allocated); absorbed power {float(value):.3f} of "
+              f"{n}; dL/dkz {float(g_kz):.6e}; max |dL/dpsi| "
+              f"{float(g_psi.abs().max()):.6e}, "
+              f"{int((g_psi != 0).sum())} psi coefficients touched")
+        ok = ((not check_launches or counts == (windows, 0, windows))
+              and finite
+              and 0.0 < float(value) < n and float(g_psi.abs().max()) > 0)
+        if not ok:
+            raise AssertionError(
+                f"config 5: launches {counts} (want {windows}, 0, "
+                f"{windows}), finite {finite}, value {float(value)}")
+        del g_psi, g_kz
+
+    batch_ms = 1e3 * seconds / nb
+    split, total, wall = device_split(
+        lambda: grad(batch, "kernel"),
+        {"K1": ("efit_window_kernel",), "K3": ("efit_window_bwd_kernel",),
+         "scatter": ("indexFunc", "index_add")})
+    print(f"[b5 config 5 where the time goes] one batch of "
+          f"{batch.x.shape[0]} rays under the profiler: device ms "
+          f"{json.dumps({k: round(v, 3) for k, v in split.items()})} of "
+          f"{total:.3f} ms on the device ({wall:.3f} ms of wall under the "
+          f"profiler); a batch of the second pass took {batch_ms:.3f} ms of "
+          f"wall, so the device is busy {total / batch_ms:.4f} of it; the "
+          f"scatter is index_add_ (scatter_block_cotangents), other is the "
+          f"eager weak damping, its double backward, dl and the loss")
+    return counts, eq, batch._replace(kz=torch.full_like(batch.kz, kz0))
+
+
+def phase_remat_policy(device, n=100_000, steps=2):
+    """Phase b6: Solver(remat_policy=...) at phase b's width (100k rays
+    f32, rk2, frozen windows of K = 10) over ``steps`` recorded steps of
+    the plain frozen path with ``remat_substeps`` (the window kernel
+    recomputes inside its backward and takes no remat): the gradient of
+    the endpoint loss with respect to the launch state, with the policy
+    None (recompute each window) and "spline_jet" (keep the spline
+    gathers' blocks), in turns None, spline_jet, spline_jet, None; the
+    seconds and peak memory of each pass, and the gradients of the two
+    policies against each other (1e-6 of each leaf's scale), after one
+    untimed pass that warms the allocator."""
+    eq = synthetic_equilibrium(torch.float32, device)
+    root = init_k(launch(n, torch.float32, device), cold_plasma, eq)
+    rows, grads = [], {}
+    for policy in ("warm-up", None, "spline_jet", "spline_jet", None):
+        sol = Solver(cold_plasma, eq, method="rk2", dt=DT,
+                     sub_steps=SUB_STEPS, frozen_cells=True,
+                     freeze_every=FREEZE_EVERY, remat_substeps=True,
+                     remat_policy=None if policy == "warm-up" else policy)
+        leaves = [leaf.detach().clone().requires_grad_(True)
+                  for leaf in root]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        g = torch.autograd.grad(endpoint_loss(sol.run(RayState(*leaves),
+                                                      steps)), leaves,
+                                allow_unused=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if policy == "warm-up":
+            continue
+        rows.append({"policy": policy, "seconds": seconds,
+                     "fwd+bwd ray-steps/s": n * steps * SUB_STEPS / seconds,
+                     "peak GB": (torch.cuda.max_memory_allocated()
+                                 - before) / 1e9})
+        grads[policy] = [torch.zeros_like(a) if d is None else d
+                         for a, d in zip(leaves, g)]
+    dev = max(relative_deviations(grads["spline_jet"], grads[None]))
+    print(f"[b6 remat_policy] {n} rays f32 x {steps} x {SUB_STEPS} rk2, "
+          f"frozen K={FREEZE_EVERY}, remat_substeps, plain torch: "
+          f"{json.dumps(rows)}; gradients spline_jet vs None: {dev:.3e} "
+          f"(limit 1e-6)")
+    if not dev <= 1e-6:
+        raise AssertionError(f"remat_policy: spline_jet's gradients "
+                             f"deviate {dev} from None's")
+    return rows
+
+
 def phase_grad_fd(device, n=256, steps=20):
     """Phase c: d(endpoint loss) through init_k and the kernels, along
     the gradient, against central differences (f64).
@@ -1842,34 +2064,41 @@ def phase_plain_timing(eq, state, kernel_rate, steps=2):
 KERNEL_TAGS = {**MODES, **TAILS}
 
 
-def kernel_record(eq, state, launches, mode="", dt=DT, busy=True):
+def kernel_record(eq, state, launches, mode="", dt=DT, busy=True,
+                  method="rk2", compensated=True, label=""):
     """The kernel line of K1 for the dispersion of ``mode`` ("": cold
     plasma, or a key of KERNEL_TAGS) at its step ``dt``: kernel vs plain on
-    one main-path window (100k rays, f32 compensated rk2, K = 10), error
+    one window of a path (the main path's: 100k rays, f32 compensated rk2,
+    K = 10; config 5's: a batch, f32 plain rk4, ``label`` " rk4"), error
     and milliseconds of each; with ``busy``, also the kernel's busy share
     of 50 recorded steps of Solver.run."""
     disp = KERNEL_TAGS.get(mode, cold_plasma)
     tag = f" {mode}" if mode else ""
-    carry = init_comp_carry(state)
-    kern = run_windows(eq, carry, "rk2", FREEZE_EVERY, True, True, disp, dt)
-    plain = run_windows(eq, carry, "rk2", FREEZE_EVERY, True, False, disp,
-                        dt)
+    variant = (f"f32 {'compensated' if compensated else 'plain'} {method} "
+               f"K={FREEZE_EVERY}")
+    carry = init_comp_carry(state) if compensated else state
+    kern = run_windows(eq, carry, method, FREEZE_EVERY, compensated, True,
+                       disp, dt)
+    plain = run_windows(eq, carry, method, FREEZE_EVERY, compensated, False,
+                        disp, dt)
     err = max(d for f, d in leaf_deviations(kern, plain).items()
               if f not in ("t", "w"))
     rel = max(leaf_errors(kern, plain).values())
-    if not rel <= TAIL_TOL.get((mode, torch.float32, True),
-                               TOL[torch.float32, True]):
-        raise AssertionError(f"main-path window{tag}: kernel vs plain {rel}")
+    if not rel <= TAIL_TOL.get((mode, torch.float32, compensated),
+                               TOL[torch.float32, compensated]):
+        raise AssertionError(f"window{tag}{label} ({variant}): kernel vs "
+                             f"plain {rel}")
 
     def kern_call():
-        return efit_step.efit_window(eq, carry, method="rk2", dt=dt,
-                                     steps=FREEZE_EVERY, compensated=True,
+        return efit_step.efit_window(eq, carry, method=method, dt=dt,
+                                     steps=FREEZE_EVERY,
+                                     compensated=compensated,
                                      dispersion=disp)
 
     def plain_call():
-        return efit_step.frozen_window(eq, disp, carry, method="rk2",
+        return efit_step.frozen_window(eq, disp, carry, method=method,
                                        dt=dt, steps=FREEZE_EVERY,
-                                       compensated=True)
+                                       compensated=compensated)
 
     ms = event_ms(kern_call, 20)
     plain_ms = event_ms(plain_call, 3)
@@ -1884,16 +2113,19 @@ def kernel_record(eq, state, launches, mode="", dt=DT, busy=True):
         share_text = (f"; over 50 recorded steps of Solver.run the kernel "
                       f"is busy {busy_ms} of {wall_ms:.3f} device ms (share "
                       f"{share})")
-    print(f"[7{tag} kernel time] {state.x.shape[0]} rays, f32 compensated "
-          f"rk2 K=10: {ms:.4f} ms per window call (CUDA events, wrapper "
+    print(f"[7{tag}{label} kernel time] {state.x.shape[0]} rays, "
+          f"{variant}: {ms:.4f} ms per window call (CUDA events, wrapper "
           f"included); kernel on the device {kernel_ms} ms (profiler); "
-          f"plain version {plain_ms:.4f} ms per window{share_text}")
-    b_ms, b_by, basis = window_bound(eq, state.x.shape[0],
-                                     f"K1{tag} rk2 comp")
-    print(f"[7 efit_window{tag} bound] {b_ms:.4f} ms, by {b_by} ({basis})")
+          f"plain version {plain_ms:.4f} ms per window; max abs error "
+          f"{err:.3e}, worst relative leaf deviation {rel:.3e}{share_text}")
+    b_ms, b_by, basis = window_bound(
+        eq, state.x.shape[0],
+        f"K1{tag} {method} {'comp' if compensated else 'plain'}")
+    print(f"[7 efit_window{tag}{label} bound] {b_ms:.4f} ms, by {b_by} "
+          f"({basis})")
     source = (f"graph_framework_tpu_torch/csrc/efit_window_{mode}.cu"
               if mode else "graph_framework_tpu_torch/csrc/efit_window.cu")
-    return {"name": f"efit_window{tag}", "route": "cuda",
+    return {"name": f"efit_window{tag}{label}", "route": "cuda",
             "source": source,
             "replaces": "graph_framework_tpu/pallas/efit_step.py:159",
             "launches": launches, "max_abs_err": err, "ms": ms,
@@ -1902,24 +2134,30 @@ def kernel_record(eq, state, launches, mode="", dt=DT, busy=True):
 
 
 def bwd_kernel_records(eq, state, launches, launches_tab, mode="",
-                       dt=DT):
+                       dt=DT, method="rk2", label="", referee=None):
     """The K2 and K3 lines (phase d) for the dispersion of ``mode`` (as
-    kernel_record; no K3 line for a tail that reads no table): each
-    backward kernel against its plain version on one main-path window
-    (100k rays, f32 plain rk2, K = 10, seeded cotangents), held to
-    BWD_TOL as phase 3a holds them: absolute error and milliseconds, by
+    kernel_record; no K3 line for a tail that reads no table, and no K2
+    line when ``launches`` is None): each backward kernel against its
+    plain version on one window of a path (the main path's: 100k rays,
+    f32 plain rk2, K = 10; config 5's: a batch, rk4, ``label`` " rk4"),
+    from seeded cotangents, held to BWD_TOL as phase 3a holds them, or,
+    given ``referee`` (the equilibrium in f64), to the plain version in
+    f64 on the same inputs at BWD_REFEREE_FACTOR times the f32 plain
+    version's own distance to it: absolute error and milliseconds, by
     CUDA events per wrapper call and by the profiler on the device."""
     ct = random_cotangent(state, SEED + 4)
     tag = f" {mode}" if mode else ""
     disp = KERNEL_TAGS.get(mode, cold_plasma)
-    kw = dict(method="rk2", dt=dt, steps=FREEZE_EVERY, dispersion=disp)
+    kw = dict(method=method, dt=dt, steps=FREEZE_EVERY, dispersion=disp)
     tol = BWD_TOL[state.x.dtype]
     records = []
-    for tables, name, line, count, plain in (
-            (False, "efit_window_bwd", 260, launches,
-             efit_step.frozen_window_vjp),
-            (True, "efit_window_bwd_tab", 318, launches_tab,
-             efit_step.frozen_window_vjp_blocks))[:1 + reads_map(disp)]:
+    kernels = ((False, "efit_window_bwd", 260, launches,
+                efit_step.frozen_window_vjp),
+               (True, "efit_window_bwd_tab", 318, launches_tab,
+                efit_step.frozen_window_vjp_blocks))[:1 + reads_map(disp)]
+    for tables, name, line, count, plain in kernels:
+        if count is None:
+            continue
         def kern_call():
             return efit_step.efit_window_vjp(eq, state, ct, tables=tables,
                                              **kw)
@@ -1927,21 +2165,38 @@ def bwd_kernel_records(eq, state, launches, launches_tab, mode="",
         def plain_call():
             return plain(eq, state, ct, **kw)
 
+        def parts(out):
+            """The cotangents by BWD_TOL's parts: state (, tables)."""
+            state = list(out if isinstance(out, RayState) else out.state)
+            if not tables:
+                return {"state": state}
+            return {"state": state,
+                    "tables": [out.psi_block, out.prof_block]}
+
+        def deviations(a, b):
+            return {part: max(relative_deviations(a[part], b[part]))
+                    for part in a}
+
         got, want = kern_call(), plain_call()
-        pairs = list(zip(got.state, want if not tables else want.state))
-        dev = {"state": max(relative_deviations(*zip(*pairs)))}
-        if tables:
-            blocks = [(got.psi_block, want.psi_block),
-                      (got.prof_block, want.prof_block)]
-            dev["tables"] = max(relative_deviations(*zip(*blocks)))
-            pairs += blocks
-            if not (torch.equal(got.psi_cell, want.psi_cell)
-                    and torch.equal(got.prof_cell, want.prof_cell)):
-                raise AssertionError(f"{name}: cells differ from the "
-                                     f"plain version's")
-        if not all(dev[part] <= tol[part] for part in dev):
-            raise AssertionError(f"main-path window {name}{tag}: kernel vs "
-                                 f"plain {dev}, limits {tol}")
+        dev = deviations(parts(got), parts(want))
+        limits, f64 = tol, ""
+        if referee is not None:
+            ref = parts(plain(referee, RayState(*[a.double() for a in state]),
+                              RayState(*[a.double() for a in ct]), **kw))
+            own = deviations(parts(want), ref)
+            dev = deviations(parts(got), ref)
+            limits = {part: BWD_REFEREE_FACTOR * own[part] for part in own}
+            f64 = (f" against the plain version in f64 (the f32 plain "
+                   f"version's own deviations {own})")
+        pairs = [pair for part in parts(got)
+                 for pair in zip(parts(got)[part], parts(want)[part])]
+        if tables and not (torch.equal(got.psi_cell, want.psi_cell)
+                           and torch.equal(got.prof_cell, want.prof_cell)):
+            raise AssertionError(f"{name}: cells differ from the plain "
+                                 f"version's")
+        if not all(dev[part] <= limits[part] for part in dev):
+            raise AssertionError(f"window {name}{tag}{label}: kernel "
+                                 f"{dev}{f64}, limits {limits}")
         err = max(float((a.double() - b.double()).abs().max())
                   for a, b in pairs)
         ms = event_ms(kern_call, 10)
@@ -1958,18 +2213,20 @@ def bwd_kernel_records(eq, state, launches, launches_tab, mode="",
             scatter = (f"; the scatter into the tables "
                        f"(scatter_block_cotangents) {scatter_ms:.4f} ms "
                        f"apart (CUDA events)")
-        print(f"[7 {name}{tag} time] {state.x.shape[0]} rays, f32 rk2 "
-              f"K={FREEZE_EVERY}: {ms:.4f} ms per window call (CUDA "
+        print(f"[7 {name}{tag}{label} time] {state.x.shape[0]} rays, f32 "
+              f"{method} K={FREEZE_EVERY}: {ms:.4f} ms per window call (CUDA "
               f"events, wrapper included); kernel on the device "
               f"{kernel_ms} ms (profiler); plain version "
               f"(autograd of frozen_window) {plain_ms:.4f} ms; max abs "
-              f"error {err:.3e}; relative deviations {dev} (limits "
-              f"{tol}){scatter}")
+              f"error {err:.3e}; relative deviations {dev}{f64} (limits "
+              f"{limits}){scatter}")
         b_ms, b_by, basis = window_bound(
-            eq, state.x.shape[0], f"{'K3' if tables else 'K2'}{tag} rk2")
-        print(f"[7 {name}{tag} bound] {b_ms:.4f} ms, by {b_by} ({basis})")
+            eq, state.x.shape[0],
+            f"{'K3' if tables else 'K2'}{tag} {method}")
+        print(f"[7 {name}{tag}{label} bound] {b_ms:.4f} ms, by {b_by} "
+              f"({basis})")
         records.append({
-            "name": f"{name}{tag}", "route": "cuda",
+            "name": f"{name}{tag}{label}", "route": "cuda",
             "source": "graph_framework_tpu_torch/csrc/efit_window_bwd.cuh",
             "replaces": f"graph_framework_tpu/pallas/efit_step.py:{line}",
             "launches": count, "max_abs_err": err, "ms": ms,
@@ -2028,9 +2285,9 @@ K6_TOL = {torch.float32: 1.0e-5, torch.float64: 1.5e-14}
 # so the difference does not grow).
 PIC_TOL = 1.0e-5
 # Operations per ray and window of FREEZE_EVERY substeps of the window
-# kernels on the main path (rk2), counted over the kernels' own source by
-# graph_framework_tpu_torch/tools/count_ops.py (tests/test_torch_common.py
-# holds these to it).  Each counts what the function needs, each operation
+# kernels on the main path (rk2) and on config 5's (rk4), counted over the
+# kernels' own source by graph_framework_tpu_torch/tools/count_ops.py
+# (tests/test_torch_common.py holds these to it).  Each counts what the function needs, each operation
 # once: K1's source does just that (the freeze, the stages with D's gradient
 # by the hand-written reverse sweep, the compensation: 8812 a ray; its
 # forward-mode form did 44 892), and K2's and K3's take each stage's
@@ -2049,7 +2306,9 @@ WINDOW_OPS = {"K1 rk2 comp": 8812, "K2 rk2": 22892, "K3 rk2": 26212,
               "K3 acoustic rk2": 19572, "K1 simple rk2 comp": 1260,
               "K2 simple rk2": 2210, "K1 gwell rk2 comp": 1440,
               "K2 gwell rk2": 2790, "K1 stiff rk2 comp": 1050,
-              "K2 stiff rk2": 1400}
+              "K2 stiff rk2": 1400,
+              # config 5's windows: plain rk4, cold plasma
+              "K1 rk4 plain": 16702, "K3 rk4": 52742}
 # Peak rates of one H100 SXM (NVIDIA's data sheet): f32 and f64 outside the
 # tensor cores, and the HBM rate.  bound_ms is the larger of ops / peak and
 # bytes / rate.
@@ -2068,14 +2327,16 @@ def bound(ops, nbytes, dtype):
 def window_bound(eq, n, kernel):
     """One f32 window of ``kernel`` (a key of WINDOW_OPS: "K1 rk2 comp",
     "K2 omode rk2", ...; a tail that reads no table has no K3) over n
-    rays: WINDOW_OPS a ray; the bytes of the state leaves in and out (16 +
-    16 compensated for K1; 8 in, 8 cotangents in and 8 out for K2; and
-    K3's 32 block cotangents and 2 cell rows a ray), and the two tables
-    read once (none for a tail that reads no table).  Returns (bound_ms,
-    bound_by, both sides as text)."""
+    rays: WINDOW_OPS a ray; the bytes of the state leaves in and out (8 in
+    and 8 out for K1, and as many low words when compensated; 8 in, 8
+    cotangents in and 8 out for K2; and K3's 32 block cotangents and 2
+    cell rows a ray), and the two tables read once (none for a tail that
+    reads no table).  Returns (bound_ms, bound_by, both sides as text)."""
     size = 4
-    per_ray = {"K1": 32 * size, "K2": 24 * size,
+    per_ray = {"K1": 16 * size, "K2": 24 * size,
                "K3": 56 * size + 16}[kernel[:2]]
+    if kernel.endswith(" comp"):
+        per_ray += 16 * size
     tag = kernel.split()[1]
     tables = size * (eq.psi_coeffs.numel() + eq.profile_coeffs.numel())
     if tag in TAILS and not reads_map(TAILS[tag]):
@@ -3368,12 +3629,24 @@ def main():
     phase_tails_vs_plain(device)
     out, eq32, st32 = phase_main(device)
     counts, counts_tab = phase_grad_main(device)
+    counts_c5, eq_c5, batch_c5 = phase_config5(device)
+    phase_remat_policy(device)
     phase_grad_fd(device)
     phase_segmented(eq32, st32)
     phase_plain_timing(eq32, st32, out["rate_f32"])
     records = [kernel_record(eq32, st32, out["launches"])]
     records += bwd_kernel_records(eq32, st32, counts[1], counts_tab[2])
     del eq32, st32
+    # config 5's windows: plain rk4 at one batch of its path, dt 1 / 200
+    c5_dt = 1.0 / (CONFIG5_STEPS * CONFIG5_SUB)
+    records.append(kernel_record(eq_c5, batch_c5, counts_c5[0], dt=c5_dt,
+                                 busy=False, method="rk4",
+                                 compensated=False, label=" rk4"))
+    records += bwd_kernel_records(
+        eq_c5, batch_c5, None, counts_c5[2], dt=c5_dt, method="rk4",
+        label=" rk4",
+        referee=synthetic_equilibrium(torch.float64, batch_c5.x.device))
+    del eq_c5, batch_c5
     for mode, (eq, st, k1, k2, k3) in phase_modes_main(device).items():
         records.append(kernel_record(eq, st, k1, mode))
         records += bwd_kernel_records(eq, st, k2, k3, mode)

@@ -23,9 +23,15 @@ package:
 an EFIT run with no stack options takes the production stack, for every
 dispersion of ``--dispersion`` (:func:`resolve_stack`).
 ``--window_kernel`` runs each freeze window as one launch of the CUDA
-window kernel (the JAX package's ``--pallas_window``).  Not carried
-over: ``--pallas_block_rows`` and the ray padding (the kernel masks a
-ragged block), ``--debug`` and ``--print_expressions``.
+window kernel (the JAX package's ``--pallas_window``).  ``--debug`` turns
+on debug mode (``utils.set_debug``) for the run: the first NaN or inf of a
+recorded step or a kernel launch raises a located error (the JAX CLI's
+checkify float checks).  ``--print_expressions`` prints, where the JAX CLI
+prints the jaxpr of the ray RHS, the autograd graphs of D and of the six
+RHS components on the first ray (:func:`expression_graph`), and on the
+production stack the kernel unit each window launches.  Not carried over:
+``--pallas_block_rows`` and the ray padding (the kernel masks a ragged
+block).
 
 Usage:  python -m graph_framework_tpu_torch.cli.xrays \\
             --dispersion=cold_plasma --equilibrium=efit \\
@@ -95,6 +101,9 @@ def build_parser():
     p.add_argument("--use_cyl_xy", action="store_true")
     p.add_argument("--print", dest="print_ray", action="store_true",
                    help="print a sampled ray each recorded step")
+    p.add_argument("--print_expressions", action="store_true",
+                   help="print the autograd graphs of D and the ray RHS "
+                        "(and the kernel unit the windows launch)")
     p.add_argument("--absorption_model", default=None,
                    choices=["weak_damping", "root_find"])
     p.add_argument("--output", default="result0.nc")
@@ -104,6 +113,11 @@ def build_parser():
                         "under the production stack)")
     p.add_argument("--f32", dest="x64", action="store_false")
     p.add_argument("--verbose", action="store_true")
+    p.add_argument("--debug", action="store_true",
+                   help="debug mode: the first NaN/inf of a recorded step "
+                        "or a kernel launch raises a located error (the "
+                        "sanitizer-build equivalent, CMakeLists.txt:"
+                        "104-130)")
     p.add_argument("--vmec_fused", action="store_true",
                    help="VMEC geometry through the fused kernel K4 "
                         "(kernels/vmec_geom.py)")
@@ -231,9 +245,59 @@ def run_xrays(args, eq, open_store: Callable, *, setup_s=0.0) -> XraysRun:
     "r+" reopens it (phases 2 and 3).  ``main`` passes
     ``cli.open_result_file``; any store with ``ResultFile``'s methods will
     do.  ``setup_s``: seconds already spent on the
-    set-up (building ``eq``), added to the timing ``setup_s``."""
-    with torch.no_grad():
-        return _run(args, eq, open_store, setup_s)
+    set-up (building ``eq``), added to the timing ``setup_s``.
+    ``args.debug`` turns debug mode on for the run (and restores it
+    after)."""
+    from graph_framework_tpu_torch import utils
+
+    previous = utils.debug_enabled()
+    utils.set_debug(previous or getattr(args, "debug", False))
+    try:
+        with torch.no_grad():
+            return _run(args, eq, open_store, setup_s)
+    finally:
+        utils.set_debug(previous)
+
+
+def expression_graph(dispersion, eq, state) -> str:
+    """The autograd graphs of D and of the ray RHS at the first ray of
+    ``state``, as text: one line a node, ``n<id> = <node>(<inputs>)``,
+    shared nodes once, the leaves by name (what ``--print_expressions``
+    prints in place of the JAX CLI's jaxpr)."""
+    from graph_framework_tpu_torch.models.rays import dispersion_residual
+    from graph_framework_tpu_torch.ops.special import holomorphic_grad
+
+    one = [leaf[:1].detach().clone() for leaf in state]
+    names = ("w", "x", "y", "z", "kx", "ky", "kz")
+    leaves = [a.requires_grad_(True) for a in one[1:]]
+    with torch.enable_grad():
+        d = dispersion_residual(dispersion, eq)(one[0], *leaves)
+        grads = holomorphic_grad(d, leaves, create_graph=True,
+                                 allow_unused=True)
+        dw, dx, dy, dz, dkx, dky, dkz = [
+            torch.zeros_like(a) if g is None else g
+            for a, g in zip(leaves, grads)]
+        rhs = {"D": d, "dx/dt": -dkx / dw, "dy/dt": -dky / dw,
+               "dz/dt": -dkz / dw, "dkx/dt": dx / dw, "dky/dt": dy / dw,
+               "dkz/dt": dz / dw}
+    ids, lines = {}, []
+    leaf_names = {id(a): n for a, n in zip(leaves, names)}
+
+    def name_of(fn):
+        if fn is None:
+            return "const"
+        var = getattr(fn, "variable", None)
+        if var is not None:
+            return leaf_names.get(id(var), "table")
+        if fn not in ids:
+            args = [name_of(nxt) for nxt, _ in fn.next_functions]
+            ids[fn] = f"n{len(ids)}"
+            lines.append(f"  {ids[fn]} = {fn.name()}({', '.join(args)})")
+        return ids[fn]
+
+    outs = [f"  {label} = {name_of(t.grad_fn)}" for label, t in rhs.items()]
+    return "\n".join(["autograd graph of D and the ray RHS (first ray):",
+                      *lines, *outs])
 
 
 def _run(args, eq, open_store, setup_s):
@@ -286,6 +350,20 @@ def _run(args, eq, open_store, setup_s):
                  freeze_every=args.freeze_every,
                  window_kernel=args.window_kernel)
     res = residual_fn(dfun, eq)
+    if args.print_expressions:
+        print(expression_graph(dfun, eq, state))
+        if args.window_kernel:
+            from graph_framework_tpu_torch.kernels.efit_step import (
+                KERNEL_TAILS, kernel_dispersion_code)
+            tag = KERNEL_TAILS[kernel_dispersion_code(dfun)].tag
+            unit = f"efit_window{'_' + tag if tag else ''}.cu"
+            print(f"kernel unit of each freeze window: "
+                  f"graph_framework_tpu_torch/csrc/{unit} (K1, "
+                  f"gft_efit_window: {args.solver}, "
+                  f"{args.sub_steps // args.freeze_every} windows of "
+                  f"{args.freeze_every} substeps a recorded step, "
+                  f"{'compensated ' if args.compensated else ''}"
+                  f"{'f64' if args.x64 else 'f32'})")
     sample = int(rng.integers(0, n))
 
     def show(i, s):

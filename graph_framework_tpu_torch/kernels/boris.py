@@ -26,6 +26,8 @@ import ctypes
 
 import torch
 
+from graph_framework_tpu_torch.utils import check_kernel_outputs
+
 #: Kernel launches of the slab push; plain-version calls do not count.
 slab_push_launches = 0
 
@@ -132,6 +134,8 @@ def _launch(leaves, params, steps):
         raise RuntimeError(f"slab push kernel launch failed ({rc}): "
                            f"{build.error_string(rc)}")
     slab_push_launches += 1
+    check_kernel_outputs("slab_push (K5)", ("x", "y", "z", "ux", "uy", "uz"),
+                         outs, leaves, unit="particle")
     return tuple(outs)
 
 

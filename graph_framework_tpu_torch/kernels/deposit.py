@@ -35,6 +35,8 @@ import math
 
 import torch
 
+from graph_framework_tpu_torch.utils import check_kernel_outputs
+
 #: Wrapper calls that launched the kernels; plain-version calls do not count.
 deposit_launches = 0
 
@@ -142,6 +144,8 @@ def _launch(x, mask, grid, width, te, q):
         raise RuntimeError(f"deposit kernel launch failed ({rc}): "
                            f"{build.error_string(rc)}")
     deposit_launches += 1
+    check_kernel_outputs("deposit (K6)", ("n", "e"), (n, e), (x, grid),
+                         unit="grid point")
     return n, e
 
 

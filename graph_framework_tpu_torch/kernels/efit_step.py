@@ -53,6 +53,7 @@ from graph_framework_tpu_torch.models.rays import RayState, make_ray_rhs
 from graph_framework_tpu_torch.ops.compensated import (
     CompCarry, compensated_stepper)
 from graph_framework_tpu_torch.ops.integrators import INCREMENTS, STEPPERS
+from graph_framework_tpu_torch.utils import check_kernel_outputs
 
 #: Kernel launches of the forward window (K1), the window VJP (K2) and the
 #: window VJP with block cotangents (K3); plain-version calls on CPU
@@ -122,20 +123,22 @@ def kernel_dispersion_code(dispersion) -> int:
 
 
 def frozen_window(eq, dispersion, carry, *, method, dt, steps,
-                  compensated):
+                  compensated, keep_local_graph=True):
     """Plain version: one freeze window of ``steps`` substeps.
 
     ``carry`` is a RayState, or a CompCarry when ``compensated`` (frozen
-    at its hi words).  Returns the advanced carry."""
+    at its hi words).  ``keep_local_graph``: as ``make_ray_rhs``'s (False
+    inside a checkpointed unit).  Returns the advanced carry."""
     hi = carry.hi if compensated else carry
     feq = eq.freeze_cells(torch.stack([hi.x, hi.y, hi.z]))
     return _frozen_steps(feq, dispersion, carry, method, dt, steps,
-                         compensated)
+                         compensated, keep_local_graph)
 
 
-def _frozen_steps(feq, dispersion, carry, method, dt, steps, compensated):
+def _frozen_steps(feq, dispersion, carry, method, dt, steps, compensated,
+                  keep_local_graph=True):
     """``steps`` substeps against the frozen view ``feq``."""
-    rhs = make_ray_rhs(dispersion, feq)
+    rhs = make_ray_rhs(dispersion, feq, keep_local_graph=keep_local_graph)
     if compensated:
         step = compensated_stepper(lambda s: INCREMENTS[method](rhs, s, dt))
     else:
@@ -300,6 +303,9 @@ def _launch(eq, leaves, dispersion, method, dt, steps, compensated):
         raise RuntimeError(f"efit_window kernel launch failed ({rc}): "
                            f"{build.error_string(rc)}")
     efit_window_launches += 1
+    names = RayState._fields + (
+        tuple(f"lo.{f}" for f in RayState._fields) if compensated else ())
+    check_kernel_outputs("efit_window (K1)", names, outs, leaves)
     return outs
 
 
@@ -341,6 +347,13 @@ def _launch_bwd(eq, leaves, cts, dispersion, method, dt, steps, tables):
             efit_window_bwd_tab_launches += 1
         else:
             efit_window_bwd_launches += 1
+        check_kernel_outputs(
+            "efit_window_bwd (K3)" if tables else "efit_window_bwd (K2)",
+            [f"cotangent of {f}" for f in RayState._fields]
+            + (["psi block cotangents", "profile block cotangents"]
+               if tables else []),
+            outs + ([blocks[0], blocks[1]] if tables else []),
+            leaves + cts)
     if not tables:
         return WindowVjp(RayState(*outs))
     return WindowVjp(RayState(*outs), blocks[0].t(), blocks[1].t(),

@@ -31,7 +31,11 @@ Not carried over (TPU artifacts): the one-hot MXU fetch and the bf16
 word split of the tables, the 128-cell radial cut, the dense mode grid
 (90 slots for 86 modes) and its 128-slot padding, the (n, 48) duplicated
 output, and the Cody-Waite reduction before the trig (CUDA's sincos
-reduces the range itself).
+reduces the range itself); and the JAX kernel's debug guard
+(``pallas/vmec_geom.py:344-356``), which checks that the rays stay inside
+the 128-cell cut: with no cut there is nothing to guard.  Under debug mode
+(``utils.set_debug``) the kernel's outputs get the finiteness check that
+every kernel wrapper makes (``utils.check_kernel_outputs``).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import numpy as np
 import torch
 
 from graph_framework_tpu_torch.ops.tables import table_index_1d
+from graph_framework_tpu_torch.utils import check_kernel_outputs
 
 #: Kernel launches of K4; plain-version calls do not count.
 vmec_geom_launches = 0
@@ -284,6 +289,8 @@ def _launch(s, u, v, tables):
         raise RuntimeError(f"vmec_geom kernel launch failed ({rc}): "
                            f"{build.error_string(rc)}")
     vmec_geom_launches += 1
+    check_kernel_outputs("vmec_geom (K4)", ("the jet sums",), (out,),
+                         (s, u, v))
     return out
 
 

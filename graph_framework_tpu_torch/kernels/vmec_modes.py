@@ -33,6 +33,8 @@ from __future__ import annotations
 
 import torch
 
+from graph_framework_tpu_torch.utils import check_kernel_outputs
+
 #: Kernel launches of K7; plain-version calls do not count.
 vmec_modes_launches = 0
 
@@ -129,6 +131,8 @@ def _launch(u, v, blocks, xm, xn):
         raise RuntimeError(f"vmec_modes kernel launch failed ({rc}): "
                            f"{build.error_string(rc)}")
     vmec_modes_launches += 1
+    check_kernel_outputs("vmec_modes (K7)", ("the mode sums",), (out,),
+                         (u, v))
     return out
 
 

@@ -11,7 +11,10 @@ The kamp physics is complex (the hot-plasma Z function), and torch has
 complex dtypes on the card, so only the native complex path is here: the
 JAX package's split (re, im) forms for backends without complex dtypes
 (``make_weak_damping_split``, ``hot_plasma_split``,
-``make_root_finder_split``) have no counterpart.  The JAX package
+``make_root_finder_split``) have no counterpart.  Where the JAX package
+differentiates the split weak damping of a real trace (its absorbed-power
+loss), :func:`make_weak_damping_real` takes the real state with a complex
+Z and is differentiable in the state and the tables.  The JAX package
 evaluates one ray at a time under ``vmap``; here the rays are one batch
 with the component axis leading, as in the rest of the port: positions
 and wave vectors are (3, n), the contravariant basis (3, 3, n).
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 
 from graph_framework_tpu_torch.models import dispersion as disp
-from graph_framework_tpu_torch.models.rays import RayState
+from graph_framework_tpu_torch.models.rays import (
+    RayState, LocalGraph, grad_tensors, rebind)
 from graph_framework_tpu_torch.ops.newton import newton_solve
 from graph_framework_tpu_torch.ops.special import holomorphic_grad, z_plasma
 
@@ -43,6 +47,26 @@ def _geometry(eq, state: RayState):
         esup = esup[..., None].expand(3, 3, kcov.shape[1])
     kvec = torch.einsum("in,ijn->jn", kcov, esup)
     return pos, kcov, esup, kvec
+
+
+def _weak_damping_kamp(eq, dw_fn, state: RayState, create_graph: bool):
+    """kamp = |k| - Dw / (khat . dDc/dk) of a batched state (complex, or
+    real with a complex Dw).  ``create_graph``: take dDc/dk against the
+    state's own wave vector, differentiably (the state's leaves must
+    require grad); otherwise against a detached copy."""
+    t, w = state.t, state.w
+    pos, kcov, esup, kvec = _geometry(eq, state)
+    klen = torch.sqrt((kvec * kvec).sum(dim=0))
+    k_unit = kvec / klen
+    with torch.enable_grad():
+        kc = kcov if create_graph else kcov.detach().requires_grad_(True)
+        dc = disp.cold_plasma_expansion(
+            w, torch.einsum("in,ijn->jn", kc, esup), pos, t, eq)
+        (ddc_dkcov,) = holomorphic_grad(dc, (kc,), create_graph=create_graph)
+    # dDc/dk as a physical vector: sum_i dDc/dk_i e^i
+    ddc_vec = torch.einsum("in,ijn->jn", ddc_dkcov, esup)
+    dw = dw_fn(w, kvec, pos, t, eq)
+    return klen - dw / (k_unit * ddc_vec).sum(dim=0)
 
 
 def make_weak_damping(eq, z_function=None):
@@ -63,19 +87,44 @@ def make_weak_damping(eq, z_function=None):
     dw_fn = disp.make_hot_plasma_expansion(z_function or z_plasma)
 
     def update(state: RayState):
-        t, w = state.t, state.w
-        pos, kcov, esup, kvec = _geometry(eq, state)
-        klen = torch.sqrt((kvec * kvec).sum(dim=0))
-        k_unit = kvec / klen
-        with torch.enable_grad():
-            kc = kcov.detach().requires_grad_(True)
-            dc = disp.cold_plasma_expansion(
-                w, torch.einsum("in,ijn->jn", kc, esup), pos, t, eq)
-            (ddc_dkcov,) = holomorphic_grad(dc, (kc,))
-        # dDc/dk as a physical vector: sum_i dDc/dk_i e^i
-        ddc_vec = torch.einsum("in,ijn->jn", ddc_dkcov, esup)
-        dw = dw_fn(w, kvec, pos, t, eq)
-        return klen - dw / (k_unit * ddc_vec).sum(dim=0)
+        return _weak_damping_kamp(eq, dw_fn, state, False)
+
+    return update
+
+
+def make_weak_damping_real(eq, z_function=None):
+    """The weak-damping kamp of a **real** ray state, differentiable in the
+    state and in the tensors of ``eq`` that require grad - what the JAX
+    package's ``make_weak_damping_split`` gives its absorbed-power loss
+    (bench.py run_config5, tests/test_config5.py).
+
+    For a real state only Z(zeta) is complex: ``update(state) -> kamp``
+    returns it in the complex dtype of the state's precision (complex64
+    for float32), with Im(kamp) the damping.  Under grad mode, when a leaf
+    or a table requires grad, the update is one ``rays.LocalGraph`` node,
+    which keeps only the state and the tables (each recorded step's kamp
+    graph, second derivatives included, holds dozens of complex ray-sized
+    tensors); its backward takes dDc/dk with ``create_graph=True`` against
+    the state's own wave vector, so the gradient of kamp reaches the ray
+    state and the tables through dDc/dk too.  Otherwise it evaluates as
+    :func:`make_weak_damping` does."""
+    dw_fn = disp.make_hot_plasma_expansion(z_function or z_plasma)
+    closure = grad_tensors(eq)
+
+    def kamp_of(*leaves, create_graph):
+        fresh_eq = rebind(eq, closure, leaves[8:])
+        return _weak_damping_kamp(fresh_eq, dw_fn, RayState(*leaves[:8]),
+                                  create_graph)
+
+    def update(state: RayState):
+        if state.x.is_complex():
+            raise TypeError("make_weak_damping_real takes a real ray "
+                            "state (make_weak_damping takes a complex one)")
+        if torch.is_grad_enabled() and (closure or any(
+                a.requires_grad for a in state)):
+            return LocalGraph.apply(kamp_of, False, *state, *closure)
+        return _weak_damping_kamp(eq, dw_fn, RayState(
+            *[a.detach() for a in state]), False)
 
     return update
 

@@ -119,7 +119,7 @@ def _split_residual(dispersion: Callable, eq):
     return _per_ray(d_all, eq)
 
 
-def _grad_tensors(obj, found=None):
+def grad_tensors(obj, found=None):
     """The tensors that ``obj`` holds - directly, or in a nested dataclass
     such as a frozen view's ``base`` - and that require grad (an
     equilibrium whose spline tables are being differentiated)."""
@@ -129,11 +129,11 @@ def _grad_tensors(obj, found=None):
             found.append(obj)
     elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         for f in dataclasses.fields(obj):
-            _grad_tensors(getattr(obj, f.name), found)
+            grad_tensors(getattr(obj, f.name), found)
     return found
 
 
-def _rebind(obj, old, new):
+def rebind(obj, old, new):
     """``obj`` with each tensor of ``old`` replaced by the same-index one
     of ``new``, through nested dataclasses (``obj`` itself if it holds
     none of them)."""
@@ -146,45 +146,76 @@ def _rebind(obj, old, new):
         if not f.init:
             continue
         value = getattr(obj, f.name)
-        rebound = _rebind(value, old, new)
+        rebound = rebind(value, old, new)
         if rebound is not value:
             changes[f.name] = rebound
     return dataclasses.replace(obj, **changes) if changes else obj
 
 
-class _LocalRhs(torch.autograd.Function):
-    """The ray RHS as one node of the caller's graph.
+class LocalGraph(torch.autograd.Function):
+    """``fn(*inputs, create_graph=...)`` as one node of the caller's graph
+    (the ray RHS, the weak damping's kamp), differentiable once.
 
-    ``forward`` evaluates ``rhs_of(*fresh)`` on detached copies of its
-    inputs (the state leaves, the basis position, the equilibrium's
-    tensors that require grad), which differentiates D with
-    ``create_graph=True`` against those copies only; ``backward`` pulls the
-    cotangents through that local graph back to the inputs.  Taking D's
+    ``apply(fn, keep, *inputs)``.  With ``keep``, ``forward`` evaluates
+    ``fn`` over fresh copies of the inputs that require grad with
+    ``create_graph=True`` (D's partials differentiable) and keeps that
+    local graph for ``backward``, which pulls the cotangents back through
+    it.  Without, ``forward`` evaluates ``fn(..., create_graph=False)``,
+    keeps only the inputs, and ``backward`` builds the local graph then:
+    one more evaluation, and nothing between the passes but the inputs -
+    what a checkpointed unit (``Solver(remat_substeps=True)``) needs, whose
+    recompute restores the inputs.  The local graphs live under saved-tensor
+    hooks of their own, so a surrounding ``torch.utils.checkpoint`` never
+    packs them: the partials taken inside ``fn`` would otherwise unpack
+    checkpointed tensors and recompute the unit from inside its own forward
+    (tests/test_torch_grad.py counts one evaluation a stage a pass).  Taking
+    D's
     partials against the caller's tensors themselves would make autograd
-    walk the whole graph behind them on every RHS call - quadratic in the
+    walk the whole graph behind them on every call - quadratic in the
     length of a differentiated trace (200 rk4 steps of one ray: 55 s on a
-    CPU, against 0.5 s for their backward).  The result is differentiable
-    once."""
+    CPU, against 0.5 s)."""
 
     @staticmethod
-    def forward(ctx, rhs_of, *inputs):
-        with torch.enable_grad():
-            fresh = [a.detach().requires_grad_(True) for a in inputs]
-            out = rhs_of(*fresh)
-        ctx.fresh, ctx.out = fresh, out
+    def forward(ctx, fn, keep, *inputs):
+        with torch.enable_grad(), _own_saved_tensors():
+            if keep:
+                ctx.fresh = [a.detach().requires_grad_(True)
+                             for a in inputs]
+                ctx.out = fn(*ctx.fresh, create_graph=True)
+                out = ctx.out
+            else:
+                ctx.fn = fn
+                ctx.save_for_backward(*inputs)
+                out = fn(*[a.detach() for a in inputs], create_graph=False)
+        if isinstance(out, torch.Tensor):
+            return out.detach()
         return tuple(o.detach() for o in out)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, *cts):
-        grads = torch.autograd.grad(ctx.out, ctx.fresh, cts,
-                                    allow_unused=True)
-        del ctx.fresh, ctx.out
-        return (None, *grads)
+        with torch.enable_grad(), _own_saved_tensors():
+            if hasattr(ctx, "out"):
+                fresh, out = ctx.fresh, ctx.out
+                del ctx.fresh, ctx.out
+            else:
+                fresh = [a.detach().requires_grad_(True)
+                         for a in ctx.saved_tensors]
+                out = ctx.fn(*fresh, create_graph=True)
+            grads = torch.autograd.grad(out, fresh, cts, allow_unused=True)
+        return (None, None, *grads)
+
+
+def _own_saved_tensors():
+    """Saved-tensor hooks that keep tensors as they are (a local graph out
+    of reach of an enclosing checkpoint's hooks)."""
+    return torch.autograd.graph.saved_tensors_hooks(lambda a: a,
+                                                     lambda a: a)
 
 
 def make_ray_rhs(dispersion: Callable, eq, *,
-                 reference_correction: bool = False):
+                 reference_correction: bool = False,
+                 keep_local_graph: bool = True):
     """Build the ray right-hand side ``rhs(state) -> RayDerivatives``:
     one ``torch.autograd.grad`` of sum(D) over (w, x, y, z, kx, ky, kz)
     gives all seven derivatives (holomorphic ones for a complex state).
@@ -200,17 +231,24 @@ def make_ray_rhs(dispersion: Callable, eq, *,
       of ``eq`` requires grad, the leaves are detached and the result
       carries no graph;
     * differentiable: otherwise the RHS is one node of the caller's graph
-      (:class:`_LocalRhs`), a function of the state, of the basis position
+      (:class:`LocalGraph`), a function of the state, of the basis position
       and of the equilibrium's tables that require grad, differentiable
       once (the JAX package differentiates its ``jax.grad`` RHS the same
       way).  The partials are taken against fresh copies of the leaves, so
       each partial stays a partial: a leaf computed from another (kx
       solved from ky by ``init_k``) does not leak its dependence into the
-      other's derivative."""
+      other's derivative.
+
+    ``keep_local_graph``: the differentiable RHS keeps its local graph
+    between the passes (:class:`LocalGraph` with ``keep``); False keeps
+    only its inputs and rebuilds the local graph in the backward pass,
+    as an RHS inside a checkpointed unit needs
+    (``Solver(remat_substeps=True)``): the unit's recompute restores
+    them."""
     split = reference_correction and not eq.is_cartesian()
     make_d = _split_residual if split else dispersion_residual
     d_all = make_d(dispersion, eq)
-    closure = _grad_tensors(eq)
+    closure = grad_tensors(eq)
 
     def partials(d_fn, t, leaves, basis, create_graph):
         """The RHS from D's seven partials over ``leaves``."""
@@ -223,13 +261,17 @@ def make_ray_rhs(dispersion: Callable, eq, *,
             for a, g in zip(leaves, grads)]
         return (-dkx / dw, -dky / dw, -dkz / dw, dx / dw, dy / dw, dz / dw)
 
-    def rhs_of(t, *rest):
-        """The differentiable RHS over fresh leaves: the state's seven,
-        then the basis position (when split), then ``closure``'s."""
+    def rhs_of(t, *rest, create_graph):
+        """The RHS over the state's seven leaves, then the basis position
+        (when split), then ``closure``'s tensors; ``create_graph``: the
+        leaves require grad, and the result is differentiable in all of
+        them."""
         leaves, basis = rest[:7], rest[7:7 + 3 * split]
-        fresh_eq = _rebind(eq, closure, rest[7 + 3 * split:])
+        if not create_graph:
+            leaves = [a.requires_grad_(True) for a in leaves]
+        fresh_eq = rebind(eq, closure, rest[7 + 3 * split:])
         d_fn = d_all if fresh_eq is eq else make_d(dispersion, fresh_eq)
-        return partials(d_fn, t, leaves, basis, True)
+        return partials(d_fn, t, leaves, basis, create_graph)
 
     def rhs(state: RayState) -> RayDerivatives:
         leaves = (state.w, state.x, state.y, state.z,
@@ -239,8 +281,9 @@ def make_ray_rhs(dispersion: Callable, eq, *,
         basis = leaves[1:4] if split else ()
         if torch.is_grad_enabled() and (closure or any(
                 a.requires_grad for a in (state.t, *leaves))):
-            return RayDerivatives(*_LocalRhs.apply(
-                rhs_of, state.t, *leaves, *basis, *closure))
+            return RayDerivatives(*LocalGraph.apply(
+                rhs_of, keep_local_graph, state.t, *leaves, *basis,
+                *closure))
         fresh = [a.detach().requires_grad_(True) for a in leaves]
         return RayDerivatives(*partials(
             d_all, state.t.detach(), fresh,

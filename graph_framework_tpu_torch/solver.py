@@ -26,7 +26,12 @@ EFIT or VMEC (flux coordinates; frozen cells through its
 ``fused_mode_sums``), or an analytic one; the window kernel is EFIT's and
 takes every real dispersion (``kernels.efit_step.KERNEL_DISPERSIONS``);
 the two hot plasmas, complex only, are refused.
-Not ported: ``remat_policy``, ``block_rays`` and ``pad_rays`` (the kernel
+``remat_policy="spline_jet"`` keeps the spline tables' gathered blocks of
+each checkpointed unit and recomputes the rest (:func:`remat_context`).
+Under debug mode (``utils.set_debug``) each recorded step checks every
+eager operation's output and raises at the first one that makes a NaN or
+an inf (``utils.checked_step``, the JAX package's checkify float checks).
+Not ported: ``block_rays`` and ``pad_rays`` (the kernel
 masks a ragged last block, so the ray count needs no padding), and the
 jit caches of ``make_segment_fn``/``extras_jit``.
 """
@@ -51,6 +56,7 @@ from graph_framework_tpu_torch.ops.compensated import (
 from graph_framework_tpu_torch.ops.integrators import (
     INCREMENTS, STEPPERS, check_separable)
 from graph_framework_tpu_torch.ops.newton import newton_solve
+from graph_framework_tpu_torch.utils import checked_step
 
 
 def make_ray_state(num_rays=None, *, t=0.0, w, x=0.0, y=0.0, z=0.0,
@@ -99,6 +105,31 @@ def init_k(state: RayState, dispersion, eq, which: str = "kx", *,
     return out
 
 
+#: The remat policies of ``Solver(remat_policy=...)``: the ATen operations
+#: whose outputs a checkpointed unit keeps for its backward pass.
+#: "spline_jet" keeps what the spline tables' gathers return - every
+#: ``table[index]`` of ops/spline.py and ``freeze_cells`` - so the
+#: recompute evaluates the splines from the kept blocks without reading the
+#: tables again (the JAX package names the jet's products for
+#: ``save_only_these_names``; torch has no names on tensors, but the
+#: gathers are the only ``aten.index.Tensor`` an EFIT substep runs).
+REMAT_POLICIES = {"spline_jet": (torch.ops.aten.index.Tensor,)}
+
+
+def remat_context(saved_ops):
+    """The ``context_fn`` pair of a selective checkpoint that keeps the
+    outputs of ``saved_ops`` and recomputes every other operation."""
+    from torch.utils.checkpoint import (
+        CheckpointPolicy, create_selective_checkpoint_contexts)
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in saved_ops:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
 @dataclasses.dataclass(frozen=True)
 class Solver:
     """A ray tracer for one (dispersion, equilibrium, method).
@@ -120,6 +151,9 @@ class Solver:
     the JAX package's checkpointed stepper) and recompute the unit in the
     backward pass (``torch.utils.checkpoint``); the window kernel already
     recomputes inside its backward, so the two do not combine.
+    ``remat_policy``: with ``remat_substeps``, None recomputes the whole
+    unit; "spline_jet" keeps what the unit's spline-table gathers return
+    and recomputes the rest (:func:`remat_context`).
     """
     dispersion: Callable
     eq: object
@@ -131,12 +165,20 @@ class Solver:
     freeze_every: int = 1
     window_kernel: bool = False
     remat_substeps: bool = False
+    remat_policy: Optional[str] = None
 
     def __post_init__(self):
         if self.method not in set(STEPPERS) | {"adaptive_rk4"}:
             raise ValueError(f"unknown method {self.method!r}")
         if self.sub_steps < 1:
             raise ValueError(f"sub_steps={self.sub_steps} must be >= 1")
+        if self.remat_policy is not None:
+            if self.remat_policy not in REMAT_POLICIES:
+                raise ValueError(
+                    f"remat_policy={self.remat_policy!r}: one of "
+                    f"{sorted(REMAT_POLICIES)} or None")
+            if not self.remat_substeps:
+                raise ValueError("remat_policy needs remat_substeps=True")
         if self.compensated and self.is_adaptive():
             raise ValueError("compensated accumulation supports the "
                              "fixed-dt methods only")
@@ -215,11 +257,15 @@ class Solver:
         substeps, as sub_steps // freeze_every windows when frozen.  For
         adaptive_rk4 the per-ray (dt, lambda) persist and keep adapting
         across recorded steps, as the reference's variables do
-        (solver.hpp:881-1006)."""
+        (solver.hpp:881-1006).  Under debug mode (``utils.set_debug``,
+        when this is called) the step is a checked step."""
         method, dt = self.method, self.dt
+        # inside a checkpointed unit the RHS keeps only its inputs
+        keep = not self.remat_substeps
         if self.is_adaptive():
             windows = self.sub_steps
-            rhs = make_ray_rhs(self.dispersion, self.eq)
+            rhs = make_ray_rhs(self.dispersion, self.eq,
+                               keep_local_graph=keep)
 
             def window(c):
                 return adaptive_rk4_carry_step(self.dispersion, self.eq,
@@ -236,10 +282,12 @@ class Solver:
                 def window(c):
                     return frozen_window(self.eq, self.dispersion, c,
                                          method=method, dt=dt, steps=k,
-                                         compensated=self.compensated)
+                                         compensated=self.compensated,
+                                         keep_local_graph=keep)
         else:
             windows = self.sub_steps
-            rhs = make_ray_rhs(self.dispersion, self.eq)
+            rhs = make_ray_rhs(self.dispersion, self.eq,
+                               keep_local_graph=keep)
             if self.compensated:
                 window = compensated_stepper(
                     lambda s: INCREMENTS[method](rhs, s, dt))
@@ -249,17 +297,21 @@ class Solver:
 
         if self.remat_substeps:
             unit = window
+            policy = REMAT_POLICIES.get(self.remat_policy)
+            extra = {} if policy is None else dict(
+                context_fn=lambda: remat_context(policy))
 
             def window(c):
                 return torch.utils.checkpoint.checkpoint(
-                    unit, c, use_reentrant=False)
+                    unit, c, use_reentrant=False, **extra)
 
         def step(carry):
             for _ in range(windows):
                 carry = window(carry)
             return carry
 
-        return step
+        return checked_step(step, f"the recorded step of Solver("
+                                  f"{self.method!r})")
 
     def step_fn(self):
         """The recorded step over a plain RayState.  For adaptive_rk4 the

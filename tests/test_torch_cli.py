@@ -154,8 +154,7 @@ def test_timing_json(tmp_path):
 
 @pytest.mark.parametrize("option", ["--no_such_option=1",
                                     "--pallas_window",
-                                    "--pallas_block_rows=2", "--debug",
-                                    "--print_expressions"])
+                                    "--pallas_block_rows=2"])
 def test_xrays_rejects_unknown_options(option):
     """Unknown options, and the JAX options not carried over, fail."""
     proc = subprocess.run(
@@ -168,6 +167,63 @@ def test_xrays_rejects_unknown_options(option):
 
 def _args(*extra):
     return xrays.build_parser().parse_args(list(extra))
+
+
+# w = 0: every 1/w^2 of the dispersion divides by zero (the JAX package's
+# tests/test_debug_mode.py configuration); no Newton init
+_NAN_RUN = ("--dispersion=simple", "--equilibrium=gaussian_density",
+            "--num_rays=4", "--num_times=4", "--sub_steps=2",
+            "--init_w_mean=0.0", "--init_kx_mean=0.25",
+            "--init_kx_dist=normal", "--init_ky_mean=0.25",
+            "--init_ky_dist=normal", "--init_kz_mean=0.15",
+            "--init_kz_dist=normal", "--device=cpu")
+
+
+def test_xrays_debug_flag():
+    """--debug: the run's first NaN raises a located error naming the
+    operation, the leaf and the ray; without it the same run writes its
+    NaN rows; either way debug mode is off after the run."""
+    from graph_framework_tpu_torch import utils
+    from graph_framework_tpu_torch.models.equilibrium import (
+        make_gaussian_density)
+
+    args = xrays.resolve_stack(_args(*_NAN_RUN, "--debug"), "cpu")
+    with pytest.raises(utils.NonFiniteError, match="ray 0"):
+        xrays.run_xrays(args, make_gaussian_density(),
+                        chip_smoke.MemoryFiles().open)
+    assert not utils.debug_enabled()
+    files = chip_smoke.MemoryFiles()
+    args = xrays.resolve_stack(_args(*_NAN_RUN), "cpu")
+    xrays.run_xrays(args, make_gaussian_density(), files.open)
+    assert not np.isfinite(files[args.output].stack("kx")[-1]).all()
+
+
+def test_xrays_print_expressions(capsys):
+    """--print_expressions prints the autograd graphs of D and the six RHS
+    components on the first ray, and on the production stack the kernel
+    unit each window launches; the run itself is unchanged."""
+    eq = chip_smoke.synthetic_equilibrium(torch.float32, "cpu", grid=33)
+    run = ["--dispersion=cold_plasma", "--equilibrium=efit",
+           "--num_rays=4", "--num_times=20", "--sub_steps=10",
+           "--endtime=0.002", "--init_w_mean=500", "--init_x_mean=2.5",
+           "--init_kx_mean=-500", "--init_ky_mean=150", "--device=cpu",
+           "--solver=rk2", "--frozen_cells", "--freeze_every=10",
+           "--compensated", "--window_kernel", "--f32"]
+    rows = {}
+    for extra in ((), ("--print_expressions",)):
+        files = chip_smoke.MemoryFiles()
+        args = xrays.resolve_stack(_args(*run, *extra), "cpu")
+        xrays.run_xrays(args, eq, files.open)
+        rows[extra] = files[args.output].stack("kx")
+    out = capsys.readouterr().out
+    assert np.array_equal(*rows.values())
+    assert "autograd graph of D and the ray RHS (first ray):" in out
+    for label in ("D", "dx/dt", "dy/dt", "dz/dt", "dkx/dt", "dky/dt",
+                  "dkz/dt"):
+        assert f"\n  {label} = n" in out, label
+    assert "MulBackward0(" in out and "(kx, ky, kz)" in out
+    assert ("kernel unit of each freeze window: graph_framework_tpu_torch/"
+            "csrc/efit_window.cu (K1") in out
 
 
 _PRODUCTION = ("rk2", True, 10, False)

@@ -117,6 +117,14 @@ from graph_framework_tpu_torch.models.absorption import make_weak_damping
 kamp = make_weak_damping(eq)(init_k(chip_smoke.launch(
     4, torch.complex128, "cpu"), cold_plasma, eq))
 assert bool(torch.isfinite(kamp).all())
+from graph_framework_tpu_torch import utils
+from graph_framework_tpu_torch.io import restore_ray_state, save_ray_state
+from graph_framework_tpu_torch.models.absorbed_power import (
+    absorbed_power_fn)
+with torch.no_grad():
+    power = absorbed_power_fn(eq, state, 1, 10, form="kernel")(
+        eq.psi_coeffs, 0.0)
+assert bool(torch.isfinite(power))
 print(sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "graph_framework_tpu"
@@ -196,6 +204,7 @@ def _entry_points(tmp_path_factory):
         "pic_start": lambda: pic.pic_start(8, 8),
         "run_pic": lambda: pic.run_pic(8, 8, 1),
         "run_absorption": lambda: _run_absorption_default(),
+        "restore_ray_state": lambda: _restore_default(tmp_path_factory),
         "make_weak_damping": lambda: absorption.make_weak_damping(
             make_slab())(make_ray_state(2, w=1.0, dtype=torch.complex128)),
         "run_xrays": lambda: xrays.run_xrays(
@@ -214,6 +223,16 @@ def _entry_points(tmp_path_factory):
     }
 
 
+def _restore_default(tmp_path_factory):
+    """restore_ray_state without a template or a device."""
+    from graph_framework_tpu_torch.io import (
+        restore_ray_state, save_ray_state)
+    from graph_framework_tpu_torch.models.rays import RayState
+    path = tmp_path_factory.mktemp("checkpoint")
+    save_ray_state(path, RayState(*[torch.zeros(2)] * 8))
+    restore_ray_state(path)
+
+
 def _run_absorption_default():
     """run_absorption without a device over a one-row in-memory trace."""
     from graph_framework_tpu_torch.models import absorption
@@ -230,7 +249,8 @@ ENTRY_POINTS = ["make_ray_state", "efit_from_tables", "make_efit",
                 "vmec_from_numpy", "ray_state_from_numpy",
                 "particle_state_from_numpy", "pic_state_from_numpy",
                 "run_korc", "make_deposit", "pic_start", "run_pic",
-                "run_absorption", "make_weak_damping", "run_xrays",
+                "run_absorption", "restore_ray_state", "make_weak_damping",
+                "run_xrays",
                 "run_xkorc", "run_xpic", "bench_one"]
 
 
@@ -425,10 +445,11 @@ def test_op_counts_match_the_sources():
     ops = counted["ops"]
     for kernel, value in chip_smoke.WINDOW_OPS.items():
         assert ops[kernel]["per_ray_window"] == value, kernel
-    # a bound for every backward kernel there is, and only for those (no
-    # K3 for a tail that reads no table)
+    # a bound for every rk2 backward kernel there is, and only for those
+    # (no K3 for a tail that reads no table)
     assert {k for k in ops if k[:2] in ("K2", "K3") and k.endswith("rk2")} \
-        == {k for k in chip_smoke.WINDOW_OPS if k[:2] in ("K2", "K3")}
+        == {k for k in chip_smoke.WINDOW_OPS
+            if k[:2] in ("K2", "K3") and k.endswith("rk2")}
     assert ops["K5"]["per_particle_step"] == boris.SLAB_PUSH_OPS
     for mode in count_ops.DISPERSION_LABELS:
         for variant in ("rk2 plain", "rk2 comp", "rk4 plain", "rk4 comp"):

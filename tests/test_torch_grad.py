@@ -285,3 +285,75 @@ def test_refusals(setup):
         with pytest.raises(ValueError, match="compensated accumulation"):
             Solver(cold_plasma, peq, method=method, compensated=True,
                    remat_substeps=True)
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_remat_policy_spline_jet_matches_default(setup, frozen):
+    """Solver(remat_policy="spline_jet") keeps the gathered spline blocks
+    of each checkpointed unit and recomputes the rest; its gradients -
+    state and psi table - are those of remat_policy=None bit for bit
+    (test_gradients.py::test_remat_policy_spline_jet_matches_default's
+    counterpart, which holds JAX's to 1e-6 in f32), and its backward runs
+    fewer gathers (none on the frozen path)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountGathers(TorchDispatchMode):
+        count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.count += func is torch.ops.aten.index.Tensor
+            return func(*args, **(kwargs or {}))
+
+    _, peq, _, proot = setup
+    kw = dict(frozen_cells=True, freeze_every=5) if frozen else {}
+    want = _solver_grads(peq, proot, remat_substeps=True, **kw)
+    got = _solver_grads(peq, proot, remat_substeps=True,
+                        remat_policy="spline_jet", **kw)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert torch.equal(g, w)
+    # the policy's point: the checkpoint's recompute reads no table (on the
+    # frozen path, where the freeze gathers are the unit's only gathers,
+    # the backward then runs none)
+    runs = {}
+    for policy in (None, "spline_jet"):
+        leaves = _grad_leaves(proot)
+        s = Solver(cold_plasma, peq, method="rk2", dt=DT, sub_steps=SUB_STEPS,
+                   remat_substeps=True, remat_policy=policy,
+                   **kw).run(RayState(*leaves), STEPS)
+        with CountGathers() as mode:
+            torch.autograd.grad(_loss(s), leaves, allow_unused=True)
+        runs[policy] = mode.count
+    assert runs["spline_jet"] < runs[None]
+    if frozen:
+        assert runs["spline_jet"] == 0
+    with pytest.raises(ValueError, match="remat_substeps=True"):
+        Solver(cold_plasma, peq, remat_policy="spline_jet")
+    with pytest.raises(ValueError, match="one of"):
+        Solver(cold_plasma, peq, remat_substeps=True, remat_policy="all")
+
+
+def test_remat_evaluates_each_rhs_once_a_pass(setup, monkeypatch):
+    """Under remat_substeps the RHS runs once a stage in the forward pass
+    (its partials never unpack a checkpointed tensor, which would
+    recompute the unit from inside its own forward) and once more a stage
+    in the backward pass, when the checkpoint recomputes the unit."""
+    from graph_framework_tpu_torch.models import rays
+
+    _, peq, _, proot = setup
+    calls = []
+    forward = rays.LocalGraph.forward
+
+    def counted(ctx, fn, keep, *inputs):
+        calls.append(keep)
+        return forward(ctx, fn, keep, *inputs)
+
+    monkeypatch.setattr(rays.LocalGraph, "forward", staticmethod(counted))
+    leaves = _grad_leaves(proot)
+    s = Solver(cold_plasma, peq, method="rk4", dt=DT, sub_steps=2,
+               remat_substeps=True).run(RayState(*leaves), 2)
+    stages = 4 * 2 * 2
+    assert calls == [False] * stages
+    torch.autograd.grad(_loss(s), leaves, allow_unused=True)
+    assert calls == [False] * (2 * stages)

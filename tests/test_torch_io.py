@@ -197,3 +197,34 @@ def test_postprocess_matches_jax(tmp_path):
     postprocess.save_bins(tmp_path / "bins.nc", got, got_edges)
     jax_post.save_bins(tmp_path / "jbins.nc", want, want_edges)
     assert layout(tmp_path / "bins.nc") == layout(tmp_path / "jbins.nc")
+
+
+def test_checkpoint_round_trip(tmp_path):
+    """io.checkpoint (the Orbax module's counterpart): a RayState saved at
+    two steps comes back bit for bit, in its dtype, from the latest step;
+    a checkpoint is not replaced without force, and a template of another
+    shape or dtype is refused."""
+    from graph_framework_tpu_torch.io import (
+        latest_step, restore_ray_state, save_ray_state)
+
+    rng = np.random.default_rng(7)
+    state = RayState(*[torch.from_numpy(rng.standard_normal(5))
+                       for _ in RayState._fields])
+    assert latest_step(tmp_path) is None
+    save_ray_state(tmp_path, state, step=3)
+    later = state._replace(x=state.x + 1.0)
+    save_ray_state(tmp_path, later, step=12)
+    assert latest_step(tmp_path) == 12
+    got = restore_ray_state(tmp_path, state, step=latest_step(tmp_path))
+    assert all(torch.equal(a, b) for a, b in zip(got, later))
+    got = restore_ray_state(tmp_path, step=3, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(got, state))
+    assert got.x.dtype == torch.float64 and got.x.device.type == "cpu"
+    with pytest.raises(FileExistsError):
+        save_ray_state(tmp_path, state, step=3, force=False)
+    save_ray_state(tmp_path / "plain", state)
+    got = restore_ray_state(tmp_path / "plain", state)
+    assert all(torch.equal(a, b) for a, b in zip(got, state))
+    short = RayState(*[leaf[:4].float() for leaf in state])
+    with pytest.raises(ValueError, match="template"):
+        restore_ray_state(tmp_path, short, step=3)
