@@ -162,6 +162,22 @@ Then the xrays pipeline as users run it, through the port's CLI:
    complex128/float64 and complex64/float32 at about 1e6 points over every
    branch, against scipy.special.
 
+Then the embedding layer, the reference's graph API (``expr.py``,
+``capi_bridge.py``, ``capi/``):
+
+21. a light wave D = w^2 - c^2 k^2 - wp^2(x, z) built through the port's
+   graph API at 1M rays: (a) ``expr.newton``'s converge item for kx, wp^2
+   a piecewise_2D over the synthetic map's 129 x 129 grid, f64 and f32,
+   against the closed-form root (1e-10 in f64; in f32 a limit derived from
+   the rounding of D) and on 4099 rays against the same Workflow on the CPU
+   in f64; (b) a loop item of 100 explicit ray steps from df of D (wp^2 an
+   analytic profile of graph nodes), f64 and f32, against the CPU's f64
+   run on 4099 rays, each limit 10x below what the graph with one setter's
+   sign flipped shows; seconds, device operations and device ms a run (the
+   profiler), busy share and peak memory of each; (c) ``libgraph_tpu_torch.so``
+   built from the checkout with gcc, the unchanged ``capi/c_binding_test.c``
+   linked against it and run on the card (``GRAPH_TORCH_DEVICE`` unset).
+
 It then prints the kernel table as one JSON line (the seven kernels and
 the instances of K1, K2 and K3 for the other ten dispersions; the lines of
 cold plasma's and the expansion's K1 and of K6 also carry their launches
@@ -196,6 +212,7 @@ from graph_framework_tpu_torch.constants import (
 from graph_framework_tpu_torch.kernels import (
     boris, build, efit_step, vmec_geom, vmec_modes)
 from graph_framework_tpu_torch.kernels import deposit as k6
+from graph_framework_tpu_torch import expr
 from graph_framework_tpu_torch.cli import xpic, xrays, xrays_bench
 from graph_framework_tpu_torch.io.output import host_array
 from graph_framework_tpu_torch.models import absorbed_power, absorption
@@ -215,6 +232,7 @@ from graph_framework_tpu_torch.models.vmec import vmec_from_tables
 from graph_framework_tpu_torch.ops import integrators, special
 from graph_framework_tpu_torch.ops.compensated import (
     CompCarry, comp_state_f64, init_comp_carry)
+from graph_framework_tpu_torch.ops.tables import piecewise_2d
 from graph_framework_tpu_torch.solver import Solver, init_k, make_ray_state
 from graph_framework_tpu_torch.tools.make_splines import (
     efit_tables, vmec_tables)
@@ -3578,6 +3596,303 @@ def phase_special(device, n=1_000_002):
         raise AssertionError(f"phase 20: {bad}")
 
 
+# -- the embedding layer (phase 21) --------------------------------------------
+# A light wave D = w^2 - c^2 (kx^2 + ky^2 + kz^2) - wp^2(x, z) built through
+# the port's graph API (expr.py), in the port's normalized units (w = omega
+# / c in 1/m, so c^2 = 1: the constant folds away as the reference's
+# reduce() folds it), at the EFIT main path's 1M-ray width.  21a: wp^2 is a
+# piecewise_2D over the synthetic map's 129 x 129 grid (wp^2 of the density
+# of synthetic_samples at each node, its values rounded to f32 so that the
+# f32 and f64 graphs gather the same numbers); the launch positions lie at
+# cell centres (1 + (i + 1/2) / 64 m: exact in f32, so the f32 graph's
+# truncated index is the f64 one's; a position next to a cell edge would
+# fall into the neighbouring cell in f32).  21b: wp^2 is the analytic
+# profile EMBED_WP0_2 exp(-((x - R0)^2 + z^2) / EMBED_A^2) built from graph
+# nodes, since a table node's df is 0 (expr.py, as in the reference).
+EMBED_C2 = 1.0
+EMBED_KX_GUESS = 500.0
+EMBED_KZ_SPREAD = 10.0
+EMBED_MAX_ITER = 40
+EMBED_WP0_2, EMBED_A = 7.0e4, 0.5
+EMBED_DT, EMBED_STEPS = 1.0e-3, 100
+# Limits of 21a: kx against the closed-form root sqrt((w^2 - wp^2)/c^2 -
+# ky^2 - kz^2) with wp^2 from ops.tables.piecewise_2d on the same table, in
+# f64, and the card's f64 Newton against the CPU's f64 run of the same
+# Workflow at EMBED_REFEREE_RAYS rays (the same IEEE operations in the
+# same order: a few ulp).  f32 (derived): D = w^2 - (kx^2 + ky^2 + kz^2) -
+# wp^2 rounds to within about 3 eps S, S = w^2 + k^2 + wp^2, so Newton
+# stalls where |D| is that, kx within 3 eps S / (2 kx^2) of the root, and
+# kx itself rounds by eps / 2: the limit is EMBED_F32_SAFETY times
+# eps (1/2 + 3 S / (2 kx^2)) at the worst ray (about 1.2e-6 here).
+EMBED_F64_TOL = 1.0e-10
+EMBED_REFEREE_F64_TOL = 1.0e-12
+EMBED_F32_SAFETY = 2.0
+EMBED_REFEREE_RAYS = 4099
+# Limits of 21b, per group (position, wave vector) relative to its scale,
+# against the CPU's f64 run at EMBED_REFEREE_RAYS rays: a step rounds each
+# leaf by eps / 2 of its scale and its increment (dt times a rate) by a
+# few eps of itself, and the rays separate slowly over 0.1 m (the profile's
+# scale is 0.5 m), so EMBED_LOOP_ULPS eps a step, over the steps.  Each
+# limit must lie SEPARATION times below what a wrong graph shows (the
+# kx setter with its sign flipped).
+EMBED_LOOP_ULPS = 4.0
+
+
+def embedding_table():
+    """wp^2 (1/m^2) of the synthetic map's density on its 129 x 129 grid,
+    rounded to f32; and (dr, rmin, dz, zmin) of its cells."""
+    s = synthetic_samples()
+    ne = np.interp(s["psi"], s["psi_profile"], s["ne"])
+    table = plasma_frequency_squared(ne, Q, ME)
+    dr = (R_RANGE[1] - R_RANGE[0]) / (GRID - 1)
+    dz = (Z_RANGE[1] - Z_RANGE[0]) / (GRID - 1)
+    return (table.astype(np.float32).astype(np.float64),
+            (dr, R_RANGE[0], dz, Z_RANGE[0]))
+
+
+def _f32_values(arrays):
+    return {k: v.astype(np.float32).astype(np.float64)
+            for k, v in arrays.items()}
+
+
+def embedding_launch(n, seed=SEED):
+    """21a's launch as f32-representable float64 arrays: x and z at cell
+    centres of the table (both ends' cells excluded), y 0, w W0, ky and kz
+    spread normally, kx the Newton guess."""
+    rng = np.random.default_rng(seed)
+    dr, rmin, dz, zmin = embedding_table()[1]
+    cells = rng.integers(1, GRID - 2, size=(2, n))
+    return _f32_values(dict(
+        w=np.full(n, W0), x=rmin + (cells[0] + 0.5) * dr, y=np.zeros(n),
+        z=zmin + (cells[1] + 0.5) * dz, kx=np.full(n, EMBED_KX_GUESS),
+        ky=KY0 + KY_SPREAD * rng.standard_normal(n),
+        kz=EMBED_KZ_SPREAD * rng.standard_normal(n)))
+
+
+def loop_launch(n, seed=SEED):
+    """21b's launch: positions within 0.3 m of the profile's centre, kx on
+    the dispersion surface of the analytic profile (f32-representable)."""
+    rng = np.random.default_rng(seed + 1)
+    launch = embedding_launch(n, seed)
+    launch["x"] = R0 + 0.3 * (2.0 * rng.random(n) - 1.0)
+    launch["z"] = 0.3 * (2.0 * rng.random(n) - 1.0)
+    wp2 = EMBED_WP0_2 * np.exp(-((launch["x"] - R0) ** 2 + launch["z"] ** 2)
+                               / EMBED_A ** 2)
+    launch["kx"] = np.sqrt(launch["w"] ** 2 - wp2 - launch["ky"] ** 2
+                           - launch["kz"] ** 2)
+    return _f32_values(launch)
+
+
+def light_wave(v, wp2):
+    """D = w^2 - c^2 (kx^2 + ky^2 + kz^2) - wp^2 on the graph's variables."""
+    return (v["w"] * v["w"] - expr.constant(EMBED_C2)
+            * (v["kx"] * v["kx"] + v["ky"] * v["ky"] + v["kz"] * v["kz"])
+            - wp2)
+
+
+def embedding_variables(launch, dtype, device, rays=slice(None)):
+    return {name: expr.variable(len(value[rays]), value[rays], name,
+                                dtype=dtype, device=device)
+            for name, value in launch.items()}
+
+
+def embedding_newton(launch, dtype, device, rays=slice(None)):
+    """21a's Workflow: expr.newton for kx, D over the table.  Returns the
+    compiled workflow and its variables."""
+    table, (dr, rmin, dz, zmin) = embedding_table()
+    v = embedding_variables(launch, dtype, device, rays)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    wp2 = expr.piecewise_2D(table.astype(np_dtype), GRID, v["x"], dr, rmin,
+                            v["z"], dz, zmin)
+    work = expr.Workflow(device=device)
+    expr.newton(work, [v["kx"]], list(v.values()), light_wave(v, wp2),
+                max_iterations=EMBED_MAX_ITER)
+    work.compile()
+    return work, v
+
+
+def embedding_loop(launch, dtype, device, rays=slice(None), wrong=False):
+    """21b's Workflow: a loop item of EMBED_STEPS explicit ray steps from
+    df of D (position by -dD/dk / dD/dw, k by dD/dx / dD/dw; all setters
+    read the state before the step), D over the analytic profile.  With
+    ``wrong``, the kx setter's sign is flipped."""
+    v = embedding_variables(launch, dtype, device, rays)
+    wp2 = expr.constant(EMBED_WP0_2) * expr.exp(
+        -((v["x"] - R0) * (v["x"] - R0) + v["z"] * v["z"])
+        / expr.constant(EMBED_A ** 2))
+    d = light_wave(v, wp2)
+    dw = d.df(v["w"])
+    dt = expr.constant(EMBED_DT)
+    pairs = (("x", "kx"), ("y", "ky"), ("z", "kz"))
+    setters = [(v[p] - dt * d.df(v[k]) / dw, v[p]) for p, k in pairs]
+    setters += [(v[k] + (-1.0 if wrong and k == "kx" else 1.0) * dt
+                 * d.df(v[p]) / dw, v[k]) for p, k in pairs]
+    work = expr.Workflow(device=device)
+    work.add_loop_item(list(v.values()), [], setters, loops=EMBED_STEPS)
+    work.compile()
+    return work, v
+
+
+def embedding_reset(work, v, launch):
+    for name, value in launch.items():
+        work.copy_to_device(v[name], torch.as_tensor(value).to(
+            v[name].data.dtype))
+
+
+def ray_group_deviations(got, want):
+    """Per group (position x, y, z; wave vector kx, ky, kz) the largest
+    |got - want| over the rays relative to the group's scale in want."""
+    out = {}
+    for group, names in (("pos", ("x", "y", "z")), ("k", ("kx", "ky", "kz"))):
+        scale = max(float(np.abs(want[n]).max()) for n in names) or 1.0
+        out[group] = max(_no_nan(np.abs(got[n] - want[n]).max())
+                         for n in names) / scale
+    return out
+
+
+def host_state(v, rays=slice(None)):
+    return {n: v[n].data.double().cpu().numpy()[rays]
+            for n in ("x", "y", "z", "kx", "ky", "kz")}
+
+
+def workflow_stats(work, reset, device):
+    """A run of ``work`` after ``reset`` and a warm-up run (the first run
+    pays each kernel's first launch): seconds (synchronized), device
+    operations and device ms of a third run under the profiler, the busy
+    share (device ms over the timed run's wall) and the peak memory of the
+    runs above what was allocated before them."""
+    reset()
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    work.run()
+    reset()
+    sync(device)
+    t0 = time.perf_counter()
+    work.run()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    reset()
+    sync(device)
+    ops, device_ms = device_work(work.run)
+    return dict(seconds=seconds, device_ops=ops, device_ms=device_ms,
+                busy=device_ms / (1e3 * seconds),
+                peak_gb=(torch.cuda.max_memory_allocated() - start) / 1e9)
+
+
+def phase_embedding(device, n=1_000_000, n_ref=EMBED_REFEREE_RAYS,
+                    c_device=None):
+    """Phase 21, the embedding layer (expr.py, capi_bridge.py, capi/): 21a
+    Newton's converge item for kx over the table at ``n`` rays, f64 and
+    f32, against the closed-form root and, on ``n_ref`` rays, the same
+    Workflow on the CPU in f64; 21b a loop item of EMBED_STEPS ray steps
+    from df of D at ``n`` rays, f64 and f32, against the CPU's f64 run on
+    ``n_ref`` rays, each limit SEPARATION times below a wrong graph's
+    deviation; 21c libgraph_tpu_torch.so built from the checkout and the
+    unchanged capi/c_binding_test.c run against it with
+    GRAPH_TORCH_DEVICE ``c_device`` (None: unset, the card)."""
+    from graph_framework_tpu_torch.capi import build as capi_build
+
+    cpu = torch.device("cpu")
+    refs = slice(0, n_ref)
+    table, (dr, rmin, dz, zmin) = embedding_table()
+    launch = embedding_launch(n)
+    lt = {k: torch.as_tensor(v, device=device) for k, v in launch.items()}
+    wp2 = piecewise_2d(torch.as_tensor(table, device=device), lt["x"], dr,
+                       rmin, lt["z"], dz, zmin)
+    root = torch.sqrt((lt["w"] ** 2 - wp2) / EMBED_C2 - lt["ky"] ** 2
+                      - lt["kz"] ** 2).cpu().numpy()
+    cpu_work, cpu_v = embedding_newton(launch, torch.float64, cpu, refs)
+    cpu_work.run()
+    cpu_root = cpu_v["kx"].data.numpy()
+    s = (launch["w"] ** 2 + root ** 2 + launch["ky"] ** 2
+         + launch["kz"] ** 2 + wp2.cpu().numpy())
+    f32_limit = EMBED_F32_SAFETY * float(np.finfo(np.float32).eps) * float(
+        np.max(0.5 + 1.5 * s / root ** 2))
+    limits = {torch.float64: (EMBED_F64_TOL, EMBED_REFEREE_F64_TOL),
+              torch.float32: (f32_limit, f32_limit)}
+    rows, checks = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        work, v = embedding_newton(launch, dtype, device)
+        stats = workflow_stats(work, lambda: embedding_reset(work, v, launch),
+                               device)
+        item = work.items[0]
+        kx = v["kx"].data.double().cpu().numpy()
+        closed = _no_nan(np.max(np.abs(kx - root) / np.abs(root)))
+        referee = _no_nan(np.max(np.abs(kx[refs] - cpu_root)
+                                 / np.abs(cpu_root)))
+        tag = "f64" if dtype == torch.float64 else "f32"
+        rows[tag] = dict(stats, iterations=item.iterations,
+                         schedule_nodes=len(item.schedule),
+                         vs_closed_form=closed, vs_cpu_f64=referee,
+                         limits=limits[dtype])
+        checks[f"21a {tag} closed form"] = closed <= limits[dtype][0]
+        checks[f"21a {tag} cpu"] = referee <= limits[dtype][1]
+        del work, v
+    print(f"[21a embedding: Newton's converge item for kx] {n} rays, D = "
+          f"w^2 - c^2 k^2 - wp^2(x, z) over the {GRID} x {GRID} table; per "
+          f"dtype the seconds a run, device operations and device ms a run "
+          f"(the profiler), busy share, peak GB, iterations, schedule nodes, "
+          f"max relative |kx - closed form| and |kx - CPU f64| on {n_ref} "
+          f"rays, and their limits: {json.dumps(rows)}")
+
+    loop = loop_launch(n)
+    cpu_work, cpu_v = embedding_loop(loop, torch.float64, cpu, refs)
+    cpu_work.run()
+    want = host_state(cpu_v)
+    bad_work, bad_v = embedding_loop(loop, torch.float64, cpu, refs,
+                                     wrong=True)
+    bad_work.run()
+    wrong = ray_group_deviations(host_state(bad_v), want)
+    loop_rows = {}
+    for dtype in (torch.float64, torch.float32):
+        work, v = embedding_loop(loop, dtype, device)
+        stats = workflow_stats(work, lambda: embedding_reset(work, v, loop),
+                               device)
+        dev = ray_group_deviations(host_state(v, refs), want)
+        limit = EMBED_LOOP_ULPS * EMBED_STEPS * float(torch.finfo(dtype).eps)
+        finite = all(bool(torch.isfinite(v[n].data).all())
+                     for n in ("x", "y", "z", "kx", "ky", "kz"))
+        tag = "f64" if dtype == torch.float64 else "f32"
+        loop_rows[tag] = dict(stats, schedule_nodes=len(
+            work.items[0].schedule), vs_cpu_f64=dev, limit=limit)
+        checks[f"21b {tag} cpu"] = max(dev.values()) <= limit and finite
+        checks[f"21b {tag} separation"] = (
+            SEPARATION * limit <= max(wrong.values()))
+        del work, v
+    print(f"[21b embedding: a loop item of {EMBED_STEPS} ray steps from df "
+          f"of D] {n} rays, dt {EMBED_DT}; the wrong graph (kx's setter sign "
+          f"flipped) against the right one on the CPU: {json.dumps(wrong)}; "
+          f"per dtype the seconds a run, device operations and device ms a "
+          f"run (the profiler), busy share, peak GB, schedule nodes, the "
+          f"deviation from the CPU's f64 run on {n_ref} rays by group and "
+          f"its limit: {json.dumps(loop_rows)}")
+
+    t0 = time.perf_counter()
+    probe = capi_build.probe()
+    exe = capi_build.build_program("c_binding_test.c")
+    built = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = subprocess.run([str(exe)], env=capi_build.program_env(c_device),
+                         capture_output=True, text=True, timeout=600)
+    ran = time.perf_counter() - t0
+    passed = (run.returncode == 0
+              and "All C binding tests passed." in run.stdout)
+    checks["21c C binding"] = passed
+    print(f"[21c embedding: the C library] probe {json.dumps(probe)}; "
+          f"{exe.parent.name}/{capi_build.LIBRARY} and c_binding_test built "
+          f"in {built:.3f} s; GRAPH_TORCH_DEVICE "
+          f"{'unset (the card)' if c_device is None else c_device}: exit "
+          f"{run.returncode} in {ran:.3f} s; "
+          f"{' / '.join(run.stdout.strip().splitlines())}")
+    if not passed:
+        print(run.stderr[-4000:], file=sys.stderr)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 21: {failed}")
+    return rows, loop_rows
+
+
 # xrays_bench's depth in phase 19b: 20 recorded steps of 10 (the CLI's
 # default is 100; its eager rk4 is launch-bound, 32 ms a step at 100k
 # rays f32, so the rate does not depend on the depth).
@@ -3671,6 +3986,7 @@ def main():
     phase_xrays_damped(device)
     pic_cli = phase_cli_extras(device)
     phase_special(device)
+    phase_embedding(device)
     for record in records:
         if record["name"] == "efit_window":
             record["launches_xrays_cli"] = pipeline["launches"]

@@ -31,9 +31,17 @@ Subpackages
 ``kernels``  CUDA kernel wrappers and their build (``nvcc`` at first use).
 ``tools``    numpy spline-table builders for EFIT inputs; the kernels'
              operation counter.
+``capi``     the C API over the port: ``libgraph_tpu_torch.so`` (the JAX
+             package's C source and header, importing this package's
+             bridge) and its gcc build at first use, with the embedders'
+             C and Fortran test programs.
 
 ``postprocess`` (NaN scrub, 3D power bins over result files) is a
-module of its own, as in the JAX package.
+module of its own, as in the JAX package; so are ``expr`` (expression
+graphs, their derivatives and reductions, and the workflow manager that
+runs setter items eagerly on the variables' device) and ``capi_bridge``
+(the Python side of the C library: contexts of a scalar type and a
+device, the card unless ``GRAPH_TORCH_DEVICE`` names another).
 """
 
 __version__ = "0.1.0"

@@ -16,6 +16,7 @@ import shutil
 import subprocess
 import sys
 import types
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -125,6 +126,13 @@ with torch.no_grad():
     power = absorbed_power_fn(eq, state, 1, 10, form="kernel")(
         eq.psi_coeffs, 0.0)
 assert bool(torch.isfinite(power))
+from graph_framework_tpu_torch import capi_bridge, expr
+x = expr.variable(8, 3.0, "x", device="cpu")
+work = expr.Workflow(device="cpu")
+expr.newton(work, [x], [x], x * x - 2.0, tolerance=1e-28)
+work.compile()
+work.run()
+assert abs(float(x.data[0]) - 2.0 ** 0.5) < 1e-12
 print(sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "graph_framework_tpu"
@@ -162,7 +170,7 @@ def _entry_points(tmp_path_factory):
     """Each entry point of the port that makes tensors, called without a
     device (so on the card), as a zero-argument callable."""
     from graph_framework_tpu.tools.make_splines import write_vmec_file
-    from graph_framework_tpu_torch import convert
+    from graph_framework_tpu_torch import convert, expr
     from graph_framework_tpu_torch.cli import xkorc, xpic, xrays, xrays_bench
     from graph_framework_tpu_torch.models import (
         absorption, efit, korc, pic, vmec)
@@ -220,7 +228,29 @@ def _entry_points(tmp_path_factory):
             chip_smoke.MemoryFiles().open),
         "bench_one": lambda: xrays_bench.bench_one(
             "double", None, 2, 10, 10, eq=cpu_eq),
+        "make_context": lambda: _make_context_default(),
+        "evaluate": lambda: (expr.constant(2.0)
+                             * expr.sqrt(expr.Constant(3.0))).evaluate(),
+        "variable": lambda: expr.variable(4, 1.0, "x"),
+        "Workflow": lambda: _workflow_default(),
     }
+
+
+def _make_context_default():
+    """capi_bridge.make_context without GRAPH_TORCH_DEVICE."""
+    from graph_framework_tpu_torch import capi_bridge
+    with mock.patch.dict(os.environ):
+        os.environ.pop(capi_bridge.DEVICE_VARIABLE, None)
+        capi_bridge.make_context(1, False)
+
+
+def _workflow_default():
+    """A Workflow without a device, of an item without variables."""
+    from graph_framework_tpu_torch import expr
+    work = expr.Workflow()
+    work.add_item([], [expr.constant(2.0) + expr.random(4)], [])
+    work.compile()
+    work.run()
 
 
 def _restore_default(tmp_path_factory):
@@ -251,7 +281,8 @@ ENTRY_POINTS = ["make_ray_state", "efit_from_tables", "make_efit",
                 "run_korc", "make_deposit", "pic_start", "run_pic",
                 "run_absorption", "restore_ray_state", "make_weak_damping",
                 "run_xrays",
-                "run_xkorc", "run_xpic", "bench_one"]
+                "run_xkorc", "run_xpic", "bench_one", "make_context",
+                "evaluate", "variable", "Workflow"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
