@@ -178,7 +178,30 @@ Then the embedding layer, the reference's graph API (``expr.py``,
    built from the checkout with gcc, the unchanged ``capi/c_binding_test.c``
    linked against it and run on the card (``GRAPH_TORCH_DEVICE`` unset).
 
-It then prints the kernel table as one JSON line (the seven kernels and
+Then the ray ensemble split across processes (``parallel``), its ranks
+processes of this script (``--phase22-rank``) that load the kernel library
+phase 2 built:
+
+22. the card's compute mode; (a) two ranks on the one card, gloo (NCCL
+   refuses two ranks on one device): each solves its 500k-ray slice of
+   phase 4c's launch with ``init_k(mesh=)`` (4c's Newton iterations, one
+   ensemble-max all-reduce an iteration and the last test's) and runs
+   ``Solver.run`` on the production stack for 100 x 10 (100 K1 launches a
+   rank), its rows equal to 4c's bit for bit and ``host_local_rows``
+   partitioning the rays; the checkpoint the ranks saved, restored by this
+   process, equal to 4c's rows; config 5's kernel form over each rank's
+   half of phase b5's launch in 4 batches of 125k (80 K1 and 80 K3
+   launches a rank, no K2), the sums every rank returns within
+   ``config5_limits`` of b5's (the batches' f32 association and b5's own
+   pass-to-pass spread from K3's atomics), each limit 10x below what a
+   wrong reduction shows (a rank's share: its slice's sums without the
+   all-reduce, from a second, untimed call); (b) one rank, NCCL: the same trace and Newton
+   solve through NCCL's all-reduce, rows bit for bit; the walls, each
+   collective's milliseconds a call, config 5's fwd+bwd ray-steps/s under
+   two ranks and the peak memory of each rank.
+
+After each group of phases a ``[lap]`` line gives its wall seconds.  It
+then prints the kernel table as one JSON line (the seven kernels and
 the instances of K1, K2 and K3 for the other ten dispersions; the lines of
 cold plasma's and the expansion's K1 and of K6 also carry their launches
 on the CLI paths) and, last, the device line
@@ -198,14 +221,17 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from graph_framework_tpu_torch.constants import (
     ME, Q, cyclotron_frequency, plasma_frequency_squared)
@@ -214,6 +240,8 @@ from graph_framework_tpu_torch.kernels import (
 from graph_framework_tpu_torch.kernels import deposit as k6
 from graph_framework_tpu_torch import expr
 from graph_framework_tpu_torch.cli import xpic, xrays, xrays_bench
+from graph_framework_tpu_torch.io.checkpoint import (
+    restore_ray_state, save_ray_state)
 from graph_framework_tpu_torch.io.output import host_array
 from graph_framework_tpu_torch.models import absorbed_power, absorption
 from graph_framework_tpu_torch.models.dispersion import (
@@ -233,6 +261,9 @@ from graph_framework_tpu_torch.ops import integrators, special
 from graph_framework_tpu_torch.ops.compensated import (
     CompCarry, comp_state_f64, init_comp_carry)
 from graph_framework_tpu_torch.ops.tables import piecewise_2d
+from graph_framework_tpu_torch.parallel import (
+    distributed, ray_mesh, run_blocked_sharded, shard_rays)
+from graph_framework_tpu_torch.parallel import mesh as pmesh
 from graph_framework_tpu_torch.solver import Solver, init_k, make_ray_state
 from graph_framework_tpu_torch.tools.make_splines import (
     efit_tables, vmec_tables)
@@ -1778,7 +1809,9 @@ def phase_config5(device, n=1_000_000, n_ref=4099, steps=CONFIG5_STEPS,
     second pass (the device ms over that pass's seconds a batch: the
     profiler slows the host several times over).  Returns the second
     pass's launch counts, the equilibrium and the first batch's launch
-    state (kz set to kz0), for the K1 and K3 lines at that batch.
+    state (kz set to kz0), for the K1 and K3 lines at that batch, and
+    each pass's seconds and (value, dL/dpsi, dL/dkz) on the host, which
+    phase 22 holds its ranks' sums to.
     ``check_launches``: hold the launch counts (not on CPU tensors, where
     no kernel launches)."""
     sub, nb = CONFIG5_SUB, batches
@@ -1815,6 +1848,7 @@ def phase_config5(device, n=1_000_000, n_ref=4099, steps=CONFIG5_STEPS,
         del got, want
 
     windows = nb * steps * (sub // absorbed_power.FREEZE_EVERY)
+    passes = []
     for attempt in ("first pass", "second pass"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1846,6 +1880,8 @@ def phase_config5(device, n=1_000_000, n_ref=4099, steps=CONFIG5_STEPS,
             raise AssertionError(
                 f"config 5: launches {counts} (want {windows}, 0, "
                 f"{windows}), finite {finite}, value {float(value)}")
+        passes.append(dict(seconds=seconds, sums=[
+            t.detach().cpu() for t in (value, g_psi, g_kz)]))
         del g_psi, g_kz
 
     batch_ms = 1e3 * seconds / nb
@@ -1861,7 +1897,8 @@ def phase_config5(device, n=1_000_000, n_ref=4099, steps=CONFIG5_STEPS,
           f"wall, so the device is busy {total / batch_ms:.4f} of it; the "
           f"scatter is index_add_ (scatter_block_cotangents), other is the "
           f"eager weak damping, its double backward, dl and the loss")
-    return counts, eq, batch._replace(kz=torch.full_like(batch.kz, kz0))
+    return (counts, eq, batch._replace(kz=torch.full_like(batch.kz, kz0)),
+            passes)
 
 
 def phase_remat_policy(device, n=100_000, steps=2):
@@ -2042,13 +2079,19 @@ def phase_main(device, n=100_000, steps=1000, n_big=1_000_000,
         raise AssertionError(f"compensated f32 vs f64: {gaps}")
 
     n1m, steps1m = n_big, steps_big
-    st1m = init_k(launch(n1m, torch.float32, device), cold_plasma, eq32)
+    st1m, diag1m = init_k(launch(n1m, torch.float32, device), cold_plasma,
+                          eq32, return_diagnostics=True)
     final1m, _, rate1m, secs1m, launches1m = run_main(eq32, st1m, steps1m,
                                                       True)
     frac1m, res1m = check_rays("1M", final1m, eq32, n1m)
     print(f"[4c main 1M f32 compensated] {n1m} rays x {steps1m} x "
-          f"{SUB_STEPS}: run {secs1m:.3f} s = {rate1m:.6e} ray-steps/s; "
-          f"{launches1m} launches; in table {frac1m}; max D^2 {res1m:.3e}")
+          f"{SUB_STEPS}: init_k {diag1m.iterations} iterations, run "
+          f"{secs1m:.3f} s = {rate1m:.6e} ray-steps/s; {launches1m} "
+          f"launches; in table {frac1m}; max D^2 {res1m:.3e}")
+    # phase 22 holds the ranks' rows to these, bit for bit
+    out["one_process"] = dict(
+        rows=RayState(*[leaf.cpu() for leaf in final1m]),
+        iterations=diag1m.iterations, seconds=secs1m)
     return out, eq32, st32
 
 
@@ -3932,23 +3975,323 @@ def phase_cli_extras(device, n_float=100_000, n_complex=10_000,
     return launches
 
 
+# -- ray ensembles split across processes (phase 22) ---------------------------
+# Phase 22 runs its ranks as processes of this script (``RANK_FLAG``), each
+# on the card with the kernel library phase 2 built (build.load finds the
+# keyed file: no rank runs nvcc).  22a: two ranks on the one card, gloo
+# (NCCL refuses two ranks on one device; gloo all-reduces CUDA tensors
+# through the host).  22b: one rank, NCCL, whose all-reduce of one rank is
+# the identity: the collectives are on the path, and its rows are the one
+# process's.
+RANK_FLAG = "--phase22-rank"
+PARALLEL_TIMEOUT = 300               # seconds a rank may take
+PARALLEL_LEGS = (("22a", 2, "gloo", True), ("22b", 1, "nccl", False))
+COLLECTIVE_REPS = 20
+# Config 5 in two ranks (1M rays, 4 batches of 125k a rank) against phase
+# b5's one process (8 batches of the same rays).  A batch's value and its
+# dL/dkz are the same bit for bit in both (K1 and the eager weak damping
+# are deterministic, and dL/dkz sums per-ray cotangents); the order in which
+# the 8 batches' sums are added differs: at most 2 (B - 1) roundings of
+# u = 2^-24 each, relative to the sum when the batches add with one sign.
+# dL/dpsi also carries K3's index_add_ atomics, whose order changes from run
+# to run: phase b5's two passes differ by that alone, read in this run.  The
+# limit of each quantity is CONFIG5_SUM_FACTOR times the larger of the two,
+# and it must lie SEPARATION times below what a wrong reduction shows (one
+# rank's share dropped, or counted twice).
+CONFIG5_SUM_FACTOR = 20.0
+F32_UNIT_ROUNDOFF = 2.0 ** -24
+
+
+def parallel_rank(cfg):
+    """One rank of phase 22 (``python3 chip_smoke.py --phase22-rank
+    CONFIG``): joins the group, solves its slice of phase 4c's 1M-ray launch
+    with ``init_k(mesh=)`` and traces it with ``Solver.run`` on the
+    production stack; with ``cfg["config5"]`` it also saves a checkpoint
+    and runs config 5's kernel form over its slice of phase b5's launch.
+    Writes its rows and sums under ``cfg["out"]`` and prints one RANK line
+    of JSON."""
+    device = torch.device(cfg["device"])
+    cuda = device.type == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)
+    world, rank = cfg["world"], cfg["rank"]
+    address = f"localhost:{cfg['port']}"
+    if cuda:
+        # the rank's card, current before any CUDA call (initialize() makes
+        # it current for NCCL only)
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    if world > 1:
+        distributed.initialize(address, world, rank, backend=cfg["backend"])
+    else:
+        # initialize() is a no-op for one process, as in the JAX package;
+        # a group of one puts the backend's all-reduce on the path
+        dist.init_process_group(cfg["backend"],
+                                init_method=f"tcp://{address}",
+                                world_size=1, rank=0)
+    mesh = ray_mesh(device=cfg["device"])
+    out, info = cfg["out"], {}
+
+    def wall(fn):
+        mesh.barrier()
+        sync(mesh.device)
+        t0 = time.perf_counter()
+        result = fn()
+        sync(mesh.device)
+        return result, time.perf_counter() - t0
+
+    def collective_ms(fn):
+        _, seconds = wall(lambda: [fn() for _ in range(COLLECTIVE_REPS)])
+        return 1e3 * seconds / COLLECTIVE_REPS
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    eq = synthetic_equilibrium(torch.float32, mesh.device)
+    pmesh.all_reduce_calls = 0
+    (root, diag), info["newton_s"] = wall(lambda: init_k(
+        shard_rays(launch(cfg["n"], torch.float32, mesh.device), mesh),
+        cold_plasma, eq, return_diagnostics=True, mesh=mesh))
+    info.update(iterations=diag.iterations,
+                newton_all_reduces=pmesh.all_reduce_calls,
+                newton_all_reduce_ms=collective_ms(
+                    lambda: mesh.ensemble_max(diag.residual)))
+    solver = production_solver(eq)
+    run_blocked_sharded(solver, root, 1, mesh)     # K1's first launch
+    reset_launch_counts()
+    final, info["trace_s"] = wall(lambda: run_blocked_sharded(
+        solver, root, cfg["steps"], mesh))
+    info["launches"] = launch_counts()
+    idx, _ = distributed.host_local_rows(final.x, mesh)
+    torch.save(dict(idx=torch.from_numpy(idx),
+                    rows=[leaf.cpu() for leaf in final]),
+               f"{out}/rows{rank}.pt")
+    if cfg["config5"]:
+        save_ray_state(f"{out}/checkpoint", final, mesh=mesh)
+        c5_root = init_k(shard_rays(launch(
+            cfg["n"], torch.float32, mesh.device, **CONFIG5_LAUNCH), mesh),
+            cold_plasma, eq, mesh=mesh)
+
+        def config5(rank_mesh):
+            value, grads = absorbed_power.absorbed_power_grad(
+                eq, c5_root, cfg["c5_steps"], CONFIG5_SUB, eq.psi_coeffs,
+                CONFIG5_KZ, form="kernel", batches=cfg["c5_batches"],
+                mesh=rank_mesh)
+            return [value, *grads]
+
+        reset_launch_counts()
+        sums, info["config5_s"] = wall(lambda: config5(mesh))
+        info["config5_launches"] = launch_counts()
+        info["config5_all_reduce_ms"] = collective_ms(
+            lambda: mesh.all_reduce_sum(sums))
+        # this rank's share (its slice without the all-reduce), untimed:
+        # what a wrong reduction drops or counts twice
+        share = config5(None)
+        torch.save(dict(sums=[t.cpu() for t in sums],
+                        share=[t.cpu() for t in share]),
+                   f"{out}/config5_{rank}.pt")
+    info["peak_gb"] = (torch.cuda.max_memory_allocated(mesh.device) / 1e9
+                       if cuda else 0.0)
+    mesh.barrier()
+    dist.destroy_process_group()
+    print("RANK " + json.dumps(info), flush=True)
+    return 0
+
+
+def run_ranks(configs):
+    """Start one process a config, all together, and wait for each with
+    its own timeout; kill every one that is left when one fails.  Returns
+    the ranks' RANK lines."""
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, RANK_FLAG, json.dumps(cfg)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cfg in configs]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=PARALLEL_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for cfg, proc, text in zip(configs, procs, outs):
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 22 rank {cfg['rank']} of "
+                                 f"{cfg['world']} exited "
+                                 f"{proc.returncode}:\n{text[-4000:]}")
+    return [json.loads(next(line[5:] for line in text.splitlines()
+                            if line.startswith("RANK ")))
+            for text in outs]
+
+
+def config5_limits(passes, batches):
+    """Phase 22's config 5 limits (value, dL/dpsi, dL/dkz): the batches'
+    association bound, or b5's two passes' deviation, CONFIG5_SUM_FACTOR
+    times the larger (see CONFIG5_SUM_FACTOR)."""
+    association = 2 * (batches - 1) * F32_UNIT_ROUNDOFF
+    return [CONFIG5_SUM_FACTOR * max(association, r) for r in
+            relative_deviations(passes[0]["sums"], passes[1]["sums"])]
+
+
+def phase_parallel(device, reference, n=1_000_000, steps=100,
+                   c5_steps=CONFIG5_STEPS, c5_batches=CONFIG5_BATCHES,
+                   legs=PARALLEL_LEGS, check_launches=True):
+    """Phase 22: ray ensembles split across processes (``parallel``) on the
+    card, each leg's ranks against ``reference``, phase 4c's one process
+    (``one_process``: its rows, Newton iterations and seconds) and phase
+    b5's (``config5``: its two passes).  Each rank: ``init_k(mesh=)`` (the
+    iterations of one process, one ensemble-max all-reduce an iteration
+    and the last test's), ``Solver.run`` over n / W rays x ``steps``
+    (``steps`` K1 launches), its rows equal to the one process's bit for
+    bit, ``host_local_rows`` partitioning the rays.  Where the leg runs
+    config 5: the checkpoint its ranks saved restored by this process
+    equal to the one process's rows, and config 5's kernel form in
+    ``c5_batches`` / W batches a rank (K1 and K3 launches, no K2; every
+    rank's sums the same) within ``config5_limits`` of b5's, each limit
+    SEPARATION times below a wrong reduction."""
+    one, c5 = reference["one_process"], reference["config5"]
+    if device.type == "cuda":
+        mode = subprocess.run(
+            ["nvidia-smi", "--query-gpu=compute_mode",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+        print(f"[22 compute mode] {mode}")
+        torch.cuda.empty_cache()
+    failed = []
+    for leg, world, backend, with_c5 in legs:
+        with tempfile.TemporaryDirectory(prefix=f"phase{leg}_") as out:
+            port = free_port()
+            infos = run_ranks([dict(
+                device=device.type, world=world, rank=rank, port=port,
+                backend=backend, out=out, n=n, steps=steps,
+                config5=with_c5, c5_steps=c5_steps,
+                c5_batches=c5_batches // world) for rank in range(world)])
+            rows = [torch.load(f"{out}/rows{r}.pt") for r in range(world)]
+            idx = torch.cat([r["idx"] for r in rows])
+            bits = all(torch.equal(got, want[r["idx"]]) for r in rows
+                       for got, want in zip(r["rows"], one["rows"]))
+            checks = {
+                "iterations": [i["iterations"] for i in infos]
+                == [one["iterations"]] * world,
+                "one all-reduce an iteration": all(
+                    i["newton_all_reduces"] == i["iterations"] + 1
+                    for i in infos),
+                "rows bit for bit": bits,
+                "host_local_rows partitions": torch.equal(
+                    idx, torch.arange(n))}
+            if check_launches:
+                windows = steps * (SUB_STEPS // FREEZE_EVERY)
+                checks["K1 launches"] = all(
+                    tuple(i["launches"]) == (windows, 0, 0) for i in infos)
+            if with_c5:
+                whole = restore_ray_state(f"{out}/checkpoint", device="cpu")
+                checks["checkpoint restored whole"] = all(
+                    torch.equal(a, b) for a, b in zip(whole, one["rows"]))
+            trace_s = max(i["trace_s"] for i in infos)
+            print(f"[{leg} parallel, {world} rank(s), {backend}] {n} rays "
+                  f"f32 x {steps} x {SUB_STEPS} on the production stack: "
+                  f"init_k {[i['iterations'] for i in infos]} iterations "
+                  f"(one process {one['iterations']}), with the launch "
+                  f"{max(i['newton_s'] for i in infos):.3f} s, the "
+                  f"ensemble max's all-reduce "
+                  f"{[round(i['newton_all_reduce_ms'], 4) for i in infos]} "
+                  f"ms a call; trace {trace_s:.3f} s = "
+                  f"{n * steps * SUB_STEPS / trace_s:.6e} ray-steps/s "
+                  f"(one process {one['seconds']:.3f} s), by rank "
+                  f"{[round(i['trace_s'], 4) for i in infos]} s; launches "
+                  f"K1/K2/K3 {[i['launches'] for i in infos]}; peak memory "
+                  f"{[round(i['peak_gb'], 3) for i in infos]} GB a rank; "
+                  f"checks {json.dumps(checks)}")
+            if with_c5:
+                failed += parallel_config5(leg, out, infos, c5, n, c5_steps,
+                                           c5_batches, check_launches)
+            failed += [f"{leg}: {k}" for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 22: {failed}")
+
+
+def parallel_config5(leg, out, infos, c5, n, steps, batches,
+                     check_launches):
+    """Phase 22's config 5 checks and line; returns the failed checks."""
+    world = len(infos)
+    ranks = [torch.load(f"{out}/config5_{r}.pt") for r in range(world)]
+    sums, want = ranks[0]["sums"], c5["passes"][1]["sums"]
+    names = ("value", "dL/dpsi", "dL/dkz")
+    dev = dict(zip(names, relative_deviations(sums, want)))
+    limits = dict(zip(names, config5_limits(c5["passes"], batches)))
+    repeat = dict(zip(names, relative_deviations(*[
+        p["sums"] for p in c5["passes"]])))
+    wrong = {name: min(
+        relative_deviations([s + sign * r["share"][k]], [w])[0]
+        for r in ranks for sign in (-1.0, 1.0))
+        for k, (name, s, w) in enumerate(zip(names, sums, want))}
+    windows = batches // world * steps * (CONFIG5_SUB
+                                           // absorbed_power.FREEZE_EVERY)
+    checks = {
+        "every rank's sums": all(
+            torch.equal(a, b) for r in ranks for a, b in zip(r["sums"], sums)),
+        "within the limits": all(dev[k] <= limits[k] for k in names),
+        "limits below a wrong reduction": all(
+            SEPARATION * limits[k] <= wrong[k] for k in names)}
+    if check_launches:
+        checks["K1/K2/K3 launches"] = all(
+            tuple(i["config5_launches"]) == (windows, 0, windows)
+            for i in infos)
+    seconds = max(i["config5_s"] for i in infos)
+    print(f"[{leg} config 5 in {world} ranks] {n} rays f32 x {steps} x "
+          f"{CONFIG5_SUB} rk4, {batches // world} batches a rank: "
+          f"{seconds:.3f} s = {n * steps * CONFIG5_SUB / seconds:.6e} "
+          f"fwd+bwd ray-steps/s (phase b5's one process: first pass "
+          f"{c5['passes'][0]['seconds']:.3f} s, second "
+          f"{c5['passes'][1]['seconds']:.3f} s); launches K1/K2/K3 "
+          f"{[i['config5_launches'] for i in infos]}; the sums' all-reduce "
+          f"{[round(i['config5_all_reduce_ms'], 4) for i in infos]} ms a "
+          f"call; value {float(sums[0]):.3f} (one process "
+          f"{float(want[0]):.3f}); relative deviations from b5's second "
+          f"pass {json.dumps(dev)} (b5's two passes apart "
+          f"{json.dumps(repeat)}), limits {json.dumps(limits)}, a wrong "
+          f"reduction {json.dumps(wrong)}; checks {json.dumps(checks)}")
+    return [f"{leg} config 5: {k}" for k, ok in checks.items() if not ok]
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main():
+    started = [time.perf_counter()]
+
+    def lap(phases):
+        # each group of phases' wall seconds, to read where the smoke's
+        # time goes
+        now = time.perf_counter()
+        print(f"[lap] phases {phases}: {now - started[-1]:.1f} s")
+        started.append(now)
+
     name, _ = phase_device()
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    lap("1-2")
     phase_kernel_vs_plain(device)
     phase_bwd_vs_plain(device)
     phase_modes_vs_plain(device)
     phase_tails_vs_plain(device)
+    lap("3-3c")
     out, eq32, st32 = phase_main(device)
+    lap("4a-4c")
     counts, counts_tab = phase_grad_main(device)
-    counts_c5, eq_c5, batch_c5 = phase_config5(device)
+    lap("b")
+    counts_c5, eq_c5, batch_c5, passes_c5 = phase_config5(device)
+    lap("b5")
     phase_remat_policy(device)
     phase_grad_fd(device)
+    lap("b6, c")
     phase_segmented(eq32, st32)
     phase_plain_timing(eq32, st32, out["rate_f32"])
+    lap("5-6")
     records = [kernel_record(eq32, st32, out["launches"])]
     records += bwd_kernel_records(eq32, st32, counts[1], counts_tab[2])
     del eq32, st32
@@ -3962,6 +4305,7 @@ def main():
         label=" rk4",
         referee=synthetic_equilibrium(torch.float64, batch_c5.x.device))
     del eq_c5, batch_c5
+    lap("7")
     for mode, (eq, st, k1, k2, k3) in phase_modes_main(device).items():
         records.append(kernel_record(eq, st, k1, mode))
         records += bwd_kernel_records(eq, st, k2, k3, mode)
@@ -3969,24 +4313,33 @@ def main():
         records.append(kernel_record(eq, st, k1, tag, dt, busy=False))
         records += bwd_kernel_records(eq, st, k2, k3, tag, dt)
     del eq, st
+    lap("4d, 4e and their 7")
     phase_slab_vs_plain(device)
     slab = phase_slab_push(device)
     phase_korc_efit(device)
     phase_deposit_vs_plain(device)
     pic = phase_pic(device)
     records += particle_kernel_records(slab, pic)
+    lap("8-13")
     phase_k4_vs_plain(device)
     phase_k7_vs_plain(device)
     records += vmec_kernel_records(phase_vmec_main(device))
+    lap("14-17")
     phase_referee(device)
+    lap("18")
     pipeline = phase_xrays(device)
     expansion = phase_xrays(
         device, options=("--dispersion=cold_plasma_expansion",),
         with_absorption=False, label="19d")
     phase_xrays_damped(device)
     pic_cli = phase_cli_extras(device)
+    lap("19-19d")
     phase_special(device)
     phase_embedding(device)
+    lap("20-21")
+    phase_parallel(device, {"one_process": out["one_process"],
+                            "config5": {"passes": passes_c5}})
+    lap("22")
     for record in records:
         if record["name"] == "efit_window":
             record["launches_xrays_cli"] = pipeline["launches"]
@@ -4002,4 +4355,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [RANK_FLAG]:
+        sys.exit(parallel_rank(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -23,8 +23,13 @@ Subpackages
              VMEC, the dispersion zoo with the hot plasmas, ray
              equations, absorption and power binning, the Boris pusher
              (korc) and the PIC demo (pic).
-``io``       NetCDF4 result files (h5py, imported when a file opens) and
-             the asynchronous row writer.
+``io``       NetCDF4 result files (h5py, imported when a file opens),
+             the asynchronous row writer and ray-state checkpoints (a
+             file a rank for an ensemble split across processes).
+``parallel`` a ray ensemble split across processes, one a device
+             (``torch.distributed``): each rank's slice, the replicated
+             tables, Newton's ensemble max and config 5's sums as
+             all-reduces, the group's start-up and per-rank rows.
 ``cli``      the programs ``xrays`` (trace, absorption, power),
              ``xrays_bench``, ``xkorc`` and ``xpic``; the card unless
              ``--device`` names another device.

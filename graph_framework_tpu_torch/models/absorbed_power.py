@@ -32,7 +32,10 @@ The rays are independent and the loss is a sum, so the loss and gradients
 of ray batches add up exactly to those of the whole ensemble
 (:func:`absorbed_power_grad`, bench.py:1013-1040): that is how 1M rays fit
 on one card.  The TPU's ray padding is not needed: the kernel masks a
-ragged block.
+ragged block.  For the same reason an ensemble split across processes
+(``parallel``) needs one collective: each rank's sums, added over the
+ranks at the end (``mesh=``; the JAX package's sharded config 5,
+bench.py:922-950).
 """
 
 from __future__ import annotations
@@ -109,11 +112,14 @@ def ray_batches(state: RayState, batches: int):
 
 def absorbed_power_grad(eq0, state: RayState, steps: int, sub: int,
                         psi_coeffs: torch.Tensor, kz0, *, form="plain",
-                        batches: int = 1):
+                        batches: int = 1, mesh=None):
     """(loss, (d loss / d psi_coeffs, d loss / d kz0)) of
     :func:`absorbed_power_fn` at (``psi_coeffs``, ``kz0``), as the sums of
     those of ``batches`` ray batches, each traced, differentiated and freed
-    before the next (bench.py's ray-batched accumulation)."""
+    before the next (bench.py's ray-batched accumulation).  With ``mesh``
+    (a ``parallel.mesh.RayMesh``) ``state`` is this rank's slice, cut into
+    its own ``batches``, and the three sums are added over the ranks by
+    one all-reduce at the end: every rank returns the whole ensemble's."""
     psi = psi_coeffs.detach()
     kz = torch.as_tensor(kz0, dtype=psi.dtype, device=psi.device).detach()
     value = torch.zeros((), dtype=psi.dtype, device=psi.device)
@@ -124,4 +130,6 @@ def absorbed_power_grad(eq0, state: RayState, steps: int, sub: int,
         v = absorbed_power_fn(eq0, batch, steps, sub, form=form)(p, k)
         gp, gk = torch.autograd.grad(v, [p, k])
         value, g_psi, g_kz = value + v.detach(), g_psi + gp, g_kz + gk
+    if mesh is not None:
+        value, g_psi, g_kz = mesh.all_reduce_sum([value, g_psi, g_kz])
     return value, (g_psi, g_kz)

@@ -18,6 +18,12 @@ as the JAX package's ``lax.custom_root`` gives it (see
 :func:`newton_solve`).  :func:`newton_solve_multi` is the several-unknown
 form (newton.hpp:42-47); its callers take no gradient of the root, and it
 gives none.
+
+With ``mesh=`` (a ``parallel.mesh.RayMesh``) the rays are this rank's
+slice of an ensemble split across processes, and the ensemble max is taken
+over every rank (``RayMesh.ensemble_max``, NaN where any rank's is NaN):
+all ranks take the same iterations, and each ray's root is the
+one-process root bit for bit.  Still one readback an iteration.
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ def _value_and_slopes(f, xs):
 
 
 def newton_solve(f: Callable, x0, *, tolerance: float = 1.0e-30,
-                 max_iterations: int = 1000, step: float = 1.0):
+                 max_iterations: int = 1000, step: float = 1.0, mesh=None):
     """Solve ``f(x) = 0`` for one unknown per ray.
 
     ``f`` maps the batched unknown to the residual of the same shape, all
@@ -84,7 +90,7 @@ def newton_solve(f: Callable, x0, *, tolerance: float = 1.0e-30,
     """
     (x,), converged, diag = newton_solve_multi(
         f, (x0,), tolerance=tolerance, max_iterations=max_iterations,
-        step=step)
+        step=step, mesh=mesh)
     if torch.is_grad_enabled():
         with torch.enable_grad():
             f_attached = f(x)
@@ -96,7 +102,8 @@ def newton_solve(f: Callable, x0, *, tolerance: float = 1.0e-30,
 
 def newton_solve_multi(f: Callable, xs0: Sequence, *,
                        tolerance: float = 1.0e-30,
-                       max_iterations: int = 1000, step: float = 1.0):
+                       max_iterations: int = 1000, step: float = 1.0,
+                       mesh=None):
     """Simultaneous Newton on several unknowns of one residual
     (``solver::newton`` with several variables, newton.hpp:42-47): each
     unknown takes ``x_i <- x_i - step * f / (df/dx_i)`` with its partial
@@ -104,7 +111,8 @@ def newton_solve_multi(f: Callable, xs0: Sequence, *,
     :func:`newton_solve`'s stop rules, with one readback per iteration.
     Used by the EFIT axis find (equilibrium.hpp:1584-1615).
 
-    ``f(*xs)`` returns the residual.  Returns ``(xs, converged,
+    ``f(*xs)`` returns the residual; ``mesh``: the ranks over which the
+    ensemble max is taken (module doc).  Returns ``(xs, converged,
     NewtonDiagnostics)``; the unknowns come back detached.
     """
     xs = [x.detach() for x in xs0]
@@ -115,6 +123,8 @@ def newton_solve_multi(f: Callable, xs0: Sequence, *,
     while True:
         fx, grads = _value_and_slopes(f, xs)
         cur = _abs2(fx).max()
+        if mesh is not None:
+            cur = mesh.ensemble_max(cur)
         keep = ((cur.abs() > tolerance) & ((last - cur).abs() > tolerance)
                 & ((off_last - cur).abs() > tolerance))
         if it >= max_iterations or not bool(keep):

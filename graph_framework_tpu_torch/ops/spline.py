@@ -83,6 +83,20 @@ def to_cell_major_2d(coeffs):
     return np.ascontiguousarray(np.asarray(coeffs).transpose(2, 3, 0, 1))
 
 
+def spline_1d(c0, c1, c2, c3, x, scale, offset, local=False):
+    """Evaluate a 1D cubic spline from four separate coefficient tables:
+    ``equilibrium::build_1D_spline`` over four ``piecewise_1D`` gathers
+    (equilibrium.hpp:1120-1131), c0[i] + u (c1[i] + u (c2[i] + u c3[i]))
+    with u = (x - offset) / scale and i = clamp(trunc(u)).  The literal
+    four-gather form of the embedding surface; the hot paths use the
+    cell-major :func:`eval_cubic_1d`."""
+    u = (x - offset) / scale
+    idx = table_index_1d(x, scale, offset, c0.shape[0])
+    if local:
+        u = u - idx.to(u.dtype)
+    return c0[idx] + u * (c1[idx] + u * (c2[idx] + u * c3[idx]))
+
+
 def eval_cubic_1d(coeffs, x, scale, offset, local=False):
     """Evaluate a 1D cubic spline from a cell-major (n, 4) table: one
     contiguous 4-value block gather per point."""

@@ -75,7 +75,7 @@ def make_ray_state(num_rays=None, *, t=0.0, w, x=0.0, y=0.0, z=0.0,
 
 def init_k(state: RayState, dispersion, eq, which: str = "kx", *,
            tolerance: Optional[float] = None, max_iterations: int = 1000,
-           return_diagnostics: bool = False):
+           return_diagnostics: bool = False, mesh=None):
     """Newton-solve D = 0 for one wave-number component per ray
     (solver_interface::init -> dispersion::solve -> solver::newton,
     solver.hpp:252-298, dispersion.hpp:1450-1475).
@@ -87,6 +87,11 @@ def init_k(state: RayState, dispersion, eq, which: str = "kx", *,
     can wander to a neighbouring root; a tolerance the dtype resolves
     stops at the first root reached.  A complex state takes Newton in the
     complex plane with D's complex derivative (``ops.newton``).
+
+    ``mesh``: ``state`` is this rank's slice of an ensemble split across
+    processes (``parallel.shard_rays``); the convergence test then reads
+    the max over every rank, so each ray's root is the one a single
+    process finds (``ops.newton``).
     """
     if tolerance is None:
         fine = state.w.dtype in (torch.float64, torch.complex128)
@@ -98,7 +103,7 @@ def init_k(state: RayState, dispersion, eq, which: str = "kx", *,
 
     k_solved, _, diag = newton_solve(
         f, getattr(state, which), tolerance=tolerance,
-        max_iterations=max_iterations)
+        max_iterations=max_iterations, mesh=mesh)
     out = state._replace(**{which: k_solved})
     if return_diagnostics:
         return out, diag

@@ -133,6 +133,13 @@ expr.newton(work, [x], [x], x * x - 2.0, tolerance=1e-28)
 work.compile()
 work.run()
 assert abs(float(x.data[0]) - 2.0 ** 0.5) < 1e-12
+from graph_framework_tpu_torch.parallel import (
+    distributed, ray_mesh, run_blocked_sharded, shard_rays)
+mesh = ray_mesh(device="cpu")
+assert distributed.host_output_filename() == "result0.nc"
+assert bool(torch.isfinite(run_blocked_sharded(Solver(
+    cold_plasma, eq, method="rk2", dt=1e-4), shard_rays(state, mesh), 1,
+    mesh).x).all())
 print(sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "graph_framework_tpu"
@@ -170,7 +177,7 @@ def _entry_points(tmp_path_factory):
     """Each entry point of the port that makes tensors, called without a
     device (so on the card), as a zero-argument callable."""
     from graph_framework_tpu.tools.make_splines import write_vmec_file
-    from graph_framework_tpu_torch import convert, expr
+    from graph_framework_tpu_torch import convert, expr, parallel
     from graph_framework_tpu_torch.cli import xkorc, xpic, xrays, xrays_bench
     from graph_framework_tpu_torch.models import (
         absorption, efit, korc, pic, vmec)
@@ -213,6 +220,9 @@ def _entry_points(tmp_path_factory):
         "run_pic": lambda: pic.run_pic(8, 8, 1),
         "run_absorption": lambda: _run_absorption_default(),
         "restore_ray_state": lambda: _restore_default(tmp_path_factory),
+        "restore_ray_state_mesh": lambda: _restore_default(
+            tmp_path_factory, mesh=True),
+        "ray_mesh": lambda: parallel.ray_mesh(),
         "make_weak_damping": lambda: absorption.make_weak_damping(
             make_slab())(make_ray_state(2, w=1.0, dtype=torch.complex128)),
         "run_xrays": lambda: xrays.run_xrays(
@@ -253,14 +263,19 @@ def _workflow_default():
     work.run()
 
 
-def _restore_default(tmp_path_factory):
-    """restore_ray_state without a template or a device."""
+def _restore_default(tmp_path_factory, mesh=False):
+    """restore_ray_state without a template or a device; with ``mesh``,
+    rank 1's slice of two under a mesh on the card's default device."""
     from graph_framework_tpu_torch.io import (
         restore_ray_state, save_ray_state)
     from graph_framework_tpu_torch.models.rays import RayState
+    from graph_framework_tpu_torch.parallel.mesh import RayMesh
     path = tmp_path_factory.mktemp("checkpoint")
     save_ray_state(path, RayState(*[torch.zeros(2)] * 8))
-    restore_ray_state(path)
+    if mesh:
+        restore_ray_state(path, mesh=RayMesh(2, 1, torch.device("cuda", 0)))
+    else:
+        restore_ray_state(path)
 
 
 def _run_absorption_default():
@@ -279,7 +294,8 @@ ENTRY_POINTS = ["make_ray_state", "efit_from_tables", "make_efit",
                 "vmec_from_numpy", "ray_state_from_numpy",
                 "particle_state_from_numpy", "pic_state_from_numpy",
                 "run_korc", "make_deposit", "pic_start", "run_pic",
-                "run_absorption", "restore_ray_state", "make_weak_damping",
+                "run_absorption", "restore_ray_state",
+                "restore_ray_state_mesh", "ray_mesh", "make_weak_damping",
                 "run_xrays",
                 "run_xkorc", "run_xpic", "bench_one", "make_context",
                 "evaluate", "variable", "Workflow"]

@@ -22,9 +22,13 @@ def test_config5_phase_rehearses_on_the_cpu():
             reset_peak_memory_stats=lambda *a: None,
             memory_allocated=lambda *a: 0,
             max_memory_allocated=lambda *a: 0):
-        counts, eq, batch = chip_smoke.phase_config5(
+        counts, eq, batch, passes = chip_smoke.phase_config5(
             cpu, n=64, n_ref=32, steps=2, batches=2, check_launches=False)
     assert counts == (0, 0, 0)
+    # both passes' sums, on the host, for phase 22; the CPU's are the same
+    assert len(passes) == 2 and all(
+        torch.equal(a, b) for a, b in zip(passes[0]["sums"],
+                                          passes[1]["sums"]))
     # the first batch, at kz0, for config 5's K1 and K3 lines
     assert batch.x.shape == (32,) and eq.psi_coeffs.dtype == torch.float32
     assert torch.all(batch.kz == chip_smoke.CONFIG5_KZ)
