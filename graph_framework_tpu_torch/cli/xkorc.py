@@ -4,15 +4,17 @@ Counterpart of ``graph_framework_tpu.cli.xkorc`` (graph_korc/xkorc.cpp):
 the reference's defaults (1e6 particles, 1e6 steps, dt = 0.5
 gyro-normalized, u = (0, 0.99, 0.1) c from x = 1.7 m), scaled down by
 flags for interactive runs.  ``--device`` picks the torch device (the
-card by default).  The result file needs h5py.
+card by default).  The result file needs h5py.  The run's timer is the
+span ``gft.xkorc.run`` (``telemetry``).
 """
 
 from __future__ import annotations
 
 import argparse
-import time
 
 import torch
+
+from graph_framework_tpu_torch import telemetry
 
 PARTICLE_NAMES = ("x", "y", "z", "ux", "uy", "uz", "gamma")
 
@@ -38,12 +40,12 @@ def run_xkorc(args, eq, open_store):
     from graph_framework_tpu_torch.models.korc import run_korc
 
     dtype = torch.float32 if args.f32 else torch.float64
-    t0 = time.perf_counter()
-    st = run_korc(eq, num_particles=args.num_particles,
-                  num_steps=args.num_steps, dt=args.dt, dtype=dtype,
-                  device=args.device)
-    float(st.x[0])                     # readback: the run has finished
-    el = time.perf_counter() - t0
+    with telemetry.Span("gft.xkorc.run") as span:
+        st = run_korc(eq, num_particles=args.num_particles,
+                      num_steps=args.num_steps, dt=args.dt, dtype=dtype,
+                      device=args.device)
+        float(st.x[0])                     # readback: the run has finished
+    el = span.seconds
     rate = args.num_particles * args.num_steps / el
     print(f"Run Time: {el:.2f}s = {rate:.3g} particle-steps/s")
     with open_store(args.output, "w", num_rays=args.num_particles) as f:

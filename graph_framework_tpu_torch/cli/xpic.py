@@ -3,13 +3,15 @@
 Counterpart of ``graph_framework_tpu.cli.xpic``.  ``--device`` picks the
 torch device (the card by default); on the card the deposit is the CUDA
 kernel K6, on the CPU its plain version (the JAX package's ``--deposit``
-choice is the tensors' device here).  The result files need h5py.
+choice is the tensors' device here).  The result files need h5py.  The
+run's timer is the span ``gft.xpic.run`` (``telemetry``).
 """
 
 from __future__ import annotations
 
 import argparse
-import time
+
+from graph_framework_tpu_torch import telemetry
 
 
 def build_parser():
@@ -33,12 +35,12 @@ def run_xpic(args, open_store):
     Returns (final PicState, particle-steps/s)."""
     from graph_framework_tpu_torch.models.pic import run_pic
 
-    t0 = time.perf_counter()
-    st = run_pic(num_particles=args.num_particles, num_grid=args.num_grid,
-                 num_steps=args.num_steps, dt=args.dt, seed=args.seed,
-                 device=args.device)
-    float(st.x[0])                     # readback: the run has finished
-    el = time.perf_counter() - t0
+    with telemetry.Span("gft.xpic.run") as span:
+        st = run_pic(num_particles=args.num_particles,
+                     num_grid=args.num_grid, num_steps=args.num_steps,
+                     dt=args.dt, seed=args.seed, device=args.device)
+        float(st.x[0])                     # readback: the run has finished
+    el = span.seconds
     rate = args.num_particles * args.num_steps / el
     print(f"Run Time: {el:.2f}s = {rate:.3g} particle-steps/s")
     with open_store(args.particles_output, "w",

@@ -33,6 +33,13 @@ production stack the kernel unit each window launches.  Not carried over:
 ``--pallas_block_rows`` and the ray padding (the kernel masks a ragged
 block).
 
+The phase timers are spans (``telemetry``): ``gft.xrays.setup``,
+``.init_k``, ``.compile``, ``.trace``, ``.absorption`` and ``.bin_power``
+give ``setup_s``, ``init_s``, ``compile_s``, ``trace_s``, ``absorption_s``
+and ``bin_power_s``; ``main``'s ``gft.xrays.equilibrium`` the rest of
+``setup_s``.  ``--timing_json`` also keeps every span of the run and
+writes their aggregate under ``"spans"``.
+
 Usage:  python -m graph_framework_tpu_torch.cli.xrays \\
             --dispersion=cold_plasma --equilibrium=efit \\
             --equilibrium_file=efit.nc --num_rays=1000 ...
@@ -44,11 +51,12 @@ import argparse
 import copy
 import json
 import sys
-import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from graph_framework_tpu_torch import telemetry
 
 #: The dispersions of the option ``--dispersion`` (the JAX CLI's).
 DISPERSION_CHOICES = ["simple", "bohm_gross", "ordinary_wave",
@@ -141,7 +149,9 @@ def build_parser():
     p.add_argument("--timing_json", default=None,
                    help="write the phases' wall-clock seconds (setup, "
                         "init, warm-up step, trace, absorption, binning) "
-                        "to this file as one JSON object")
+                        "to this file as one JSON object, with the run's "
+                        "spans (count, total and self seconds by name) "
+                        "under \"spans\"")
     p.add_argument("--device", default="cuda",
                    help="torch device (default the card, cuda)")
     return p
@@ -247,16 +257,26 @@ def run_xrays(args, eq, open_store: Callable, *, setup_s=0.0) -> XraysRun:
     do.  ``setup_s``: seconds already spent on the
     set-up (building ``eq``), added to the timing ``setup_s``.
     ``args.debug`` turns debug mode on for the run (and restores it
-    after)."""
+    after).  With ``args.timing_json`` the run keeps its spans
+    (``telemetry.enable``) and adds their aggregate to the timings as
+    ``"spans"``: name -> count, total and self seconds."""
     from graph_framework_tpu_torch import utils
 
+    keep = bool(getattr(args, "timing_json", None))
+    kept = telemetry.enable(True) if keep else None
+    since = telemetry.snapshot()
     previous = utils.debug_enabled()
     utils.set_debug(previous or getattr(args, "debug", False))
     try:
         with torch.no_grad():
-            return _run(args, eq, open_store, setup_s)
+            run = _run(args, eq, open_store, setup_s)
     finally:
         utils.set_debug(previous)
+        if keep:
+            telemetry.enable(kept)
+    if keep:
+        run.timings["spans"] = telemetry.summary(since)
+    return run
 
 
 def expression_graph(dispersion, eq, state) -> str:
@@ -311,32 +331,32 @@ def _run(args, eq, open_store, setup_s):
     rng = np.random.default_rng(args.seed)
     n = args.num_rays
     timings = {}
-    t0 = time.perf_counter()
 
     # initial conditions (xrays.cpp:56-136)
-    vals = {v: sample_initial(args, rng, n, v)
-            for v in ("w", "x", "y", "z", "kx", "ky", "kz")}
-    if args.use_cyl_xy:
-        radius = sample_initial(args, rng, n, "x")
-        phi = sample_initial(args, rng, n, "y")
-        vals["x"] = radius * np.cos(phi)
-        vals["y"] = radius * np.sin(phi)
-    state = RayState(
-        t=torch.zeros(n, dtype=dtype, device=device),
-        **{k: torch.as_tensor(v, dtype=dtype, device=device)
-           for k, v in vals.items()})
-    dfun = DISPERSIONS[args.dispersion]
-    timings["setup_s"] = setup_s + time.perf_counter() - t0
+    with telemetry.Span("gft.xrays.setup") as span:
+        vals = {v: sample_initial(args, rng, n, v)
+                for v in ("w", "x", "y", "z", "kx", "ky", "kz")}
+        if args.use_cyl_xy:
+            radius = sample_initial(args, rng, n, "x")
+            phi = sample_initial(args, rng, n, "y")
+            vals["x"] = radius * np.cos(phi)
+            vals["y"] = radius * np.sin(phi)
+        state = RayState(
+            t=torch.zeros(n, dtype=dtype, device=device),
+            **{k: torch.as_tensor(v, dtype=dtype, device=device)
+               for k, v in vals.items()})
+        dfun = DISPERSIONS[args.dispersion]
+    timings["setup_s"] = setup_s + span.seconds
 
     # Newton init of the first k component given as a bare mean
     # (xrays.cpp:192-204)
     for which in ("kx", "ky", "kz"):
         if (getattr(args, f"init_{which}_mean") is not None
                 and getattr(args, f"init_{which}_dist") == "uniform"):
-            t0 = time.perf_counter()
-            state = init_k(state, dfun, eq, which)
-            _sync(device)
-            timings["init_s"] = time.perf_counter() - t0
+            with telemetry.Span("gft.xrays.init_k") as span:
+                state = init_k(state, dfun, eq, which)
+                _sync(device)
+            timings["init_s"] = span.seconds
             if args.verbose:
                 print(f"init {which}: {timings['init_s']:.3f} s",
                       file=sys.stderr)
@@ -387,17 +407,17 @@ def _run(args, eq, open_store, setup_s):
         # one recorded step and the residual, apart from the trace: the
         # reference's compile-vs-steps timers (xrays_bench.cpp:41-44);
         # here it holds the kernels' first-use build
-        t0 = time.perf_counter()
-        warm = (sol.carry_step_fn()(sol.init_carry(state)), res(state))
-        _sync(device)
-        del warm
-        timings["compile_s"] = time.perf_counter() - t0
+        with telemetry.Span("gft.xrays.compile") as span:
+            warm = (sol.carry_step_fn()(sol.init_carry(state)), res(state))
+            _sync(device)
+            del warm
+        timings["compile_s"] = span.seconds
 
-        t0 = time.perf_counter()
-        sol.trace_segmented(state, num_steps, write, segment=seg,
-                            extras=lambda s: {"residual": res(s)})
-        writer.close()
-        el = time.perf_counter() - t0
+        with telemetry.Span("gft.xrays.trace") as span:
+            sol.trace_segmented(state, num_steps, write, segment=seg,
+                                extras=lambda s: {"residual": res(s)})
+            writer.close()
+        el = span.seconds
         timings["trace_s"] = el
         timings["trace_ray_steps_per_s"] = n * num_steps * args.sub_steps / el
         if args.verbose:
@@ -411,32 +431,35 @@ def _run(args, eq, open_store, setup_s):
             bin_power, run_absorption)
         method = ("weak_damping" if args.absorption_model == "weak_damping"
                   else "root_finder")
-        t0 = time.perf_counter()
-        with open_store(args.output, "r+") as f:
+        with telemetry.Span("gft.xrays.absorption") as absorbing, \
+                open_store(args.output, "r+") as f:
             # the kamp rows go through a writer thread, so each row's
             # write overlaps the next row's evaluation (absorption.hpp:
             # 465-483)
             run_absorption(f, eq, method=method, device=device,
                            writer=AsyncWriter(f))
-            timings["absorption_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            nt = f.num_steps
-            rows = [f.read_step(i, ["x", "y", "z"]) for i in range(nt)]
-            kamp = np.stack([f.read_step(i, ["kamp"],
-                                         complex_valued=True)["kamp"]
-                             for i in range(nt)])
-            xyz = [torch.as_tensor(np.stack([r[c] for r in rows]),
-                                   device=device) for c in ("x", "y", "z")]
-            power, d_power = bin_power(
-                *xyz, torch.as_tensor(kamp.imag, device=device))
-            power, d_power = power.cpu(), d_power.cpu()
-            f.create_variable("power")
-            f.create_variable("d_power")
-            pw = AsyncWriter(f)
-            for i in range(nt):
-                pw.write_step(i, {"power": power[i], "d_power": d_power[i]})
-            pw.close()
-            timings["bin_power_s"] = time.perf_counter() - t0
+            absorbing.stop()
+            timings["absorption_s"] = absorbing.seconds
+            with telemetry.Span("gft.xrays.bin_power") as span:
+                nt = f.num_steps
+                rows = [f.read_step(i, ["x", "y", "z"]) for i in range(nt)]
+                kamp = np.stack([f.read_step(i, ["kamp"],
+                                             complex_valued=True)["kamp"]
+                                 for i in range(nt)])
+                xyz = [torch.as_tensor(np.stack([r[c] for r in rows]),
+                                       device=device)
+                       for c in ("x", "y", "z")]
+                power, d_power = bin_power(
+                    *xyz, torch.as_tensor(kamp.imag, device=device))
+                power, d_power = power.cpu(), d_power.cpu()
+                f.create_variable("power")
+                f.create_variable("d_power")
+                pw = AsyncWriter(f)
+                for i in range(nt):
+                    pw.write_step(i, {"power": power[i],
+                                      "d_power": d_power[i]})
+                pw.close()
+            timings["bin_power_s"] = span.seconds
         if args.verbose:
             print(f"power: min {float(power.min()):.6g}", file=sys.stderr)
 
@@ -454,13 +477,12 @@ def main(argv=None):
     args = resolve_stack(args, args.device)
     from graph_framework_tpu_torch.cli import open_result_file
 
-    t0 = time.perf_counter()
-    eq = make_equilibrium(args,
-                          torch.float64 if args.x64 else torch.float32,
-                          torch.device(args.device))
-    setup_s = time.perf_counter() - t0
+    with telemetry.Span("gft.xrays.equilibrium") as span:
+        eq = make_equilibrium(args,
+                              torch.float64 if args.x64 else torch.float32,
+                              torch.device(args.device))
 
-    run = run_xrays(args, eq, open_result_file, setup_s=setup_s)
+    run = run_xrays(args, eq, open_result_file, setup_s=span.seconds)
     if args.timing_json:
         with open(args.timing_json, "w") as fh:
             json.dump(run.timings, fh)

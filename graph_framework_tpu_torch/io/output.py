@@ -27,7 +27,10 @@ imports where h5py is absent.
 :class:`AsyncWriter` overlaps writes with device compute: its worker
 thread copies each row's tensors to the host (``.cpu()`` of a CUDA
 tensor waits for the work that makes it) and writes them, so the
-producer only queues references and returns.
+producer only queues references and returns.  Its spans (``telemetry``):
+``gft.writer.put``, the producer's wait for room in the queue;
+``gft.writer.row``, a row's copy and write on the worker thread;
+``gft.writer.close``, the wait for the queue to drain.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from graph_framework_tpu_torch import telemetry
 
 # netcdf-c naming conventions (netcdf-c include/nc4internal.h)
 _NON_COORD = "_nc4_non_coord_"
@@ -269,19 +274,22 @@ class AsyncWriter:
                 return
             index, values = item
             try:
-                self.file.write_step(
-                    index, {k: host_array(v) for k, v in values.items()})
+                with telemetry.span("gft.writer.row"):
+                    self.file.write_step(
+                        index, {k: host_array(v) for k, v in values.items()})
             except Exception as e:          # surfaced on close()
                 self._err = e
 
     def write_step(self, index: int, values: Dict):
         if self._err:
             raise self._err
-        self._q.put((index, dict(values)))
+        with telemetry.span("gft.writer.put"):
+            self._q.put((index, dict(values)))
 
     def close(self):
-        self._q.put(None)
-        self._thread.join()
+        with telemetry.span("gft.writer.close"):
+            self._q.put(None)
+            self._thread.join()
         if self._err:
             raise self._err
 

@@ -13,6 +13,10 @@ either changes.  Importing this module needs no ``nvcc``; :func:`load`
 builds on the first call, from the package's own sources alone, and
 raises if the build fails.
 
+Spans (``telemetry``): ``gft.load``, the first :func:`load`, build
+included; ``gft.build``, a build that compiles; in it ``gft.build.nvcc``,
+the wait for each source's ``nvcc``, one a source compiled.
+
 Never add ``--use_fast_math``: it changes division and square root and
 breaks the comparison with the plain PyTorch versions.
 """
@@ -26,6 +30,8 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+
+from graph_framework_tpu_torch import telemetry
 
 PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -131,6 +137,14 @@ def build() -> pathlib.Path:
         log = out.with_suffix(".log")
         build_log = log.read_text() if log.is_file() else ""
         return out
+    with telemetry.span("gft.build"):
+        _compile(out)
+    return out
+
+
+def _compile(out):
+    """Every source's ``nvcc -c`` at once, then the link into ``out``."""
+    global build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
@@ -143,7 +157,8 @@ def build() -> pathlib.Path:
                 text=True)))
         logs, failed = [], []
         for cmd, _, proc in jobs:
-            logs.append(proc.communicate()[0])
+            with telemetry.span("gft.build.nvcc"):
+                logs.append(proc.communicate()[0])
             if proc.returncode != 0:
                 failed.append(f"{' '.join(cmd)} ({proc.returncode})")
         build_log = "".join(logs)
@@ -160,7 +175,6 @@ def build() -> pathlib.Path:
                                f"{proc.stderr}")
         os.replace(tmp, out)
     out.with_suffix(".log").write_text(build_log)
-    return out
 
 
 def load() -> ctypes.CDLL:
@@ -168,10 +182,11 @@ def load() -> ctypes.CDLL:
     function's argtypes and restype declared."""
     global _library
     if _library is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, (argtypes, restype) in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = argtypes, restype
+        with telemetry.span("gft.load"):
+            lib = ctypes.CDLL(str(build()))
+            for name, (argtypes, restype) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
         _library = lib
     return _library
 

@@ -32,6 +32,11 @@ compensated TwoSum accumulation.
   compensated window is forward-only, as in the JAX package.
   ``efit_window_launches``, ``efit_window_bwd_launches`` and
   ``efit_window_bwd_tab_launches`` count the kernel launches.
+
+Spans (``telemetry``): ``gft.efit_window``, the wrapper from entry to
+return, on every path; ``gft.efit_window.bwd`` (K2 or K3, or their plain
+versions) and ``gft.efit_window.scatter`` in :class:`EfitWindow`'s
+backward.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.autograd.function import once_differentiable
 
+from graph_framework_tpu_torch import telemetry
 from graph_framework_tpu_torch.constants import (
     C, EPSILON0, ME, Q)
 from graph_framework_tpu_torch.models.dispersion import (
@@ -455,13 +461,16 @@ class EfitWindow(torch.autograd.Function):
         cts = RayState(*[torch.zeros_like(a) if c is None else c
                          for a, c in zip(leaves, cts)])
         want_psi, want_prof = ctx.needs_input_grad[5:7]
-        vjp = efit_window_vjp(eq, RayState(*leaves), cts,
-                              method=ctx.method, dt=ctx.dt, steps=ctx.steps,
-                              tables=want_psi or want_prof,
-                              dispersion=ctx.dispersion)
+        with telemetry.span("gft.efit_window.bwd"):
+            vjp = efit_window_vjp(eq, RayState(*leaves), cts,
+                                  method=ctx.method, dt=ctx.dt,
+                                  steps=ctx.steps,
+                                  tables=want_psi or want_prof,
+                                  dispersion=ctx.dispersion)
         d_psi = d_prof = None
         if want_psi or want_prof:
-            d_psi, d_prof = scatter_block_cotangents(eq, vjp)
+            with telemetry.span("gft.efit_window.scatter"):
+                d_psi, d_prof = scatter_block_cotangents(eq, vjp)
         return (None, None, None, None, None, d_psi if want_psi else None,
                 d_prof if want_prof else None, *vjp.state)
 
@@ -484,26 +493,27 @@ def efit_window(eq, carry, *, method, dt, steps, compensated,
     does not read them, and they take no gradient.  Anything the kernels
     do not take raises.
     """
-    kernel_dispersion_code(dispersion)
-    leaves = _leaves(carry, compensated)
-    device = _device_of(leaves)
-    if dispersion in TABLE_FREE:
-        eq = _with_tables(eq, eq.psi_coeffs.detach(),
-                          eq.profile_coeffs.detach())
-    tables = [eq.psi_coeffs, eq.profile_coeffs]
-    wants_grad = torch.is_grad_enabled() and any(
-        a.requires_grad for a in leaves + tables)
-    if wants_grad:
+    with telemetry.span("gft.efit_window"):
+        kernel_dispersion_code(dispersion)
+        leaves = _leaves(carry, compensated)
+        device = _device_of(leaves)
+        if dispersion in TABLE_FREE:
+            eq = _with_tables(eq, eq.psi_coeffs.detach(),
+                              eq.profile_coeffs.detach())
+        tables = [eq.psi_coeffs, eq.profile_coeffs]
+        wants_grad = torch.is_grad_enabled() and any(
+            a.requires_grad for a in leaves + tables)
+        if wants_grad:
+            if compensated:
+                raise ValueError(
+                    "the compensated window is forward-only (as in the JAX "
+                    "package): take gradients through compensated=False")
+            return RayState(*EfitWindow.apply(eq, dispersion, method, dt,
+                                              steps, *tables, *leaves))
+        if device.type == "cpu":
+            return frozen_window(eq, dispersion, carry, method=method, dt=dt,
+                                 steps=steps, compensated=compensated)
+        outs = _launch(eq, leaves, dispersion, method, dt, steps, compensated)
         if compensated:
-            raise ValueError(
-                "the compensated window is forward-only (as in the JAX "
-                "package): take gradients through compensated=False")
-        return RayState(*EfitWindow.apply(eq, dispersion, method, dt, steps,
-                                          *tables, *leaves))
-    if device.type == "cpu":
-        return frozen_window(eq, dispersion, carry, method=method, dt=dt,
-                             steps=steps, compensated=compensated)
-    outs = _launch(eq, leaves, dispersion, method, dt, steps, compensated)
-    if compensated:
-        return CompCarry(RayState(*outs[:8]), RayState(*outs[8:]))
-    return RayState(*outs)
+            return CompCarry(RayState(*outs[:8]), RayState(*outs[8:]))
+        return RayState(*outs)

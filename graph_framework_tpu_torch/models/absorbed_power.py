@@ -35,7 +35,9 @@ on one card.  The TPU's ray padding is not needed: the kernel masks a
 ragged block.  For the same reason an ensemble split across processes
 (``parallel``) needs one collective: each rank's sums, added over the
 ranks at the end (``mesh=``; the JAX package's sharded config 5,
-bench.py:922-950).
+bench.py:922-950).  Each batch's trace and its backward are the spans
+``gft.absorbed_power.forward`` and ``gft.absorbed_power.backward``
+(``telemetry``).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from typing import Optional
 
 import torch
 
+from graph_framework_tpu_torch import telemetry
 from graph_framework_tpu_torch.models.absorption import (
     make_weak_damping_real)
 from graph_framework_tpu_torch.models.dispersion import cold_plasma
@@ -127,8 +130,10 @@ def absorbed_power_grad(eq0, state: RayState, steps: int, sub: int,
     for batch in ray_batches(state, batches):
         p = psi.clone().requires_grad_(True)
         k = kz.clone().requires_grad_(True)
-        v = absorbed_power_fn(eq0, batch, steps, sub, form=form)(p, k)
-        gp, gk = torch.autograd.grad(v, [p, k])
+        with telemetry.span("gft.absorbed_power.forward"):
+            v = absorbed_power_fn(eq0, batch, steps, sub, form=form)(p, k)
+        with telemetry.span("gft.absorbed_power.backward"):
+            gp, gk = torch.autograd.grad(v, [p, k])
         value, g_psi, g_kz = value + v.detach(), g_psi + gp, g_kz + gk
     if mesh is not None:
         value, g_psi, g_kz = mesh.all_reduce_sum([value, g_psi, g_kz])

@@ -18,6 +18,12 @@ Z and is differentiable in the state and the tables.  The JAX package
 evaluates one ray at a time under ``vmap``; here the rays are one batch
 with the component axis leading, as in the rest of the port: positions
 and wave vectors are (3, n), the contravariant basis (3, 3, n).
+:func:`run_absorption`'s spans (``telemetry``), a row each:
+``gft.absorption.read_row`` (the store's read and the copy to the
+device), ``gft.absorption.update`` and ``gft.absorption.write_row``; the
+weak damping's stages, each call: ``gft.weak_damping.dc`` (the geometry
+and Dc), ``gft.weak_damping.dc_grad`` (dDc/dk) and ``gft.weak_damping.dw``
+(Dw and kamp).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from graph_framework_tpu_torch import telemetry
 from graph_framework_tpu_torch.models import dispersion as disp
 from graph_framework_tpu_torch.models.rays import (
     RayState, LocalGraph, grad_tensors, rebind)
@@ -55,18 +62,23 @@ def _weak_damping_kamp(eq, dw_fn, state: RayState, create_graph: bool):
     state's own wave vector, differentiably (the state's leaves must
     require grad); otherwise against a detached copy."""
     t, w = state.t, state.w
-    pos, kcov, esup, kvec = _geometry(eq, state)
-    klen = torch.sqrt((kvec * kvec).sum(dim=0))
-    k_unit = kvec / klen
-    with torch.enable_grad():
-        kc = kcov if create_graph else kcov.detach().requires_grad_(True)
-        dc = disp.cold_plasma_expansion(
-            w, torch.einsum("in,ijn->jn", kc, esup), pos, t, eq)
-        (ddc_dkcov,) = holomorphic_grad(dc, (kc,), create_graph=create_graph)
-    # dDc/dk as a physical vector: sum_i dDc/dk_i e^i
-    ddc_vec = torch.einsum("in,ijn->jn", ddc_dkcov, esup)
-    dw = dw_fn(w, kvec, pos, t, eq)
-    return klen - dw / (k_unit * ddc_vec).sum(dim=0)
+    with telemetry.span("gft.weak_damping.dc"):
+        pos, kcov, esup, kvec = _geometry(eq, state)
+        klen = torch.sqrt((kvec * kvec).sum(dim=0))
+        k_unit = kvec / klen
+        with torch.enable_grad():
+            kc = kcov if create_graph else kcov.detach().requires_grad_(True)
+            dc = disp.cold_plasma_expansion(
+                w, torch.einsum("in,ijn->jn", kc, esup), pos, t, eq)
+    with telemetry.span("gft.weak_damping.dc_grad"):
+        with torch.enable_grad():
+            (ddc_dkcov,) = holomorphic_grad(dc, (kc,),
+                                            create_graph=create_graph)
+        # dDc/dk as a physical vector: sum_i dDc/dk_i e^i
+        ddc_vec = torch.einsum("in,ijn->jn", ddc_dkcov, esup)
+    with telemetry.span("gft.weak_damping.dw"):
+        dw = dw_fn(w, kvec, pos, t, eq)
+        return klen - dw / (k_unit * ddc_vec).sum(dim=0)
 
 
 def make_weak_damping(eq, z_function=None):
@@ -189,15 +201,19 @@ def run_absorption(file, eq, method="weak_damping", *,
 def _run_absorption_loop(file, update, dtype, device, safe_math, writer):
     target = writer or file
     for i in range(file.num_steps):
-        row = file.read_step(i, list(STATE_NAMES))
-        state = RayState(*[torch.as_tensor(np.asarray(row[name]),
-                                           dtype=dtype, device=device)
-                           for name in STATE_NAMES])
-        kamp = update(state)
-        if safe_math:
-            finite = torch.isfinite(kamp.real) & torch.isfinite(kamp.imag)
-            kamp = torch.where(finite, kamp, torch.zeros_like(kamp))
-        target.write_step(i, {"kamp": kamp})
+        with telemetry.span("gft.absorption.read_row"):
+            row = file.read_step(i, list(STATE_NAMES))
+            state = RayState(*[torch.as_tensor(np.asarray(row[name]),
+                                               dtype=dtype, device=device)
+                               for name in STATE_NAMES])
+        with telemetry.span("gft.absorption.update"):
+            kamp = update(state)
+            if safe_math:
+                finite = (torch.isfinite(kamp.real)
+                          & torch.isfinite(kamp.imag))
+                kamp = torch.where(finite, kamp, torch.zeros_like(kamp))
+        with telemetry.span("gft.absorption.write_row"):
+            target.write_step(i, {"kamp": kamp})
 
 
 def bin_power(x, y, z, kamp_imag):

@@ -41,6 +41,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from graph_framework_tpu_torch import telemetry
 from graph_framework_tpu_torch.ops.special import holomorphic_grad
 
 
@@ -173,7 +174,8 @@ class LocalGraph(torch.autograd.Function):
     partials against the caller's tensors themselves would make autograd
     walk the whole graph behind them on every call - quadratic in the
     length of a differentiated trace (200 rk4 steps of one ray: 55 s on a
-    CPU, against 0.5 s)."""
+    CPU, against 0.5 s).  The backward's pull through the local graph is
+    the span ``gft.local_graph.grad`` (``telemetry``)."""
 
     @staticmethod
     def forward(ctx, fn, keep, *inputs):
@@ -202,7 +204,9 @@ class LocalGraph(torch.autograd.Function):
                 fresh = [a.detach().requires_grad_(True)
                          for a in ctx.saved_tensors]
                 out = ctx.fn(*fresh, create_graph=True)
-            grads = torch.autograd.grad(out, fresh, cts, allow_unused=True)
+            with telemetry.span("gft.local_graph.grad"):
+                grads = torch.autograd.grad(out, fresh, cts,
+                                            allow_unused=True)
         return (None, None, *grads)
 
 

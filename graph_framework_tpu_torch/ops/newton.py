@@ -24,6 +24,10 @@ slice of an ensemble split across processes, and the ensemble max is taken
 over every rank (``RayMesh.ensemble_max``, NaN where any rank's is NaN):
 all ranks take the same iterations, and each ray's root is the
 one-process root bit for bit.  Still one readback an iteration.
+
+Each iteration is a span ``gft.newton.iteration`` (``telemetry``): the
+update, f at the new point and the readback; their count is
+``NewtonDiagnostics.iterations``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
+from graph_framework_tpu_torch import telemetry
 from graph_framework_tpu_torch.ops.special import holomorphic_grad
 
 
@@ -119,20 +124,28 @@ def newton_solve_multi(f: Callable, xs0: Sequence, *,
     real = xs[0].real.dtype
     last = off_last = torch.tensor(torch.finfo(real).max, dtype=real,
                                    device=xs[0].device)
-    it = 0
-    while True:
+
+    def evaluate(xs):
+        """f and its slopes at ``xs``, the ensemble max of |f|^2, and
+        whether the loop goes on (the readback)."""
         fx, grads = _value_and_slopes(f, xs)
         cur = _abs2(fx).max()
         if mesh is not None:
             cur = mesh.ensemble_max(cur)
         keep = ((cur.abs() > tolerance) & ((last - cur).abs() > tolerance)
                 & ((off_last - cur).abs() > tolerance))
-        if it >= max_iterations or not bool(keep):
-            break
-        if it % 2 == 0:
-            off_last = cur
-        xs = [x - step * fx / g for x, g in zip(xs, grads)]
-        last = cur
-        it += 1
+        return fx, grads, cur, it < max_iterations and bool(keep)
+
+    it = 0
+    fx, grads, cur, go = evaluate(xs)
+    while go:
+        # an iteration: the update, f at the new point, the readback
+        with telemetry.span("gft.newton.iteration"):
+            if it % 2 == 0:
+                off_last = cur
+            xs = [x - step * fx / g for x, g in zip(xs, grads)]
+            last = cur
+            it += 1
+            fx, grads, cur, go = evaluate(xs)
     converged = bool(cur <= tolerance)
     return tuple(xs), converged, NewtonDiagnostics(it, cur, converged)

@@ -31,6 +31,10 @@ each checkpointed unit and recomputes the rest (:func:`remat_context`).
 Under debug mode (``utils.set_debug``) each recorded step checks every
 eager operation's output and raises at the first one that makes a NaN or
 an inf (``utils.checked_step``, the JAX package's checkify float checks).
+Spans (``telemetry``): ``gft.solver.run`` and ``gft.trace_segmented`` over
+each call, and in the latter ``gft.trace.extras`` (a row's extras),
+``gft.trace.copy`` (a block's stack and copy to the host) and
+``gft.trace.drain`` (the wait for a block and the writer's calls).
 Not ported: ``block_rays`` and ``pad_rays`` (the kernel
 masks a ragged last block, so the ray count needs no padding), and the
 jit caches of ``make_segment_fn``/``extras_jit``.
@@ -44,6 +48,7 @@ from typing import Callable, Optional
 import torch
 import torch.utils.checkpoint
 
+from graph_framework_tpu_torch import telemetry
 from graph_framework_tpu_torch.kernels.efit_step import (
     efit_window, frozen_window, kernel_dispersion_code)
 from graph_framework_tpu_torch.models.efit import EfitEquilibrium
@@ -339,10 +344,11 @@ class Solver:
         (xrays_bench.cpp:97-101).  ``return_carry`` also returns the final
         integration carry (the compensated low words, or the adaptive
         carry's persisted per-ray dt and lambda)."""
-        step = self.carry_step_fn()
-        carry = self.init_carry(state)
-        for _ in range(num_steps):
-            carry = step(carry)
+        with telemetry.span("gft.solver.run"):
+            step = self.carry_step_fn()
+            carry = self.init_carry(state)
+            for _ in range(num_steps):
+                carry = step(carry)
         if return_carry:
             return self.carry_state(carry), carry
         return self.carry_state(carry)
@@ -394,43 +400,47 @@ class Solver:
             nonlocal names
             if extras is None:
                 return list(s)
-            ex = extras(s)
+            with telemetry.span("gft.trace.extras"):
+                ex = extras(s)
             names = list(ex)
             return list(s) + [ex[k] for k in names]
 
         def to_host(rows):
-            block = [torch.stack(leaf) for leaf in zip(*rows)]
-            host = [b.to("cpu", non_blocking=cuda) for b in block]
-            event = None
-            if cuda:
-                event = torch.cuda.Event()
-                event.record()
+            with telemetry.span("gft.trace.copy"):
+                block = [torch.stack(leaf) for leaf in zip(*rows)]
+                host = [b.to("cpu", non_blocking=cuda) for b in block]
+                event = None
+                if cuda:
+                    event = torch.cuda.Event()
+                    event.record()
             return host, event
 
         def drain(pending):
             (host, event), start = pending
-            if event is not None:
-                event.synchronize()
-            nf = len(RayState._fields)
-            for j in range(host[0].shape[0]):
-                row = RayState(*[h[j] for h in host[:nf]])
-                if extras is not None:
-                    row = (row, {k: h[j] for k, h in zip(names,
-                                                         host[nf:])})
-                writer(start + j, row)
+            with telemetry.span("gft.trace.drain"):
+                if event is not None:
+                    event.synchronize()
+                nf = len(RayState._fields)
+                for j in range(host[0].shape[0]):
+                    row = RayState(*[h[j] for h in host[:nf]])
+                    if extras is not None:
+                        row = (row, {k: h[j] for k, h in zip(names,
+                                                             host[nf:])})
+                    writer(start + j, row)
 
-        carry = self.init_carry(state)
-        pending = (to_host([record(state)]), 0)
-        i = 1
-        while i <= num_steps:
-            k = min(segment, num_steps - i + 1)
-            rows = []
-            for _ in range(k):
-                carry = step(carry)
-                rows.append(record(self.carry_state(carry)))
-            nxt = (to_host(rows), i)
+        with telemetry.span("gft.trace_segmented"):
+            carry = self.init_carry(state)
+            pending = (to_host([record(state)]), 0)
+            i = 1
+            while i <= num_steps:
+                k = min(segment, num_steps - i + 1)
+                rows = []
+                for _ in range(k):
+                    carry = step(carry)
+                    rows.append(record(self.carry_state(carry)))
+                nxt = (to_host(rows), i)
+                drain(pending)
+                pending = nxt
+                i += k
             drain(pending)
-            pending = nxt
-            i += k
-        drain(pending)
         return self.carry_state(carry)
