@@ -55,7 +55,12 @@ failed check raises and the script exits non-zero):
    at 1M (K1 and K3 launches, one each a window, no K2; the value between
    0 and the ray count; finite gradients, dL/dpsi nonzero; fwd+bwd
    ray-steps/s, peak memory), and one batch's device time split between
-   K1, K3, the scatter and the eager weak damping;
+   K1, K3, the scatter, the table scatter and the eager weak damping;
+   4b7. (phase b7) the spline tables' gradient scatter
+   (``csrc/table_scatter.cu``): the 40 calls of one config-5 batch of 125k
+   rays, uniform cells and ragged row counts against the plain version on
+   the CPU in f32 and f64 (``TABLE_SCATTER_EPS``, integer rows exactly),
+   then its time against its bound and the library's ``index_put_``;
    4b6. (phase b6) ``Solver(remat_policy=...)``: None against
    "spline_jet" at 100k rays on the plain frozen path with
    ``remat_substeps``, seconds, peak memory and equal gradients;
@@ -238,6 +243,7 @@ from graph_framework_tpu_torch.constants import (
 from graph_framework_tpu_torch.kernels import (
     boris, build, efit_step, vmec_geom, vmec_modes)
 from graph_framework_tpu_torch.kernels import deposit as k6
+from graph_framework_tpu_torch.kernels import table_scatter
 from graph_framework_tpu_torch import expr
 from graph_framework_tpu_torch.cli import xpic, xrays, xrays_bench
 from graph_framework_tpu_torch.io.checkpoint import (
@@ -258,6 +264,7 @@ from graph_framework_tpu_torch.models.rays import (
     RayDerivatives, RayState, dispersion_residual, residual_fn)
 from graph_framework_tpu_torch.models.vmec import vmec_from_tables
 from graph_framework_tpu_torch.ops import integrators, special
+from graph_framework_tpu_torch.ops import tables as ops_tables
 from graph_framework_tpu_torch.ops.compensated import (
     CompCarry, comp_state_f64, init_comp_carry)
 from graph_framework_tpu_torch.ops.tables import piecewise_2d
@@ -1888,17 +1895,164 @@ def phase_config5(device, n=1_000_000, n_ref=4099, steps=CONFIG5_STEPS,
     split, total, wall = device_split(
         lambda: grad(batch, "kernel"),
         {"K1": ("efit_window_kernel",), "K3": ("efit_window_bwd_kernel",),
-         "scatter": ("indexFunc", "index_add")})
+         "scatter": ("indexFunc", "index_add"),
+         "table scatter": ("table_scatter_kernel",
+                           "indexing_backward_kernel")})
     print(f"[b5 config 5 where the time goes] one batch of "
           f"{batch.x.shape[0]} rays under the profiler: device ms "
           f"{json.dumps({k: round(v, 3) for k, v in split.items()})} of "
           f"{total:.3f} ms on the device ({wall:.3f} ms of wall under the "
           f"profiler); a batch of the second pass took {batch_ms:.3f} ms of "
           f"wall, so the device is busy {total / batch_ms:.4f} of it; the "
-          f"scatter is index_add_ (scatter_block_cotangents), other is the "
+          f"scatter is index_add_ (scatter_block_cotangents), the table "
+          f"scatter the weak damping's gathers' transpose, other is the "
           f"eager weak damping, its double backward, dl and the loss")
     return (counts, eq, batch._replace(kz=torch.full_like(batch.kz, kz0)),
             passes)
+
+
+# -- the spline tables' gradient scatter (phase b7) --------------------------
+# csrc/table_scatter.cu against the plain version on the CPU in float64, per
+# cell relative to the sum of its rows' magnitudes, in units of the working
+# type's eps: the kernel's chain of roundings (a five-level tree in the warp,
+# a block's shared adds, then one global atomic a block: some 300 at most on
+# 132 SMs) puts its worst case near 300, its typical error near 10.  A row
+# dropped or added twice shows 1 / (rows of the cell) of the cell's scale:
+# above 1e-5 here, 300 eps in f32; so integer-valued rows (|value| <= 8,
+# every partial sum exact in f32 whatever its order) are held to the plain
+# version exactly as well.
+TABLE_SCATTER_EPS = 256
+
+
+def config5_scatter_calls(device, n=125_000, steps=CONFIG5_STEPS):
+    """The table scatters of one config-5 batch of n rays in its kernel
+    form (``steps`` recorded steps): each call's (rows, cells, table rows),
+    recorded where ``ops.tables`` calls the wrapper, in the order the
+    backward makes them."""
+    eq = synthetic_equilibrium(torch.float32, device)
+    root = init_k(launch(n, torch.float32, device, **CONFIG5_LAUNCH),
+                  cold_plasma, eq)
+    calls = []
+
+    def record(grad, idx, cells):
+        calls.append((grad.detach().clone(), idx.clone(), cells))
+        return table_scatter.table_scatter(grad, idx, cells)
+
+    with mock.patch.object(ops_tables, "table_scatter", record):
+        absorbed_power.absorbed_power_grad(
+            eq, root, steps, CONFIG5_SUB, eq.psi_coeffs, CONFIG5_KZ,
+            form="kernel")
+    return calls
+
+
+def check_table_scatter(grad, idx, cells, seed=SEED):
+    """The kernel against the plain version on the CPU: (the largest
+    deviation of a cell over eps times its scale, whether integer-valued
+    rows came out exact)."""
+    got = table_scatter.table_scatter(grad, idx, cells)
+    g64, i64 = grad.detach().double().cpu(), idx.cpu()
+    want = table_scatter.table_scatter_plain(g64, i64, cells)
+    scale = table_scatter.table_scatter_plain(g64.abs(), i64, cells)
+    eps = torch.finfo(grad.dtype).eps
+    dev = (got.double().cpu() - want).abs() / (eps * scale)
+    ratio = float(torch.nan_to_num(dev, nan=0.0).max())
+    rng = torch.Generator(device=grad.device).manual_seed(seed)
+    ints = torch.randint(-8, 9, grad.shape, generator=rng,
+                         device=grad.device).to(grad.dtype)
+    exact = torch.equal(
+        table_scatter.table_scatter(ints, idx, cells).cpu(),
+        table_scatter.table_scatter_plain(ints.cpu(), i64, cells))
+    return ratio, exact
+
+
+def table_scatter_bound(n, width, cells, dtype):
+    """(bound ms, bound by, bytes): an addition a row's value, against the
+    rows and the index read once and the table gradient zeroed and written
+    once (:func:`bound`)."""
+    size = torch.finfo(dtype).bits // 8
+    nbytes = n * width * size + n * 8 + 2 * cells * width * size
+    return (*bound(n * width, nbytes, dtype), nbytes)
+
+
+def phase_table_scatter(device, n=125_000, steps=CONFIG5_STEPS):
+    """Phase b7: the spline tables' gradient scatter (csrc/table_scatter.cu,
+    the transpose of ``ops.tables.gather_rows``).  The real calls of one
+    config-5 batch of n rays (the weak damping's psi gathers, two a recorded
+    step) and, with their rows, uniform cells over the whole table and
+    ragged row counts: the kernel against the plain version on the CPU in
+    f32 and f64 (TABLE_SCATTER_EPS; integer rows exact); then its time at
+    the batch's real calls and at uniform cells, by CUDA events (wrapper and
+    its zeroed output) and on the device (the profiler), against its bound
+    (bytes) and against the library's ``index_put_`` with accumulate
+    (``library_ms``, the port's path before the kernel, which it no longer
+    calls).  Returns the kernel's record for the kernel table."""
+    before = table_scatter.table_scatter_launches
+    calls = config5_scatter_calls(device, n, steps)
+    launched = table_scatter.table_scatter_launches - before
+    if len(calls) != 2 * steps or launched != len(calls):
+        raise AssertionError(f"b7: {len(calls)} table scatters recorded and "
+                             f"{launched} launched in a batch; want "
+                             f"{2 * steps}")
+    distinct = [int(torch.unique(idx).numel()) for _, idx, _ in calls]
+    largest = [int(torch.bincount(idx).max()) for _, idx, _ in calls]
+    grad, idx, cells = calls[len(calls) // 2]
+    width = grad.shape[1]
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    uniform = torch.randint(0, cells, idx.shape, generator=gen,
+                            device=device)
+    cases = {f"call {k}": (g, i) for k, (g, i, _) in enumerate(calls)}
+    cases.update({"uniform": (grad, uniform),
+                  "ragged 4099": (grad[:4099], idx[:4099]),
+                  "ragged 1": (grad[:1], idx[:1]),
+                  "one cell": (grad, torch.full_like(idx, int(idx[0])))})
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        for name, (g, i) in cases.items():
+            ratio, exact = check_table_scatter(g.to(dtype), i, cells)
+            key = f"{'f32' if dtype == torch.float32 else 'f64'} {name}"
+            worst[key] = round(ratio, 3)
+            if not exact or not ratio <= TABLE_SCATTER_EPS:
+                raise AssertionError(f"b7 table scatter {key}: {ratio} eps "
+                                     f"of the cell's scale (limit "
+                                     f"{TABLE_SCATTER_EPS}), integer rows "
+                                     f"exact {exact}")
+    print(f"[b7 table scatter check] a batch of {n} rays f32: {len(calls)} "
+          f"scatters of ({grad.shape[0]}, {width}) rows into {cells} cells, "
+          f"distinct cells a call {distinct}, the largest cell's rows "
+          f"{largest}; largest deviation in eps of the cell's scale "
+          f"(limit {TABLE_SCATTER_EPS}) {json.dumps(worst)}; integer rows "
+          f"exact in every case")
+
+    times = {}
+    for name, i in (("config 5", idx), ("uniform", uniform)):
+        ms = event_ms(lambda: table_scatter.table_scatter(grad, i, cells), 50)
+        dev_ms, _, _ = profile_kernel(
+            lambda: [table_scatter.table_scatter(grad, i, cells)
+                     for _ in range(10)], kernel=("table_scatter_kernel",))
+        lib_ms = event_ms(lambda: torch.zeros(
+            (cells, width), dtype=grad.dtype, device=device).index_put_(
+                (i,), grad, accumulate=True), 3)
+        times[name] = dict(ms=ms, device_ms=dev_ms, library_ms=lib_ms)
+    g_cpu, i_cpu = grad.cpu(), idx.cpu()
+    t0 = time.perf_counter()
+    table_scatter.table_scatter_plain(g_cpu, i_cpu, cells)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    b_ms, b_by, nbytes = table_scatter_bound(grad.shape[0], width, cells,
+                                             grad.dtype)
+    print(f"[b7 table scatter time] ({grad.shape[0]}, {width}) f32 rows into "
+          f"{cells} cells: {json.dumps(times)} (ms a call: CUDA events, the "
+          f"zeroed output included; the kernel on the device; the library's "
+          f"index_put_ with accumulate); bound {b_ms:.6f} ms ({b_by}, "
+          f"{nbytes} B); plain version on the host's CPU {plain_ms:.3f} ms")
+    return {"name": "table_scatter", "route": "cuda",
+            "source": "graph_framework_tpu_torch/csrc/table_scatter.cu",
+            "replaces": None, "launches": launched,
+            "max_eps_of_scale": max(worst.values()),
+            "ms": times["config 5"]["ms"],
+            "device_ms": times["config 5"]["device_ms"],
+            "uniform": times["uniform"], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": times["config 5"]["library_ms"]}
 
 
 def phase_remat_policy(device, n=100_000, steps=2):
@@ -4286,13 +4440,15 @@ def main():
     lap("b")
     counts_c5, eq_c5, batch_c5, passes_c5 = phase_config5(device)
     lap("b5")
+    scatter_record = phase_table_scatter(device)
+    lap("b7")
     phase_remat_policy(device)
     phase_grad_fd(device)
     lap("b6, c")
     phase_segmented(eq32, st32)
     phase_plain_timing(eq32, st32, out["rate_f32"])
     lap("5-6")
-    records = [kernel_record(eq32, st32, out["launches"])]
+    records = [kernel_record(eq32, st32, out["launches"]), scatter_record]
     records += bwd_kernel_records(eq32, st32, counts[1], counts_tab[2])
     del eq32, st32
     # config 5's windows: plain rk4 at one batch of its path, dt 1 / 200

@@ -46,8 +46,9 @@ _PTRS = ctypes.POINTER(_VOID_P)
 
 #: argtypes/restype of every exported function (csrc/efit_window.cu,
 #: csrc/efit_window_bwd.cu, csrc/boris.cu, csrc/deposit.cu,
-#: csrc/vmec_geom.cu, csrc/vmec_modes.cu).  The window kernels' disp is
-#: the dispersion's code (kernels/efit_step.py KERNEL_DISPERSIONS).
+#: csrc/vmec_geom.cu, csrc/vmec_modes.cu, csrc/table_scatter.cu).  The
+#: window kernels' disp is the dispersion's code (kernels/efit_step.py
+#: KERNEL_DISPERSIONS).
 SIGNATURES = {
     "gft_efit_window": (
         [_INT, _INT, _INT, _INT, _INT, _LL,           # dtype disp method
@@ -88,6 +89,11 @@ SIGNATURES = {
         [_INT, _LL, _INT,                             # dtype n m
          _VOID_P, _VOID_P, _PTRS,                     # u v blocks
          _VOID_P, _VOID_P, _VOID_P, _VOID_P],         # xm xn out stream
+        _INT),
+    "gft_table_scatter": (
+        [_INT, _LL, _INT, _LL,                        # dtype n width cells
+         _VOID_P, _VOID_P, _INT, _INT,                # grad idx vec sms
+         _VOID_P, _VOID_P],                           # out stream
         _INT),
     "gft_error_string": ([_INT], ctypes.c_char_p),
 }

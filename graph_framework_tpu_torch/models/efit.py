@@ -32,7 +32,7 @@ from graph_framework_tpu_torch.ops.spline import (
     eval_bicubic_2d, eval_bicubic_jet, eval_bicubic_jet_block,
     eval_cubic_1d, eval_cubic_multi, eval_cubic_multi_block, rebase_cells_1d,
     rebase_cells_2d, to_cell_major_1d, to_cell_major_2d)
-from graph_framework_tpu_torch.ops.tables import table_index_1d
+from graph_framework_tpu_torch.ops.tables import gather_rows, table_index_1d
 
 #: The reference's rounded elementary charge in the ion temperature
 #: (equilibrium.hpp:1358-1362).
@@ -165,14 +165,15 @@ class EfitEquilibrium(Equilibrium):
         nr, nc = self.psi_coeffs.shape[:2]
         i = table_index_1d(r, self.dr, self.rmin, nr)
         j = table_index_1d(z, self.dz, self.zmin, nc)
-        psi_block = self.psi_coeffs.reshape(nr * nc, 16)[i * nc + j]
+        psi_block = gather_rows(self.psi_coeffs.reshape(nr * nc, 16),
+                                i * nc + j)
         u = (r - self.rmin) / self.dr - i.to(r.dtype)
         v = (z - self.zmin) / self.dz - j.to(r.dtype)
         psi_val, _, _ = eval_bicubic_jet_block(psi_block, u, v,
                                                self.dr, self.dz)
         pidx = table_index_1d(psi_val, self.dpsi, self.psimin,
                               self.profile_coeffs.shape[0])
-        prof_block = self.profile_coeffs[pidx]          # (..., 4, 4)
+        prof_block = gather_rows(self.profile_coeffs, pidx)  # (..., 4, 4)
         f = r.dtype
         return FrozenCellEfit(
             psi_block=psi_block, iu=i.to(f), jv=j.to(f),

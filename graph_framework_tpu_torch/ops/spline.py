@@ -28,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from graph_framework_tpu_torch.ops.tables import table_index_1d
+from graph_framework_tpu_torch.ops.tables import gather_rows, table_index_1d
 
 
 def rebase_cells_1d(coeffs):
@@ -104,7 +104,7 @@ def eval_cubic_1d(coeffs, x, scale, offset, local=False):
     idx = table_index_1d(x, scale, offset, coeffs.shape[0])
     if local:
         u = u - idx.to(u.dtype)
-    b = coeffs[idx]                               # (..., 4)
+    b = gather_rows(coeffs, idx)                  # (..., 4)
     return b[..., 0] + u * (b[..., 1] + u * (b[..., 2] + u * b[..., 3]))
 
 
@@ -119,7 +119,7 @@ def eval_cubic_multi(coeffs, x, scale, offset, local=False):
     idx = table_index_1d(x, scale, offset, coeffs.shape[0])
     if local:
         u = u - idx.to(u.dtype)
-    return eval_cubic_multi_block(coeffs[idx], u)
+    return eval_cubic_multi_block(gather_rows(coeffs, idx), u)
 
 
 def _flat_block_2d(coeffs, x, x_scale, x_offset, y, y_scale, y_offset,
@@ -134,7 +134,7 @@ def _flat_block_2d(coeffs, x, x_scale, x_offset, y, y_scale, y_offset,
     if local:
         u = u - i.to(u.dtype)
         v = v - j.to(v.dtype)
-    block = coeffs.reshape(nr * nc, 16)[i * nc + j]   # (..., 16)
+    block = gather_rows(coeffs.reshape(nr * nc, 16), i * nc + j)  # (..., 16)
     return block, u, v
 
 

@@ -118,7 +118,8 @@ def init_k(state: RayState, dispersion, eq, which: str = "kx", *,
 #: The remat policies of ``Solver(remat_policy=...)``: the ATen operations
 #: whose outputs a checkpointed unit keeps for its backward pass.
 #: "spline_jet" keeps what the spline tables' gathers return - every
-#: ``table[index]`` of ops/spline.py and ``freeze_cells`` - so the
+#: ``ops.tables.gather_rows`` of ops/spline.py and ``freeze_cells``, whose
+#: forward is ``table[index]`` with or without a table gradient - so the
 #: recompute evaluates the splines from the kept blocks without reading the
 #: tables again (the JAX package names the jet's products for
 #: ``save_only_these_names``; torch has no names on tensors, but the

@@ -37,8 +37,10 @@ and ``kernels.vmec_modes.MODE_SUM_OPS`` must equal the counts here
 (tests/test_torch_common.py checks all of them where g++ is present).
 
 :func:`host_library` is the host build itself; with ``every_thread`` it
-runs a launch over every block and thread, so a kernel's C interface runs
-on host memory (tests/test_torch_efit_bwd_host.py runs K2 and K3 so).
+runs a launch over every block and thread, a warp's collectives exchanged
+among its lanes, so a kernel's C interface runs on host memory
+(tests/test_torch_efit_bwd_host.py runs K2 and K3 so,
+tests/test_torch_table_gather.py the table scatter).
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ _RUNTIME = r"""
 #include <cmath>
 #ifdef GFT_EVERY_THREAD
 #include <barrier>
+#include <cstring>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -101,6 +104,27 @@ using std::exp; using std::fmax; using std::fmin; using std::sqrt;
 using std::isfinite; using std::isnan;
 // shared-memory integer atomics (K6's histograms)
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+// floating point atomics, a 64-bit compare-and-swap and a bit count (the
+// table scatter)
+template <class T> T host_atomic_add(T* p, T v) {
+  T old, sum;
+  __atomic_load(p, &old, __ATOMIC_SEQ_CST);
+  do {
+    sum = old + v;
+  } while (!__atomic_compare_exchange(p, &old, &sum, false, __ATOMIC_SEQ_CST,
+                                      __ATOMIC_SEQ_CST));
+  return old;
+}
+inline float atomicAdd(float* p, float v) { return host_atomic_add(p, v); }
+inline double atomicAdd(double* p, double v) { return host_atomic_add(p, v); }
+inline unsigned long long atomicCAS(unsigned long long* p,
+                                    unsigned long long expected,
+                                    unsigned long long desired) {
+  __atomic_compare_exchange_n(p, &expected, desired, false, __ATOMIC_SEQ_CST,
+                              __ATOMIC_SEQ_CST);
+  return expected;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -123,10 +147,52 @@ template <class T> T __shfl_down_sync(unsigned, T v, int) { return v; }
 // shared memory (static above) belongs to the block that runs.
 inline std::barrier<>* g_block_barrier = nullptr;
 inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
+// A warp's collectives (__shfl_sync, __match_any_sync, __reduce_max_sync):
+// its lanes (32, fewer in a block's ragged last warp) meet at a barrier of
+// their own and exchange through a slot each, so every lane of the warp must
+// reach each collective, as the full mask asks on the card.
+struct HostWarp {
+  std::barrier<> meet;
+  unsigned lanes;
+  alignas(16) unsigned char slot[32][16];
+  explicit HostWarp(unsigned n) : meet(n), lanes(n) {}
+};
+inline std::vector<std::unique_ptr<HostWarp>> g_warps;
+template <class T> HostWarp& host_warp_gather(T v, T (&all)[32]) {
+  static_assert(sizeof(T) <= 16, "a warp slot holds 16 bytes");
+  HostWarp& w = *g_warps[threadIdx.x / 32];
+  std::memcpy(w.slot[threadIdx.x % 32], &v, sizeof(T));
+  w.meet.arrive_and_wait();
+  for (unsigned i = 0; i < w.lanes; ++i) std::memcpy(&all[i], w.slot[i], sizeof(T));
+  w.meet.arrive_and_wait();
+  return w;
+}
+template <class T> T __shfl_sync(unsigned, T v, int lane) {
+  T all[32];
+  host_warp_gather(v, all);
+  return all[lane];
+}
+template <class T> unsigned __match_any_sync(unsigned, T v) {
+  T all[32];
+  const HostWarp& w = host_warp_gather(v, all);
+  unsigned same = 0;
+  for (unsigned i = 0; i < w.lanes; ++i) same |= (all[i] == v ? 1u : 0u) << i;
+  return same;
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  unsigned all[32];
+  const HostWarp& w = host_warp_gather(v, all);
+  unsigned most = 0;
+  for (unsigned i = 0; i < w.lanes; ++i) most = all[i] > most ? all[i] : most;
+  return most;
+}
 template <class F> void host_launch(dim3 grid, dim3 block, F f) {
   gridDim = grid;
   blockDim = block;
   const unsigned nt = block.x;
+  g_warps.clear();
+  for (unsigned t = 0; t < nt; t += 32)
+    g_warps.push_back(std::make_unique<HostWarp>(nt - t < 32 ? nt - t : 32));
   auto block_barrier = std::make_unique<std::barrier<>>(nt);
   g_block_barrier = block_barrier.get();
   auto next_block = [&]() noexcept {

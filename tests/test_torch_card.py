@@ -21,7 +21,10 @@ and the mode sums K7 within ``chip_smoke.K4_TOL`` and ``chip_smoke.K7_TOL``
 (the order of the sums over the modes, FMA contraction).  The xrays CLI's
 phase function takes the production stack and launches K1 on the card;
 the complex special functions, the weak damping and the root finder on
-the card agree with the CPU's (the last two at a damped launch).
+the card agree with the CPU's (the last two at a damped launch).  The
+spline tables' gradient scatter is held to its plain version on the CPU
+within ``chip_smoke.TABLE_SCATTER_EPS`` of each cell's scale, and exactly on
+integer-valued rows.
 """
 
 import dataclasses
@@ -34,6 +37,7 @@ import chip_smoke
 from graph_framework_tpu_torch.kernels import (
     boris, efit_step, vmec_geom, vmec_modes)
 from graph_framework_tpu_torch.kernels import deposit as k6
+from graph_framework_tpu_torch.kernels import table_scatter
 from graph_framework_tpu_torch.models.dispersion import (
     cold_plasma, extra_ordinary_wave, ordinary_wave)
 from graph_framework_tpu_torch.models.pic import run_pic
@@ -395,3 +399,36 @@ def test_root_finder_on_the_card_matches_the_cpu(device):
     assert float(want.imag.abs().max()) > 0.01
     dev, _ = chip_smoke.per_ray_deviation(got.cpu().numpy(), want.numpy())
     assert dev <= chip_smoke.KAMP_RTOL
+
+
+@pytest.fixture(scope="module")
+def config5_scatters(device):
+    """The table scatters of one config-5 batch of 125k rays (its kernel
+    form over 2 recorded steps: the weak damping's psi gathers)."""
+    return chip_smoke.config5_scatter_calls(device, steps=2)
+
+
+@pytest.mark.parametrize("case", ["config5", "uniform", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_table_scatter_matches_plain_version(config5_scatters, dtype, case):
+    """The table scatter kernel against the plain version on the CPU, per
+    cell within ``chip_smoke.TABLE_SCATTER_EPS`` of its rows' magnitudes
+    and exactly on integer-valued rows: at config 5's real calls, at
+    uniform cells over the whole table and at ragged row counts; a launch
+    each."""
+    assert len(config5_scatters) == 4
+    grad, idx, cells = config5_scatters[-1]
+    if case == "config5":
+        parts = [(g, i) for g, i, _ in config5_scatters]
+    elif case == "uniform":
+        gen = torch.Generator(device=idx.device).manual_seed(3)
+        parts = [(grad, torch.randint(0, cells, idx.shape, generator=gen,
+                                      device=idx.device))]
+    else:
+        parts = [(grad[:n], idx[:n]) for n in (1, 31, 4099)]
+    for g, i in parts:
+        before = table_scatter.table_scatter_launches
+        ratio, exact = chip_smoke.check_table_scatter(g.to(dtype), i, cells)
+        assert table_scatter.table_scatter_launches == before + 2
+        assert exact and ratio <= chip_smoke.TABLE_SCATTER_EPS, ratio
