@@ -248,7 +248,11 @@ def make_ray_rhs(dispersion: Callable, eq, *,
     only its inputs and rebuilds the local graph in the backward pass,
     as an RHS inside a checkpointed unit needs
     (``Solver(remat_substeps=True)``): the unit's recompute restores
-    them."""
+    them.
+
+    Each call of the RHS, from entry to return (the geometry, D and the
+    ``autograd.grad`` pass), is the span ``gft.ray_rhs``
+    (``telemetry``)."""
     split = reference_correction and not eq.is_cartesian()
     make_d = _split_residual if split else dispersion_residual
     d_all = make_d(dispersion, eq)
@@ -278,20 +282,21 @@ def make_ray_rhs(dispersion: Callable, eq, *,
         return partials(d_fn, t, leaves, basis, create_graph)
 
     def rhs(state: RayState) -> RayDerivatives:
-        leaves = (state.w, state.x, state.y, state.z,
-                  state.kx, state.ky, state.kz)
-        # the basis position: the state itself, not the leaves D is
-        # differentiated against, so D_x does not see it
-        basis = leaves[1:4] if split else ()
-        if torch.is_grad_enabled() and (closure or any(
-                a.requires_grad for a in (state.t, *leaves))):
-            return RayDerivatives(*LocalGraph.apply(
-                rhs_of, keep_local_graph, state.t, *leaves, *basis,
-                *closure))
-        fresh = [a.detach().requires_grad_(True) for a in leaves]
-        return RayDerivatives(*partials(
-            d_all, state.t.detach(), fresh,
-            [a.detach() for a in basis], False))
+        with telemetry.span("gft.ray_rhs"):
+            leaves = (state.w, state.x, state.y, state.z,
+                      state.kx, state.ky, state.kz)
+            # the basis position: the state itself, not the leaves D is
+            # differentiated against, so D_x does not see it
+            basis = leaves[1:4] if split else ()
+            if torch.is_grad_enabled() and (closure or any(
+                    a.requires_grad for a in (state.t, *leaves))):
+                return RayDerivatives(*LocalGraph.apply(
+                    rhs_of, keep_local_graph, state.t, *leaves, *basis,
+                    *closure))
+            fresh = [a.detach().requires_grad_(True) for a in leaves]
+            return RayDerivatives(*partials(
+                d_all, state.t.detach(), fresh,
+                [a.detach() for a in basis], False))
 
     return rhs
 
