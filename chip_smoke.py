@@ -241,7 +241,7 @@ import torch.distributed as dist
 from graph_framework_tpu_torch.constants import (
     ME, Q, cyclotron_frequency, plasma_frequency_squared)
 from graph_framework_tpu_torch.kernels import (
-    boris, build, efit_step, vmec_geom, vmec_modes)
+    boris, build, efit_step, vmec_geom, vmec_modes, vmec_rhs)
 from graph_framework_tpu_torch.kernels import deposit as k6
 from graph_framework_tpu_torch.kernels import table_scatter
 from graph_framework_tpu_torch import expr
@@ -527,6 +527,21 @@ def vmec_launch_arrays(n, seed=SEED):
                 y=VMEC_U0 + VMEC_U_SPREAD * rng.standard_normal(n),
                 z=0.0 * full, kx=VMEC_KX0 * full, ky=0.0 * full,
                 kz=0.0 * full)
+
+
+def vmec_rhs_state(n, dtype, device, seed=SEED):
+    """n rays for the VMEC ray RHS (K8 against its plain version and the
+    eager RHS): s uniform on (0.05, 0.95), u and v over a turn, w at the
+    launch's, (k_s, k_u, k_v) nonzero and off the dispersion's root."""
+    rng = np.random.default_rng(seed)
+    leaves = dict(t=np.zeros(n), w=np.full(n, VMEC_W0),
+                  x=rng.uniform(0.05, 0.95, n),
+                  y=rng.uniform(0.0, 2.0 * np.pi, n),
+                  z=rng.uniform(0.0, 2.0 * np.pi, n),
+                  kx=rng.uniform(50.0, 150.0, n), ky=rng.uniform(-5.0, 5.0, n),
+                  kz=rng.uniform(-5.0, 5.0, n))
+    return RayState(**{k: torch.tensor(a, dtype=dtype, device=device)
+                       for k, a in leaves.items()})
 
 
 def vmec_launch(n, dtype, device, seed=SEED):
@@ -2997,6 +3012,22 @@ K4_REFEREE_FACTOR = 2.0
 # 1.5e-7, f64 2.4e-16 (VJP, the plain adjoint, 2.2e-7 / 3.6e-16); a kernel
 # one mode short shows 1.0e-3, a VJP that swaps two cotangents 2.2.
 K7_TOL = {torch.float32: 2.0e-5, torch.float64: 5.0e-14}
+# K8 (csrc/vmec_rhs.cu) against its plain version on the same jet: per
+# derivative, relative to its largest magnitude.  The two take the same
+# hand chain and differ only in rounding (FMA contraction, sincos): the
+# host build of the source reads 3.2e-7 f32 and 2.3e-16 f64 over 301 of
+# vmec_rhs_state's rays.  A ray where D_w nears 0 (one in a few thousand of
+# them) amplifies every rounding, the f32 plain version's against f64 too:
+# one such ray of 4099 read 2.3e-3 f32 and 1.9e-12 f64 on the card (NVIDIA
+# H100 80GB HBM3, 700.00 W), so the tests keep their seeded rays.
+K8_TOL = {torch.float32: 1.0e-5, torch.float64: 1.0e-13}
+# Phase 17's K8 line at the main path's rays (phase 16's final state, all
+# near one launch): there D_s is a sum of terms that cancel, and the card
+# read the kernel 1.9e-5 of dk_s/dt's scale from the f32 plain version, above
+# K8_TOL.  So, as phase 14 holds K4, that line holds both in f32 to the f64
+# plain version on the same inputs: the kernel's worst derivative may lie at
+# most K8_REFEREE_FACTOR times as far from it as the f32 plain version's.
+K8_REFEREE_FACTOR = 2.0
 # Phase 16: the fused trace against the unfused plain path over a few
 # recorded steps, per leaf relative to max(1, its scale):
 # test_pallas_vmec_geom.py's test_fused_trace_matches_default tolerance,
@@ -3215,7 +3246,8 @@ def phase_vmec_main(device, n=100_000, steps_check=3, steps_frozen=20):
     leg: n rays f32 through init_k and Solver.run with fused_mode_sums
     (K4), rk2, 10 substeps of dt 2.5e-6, as many recorded steps (100 to
     1000) as fit in VMEC_MAIN_SECONDS; K4's launches against 2 x substeps
-    and init_k's evaluations; validity, max D^2 and ray-steps/s.  Then the
+    and init_k's evaluations, K8's (the value RHS) against 2 x substeps;
+    validity, max D^2 and ray-steps/s.  Then the
     fused trace against the unfused plain path, and the frozen-radial rk2
     path (K = 10, plain torch) against the fused one, over a few steps."""
     eq = synthetic_vmec(torch.float32, device, fused_mode_sums=True)
@@ -3228,9 +3260,10 @@ def phase_vmec_main(device, n=100_000, steps_check=3, steps_frozen=20):
     sol = vmec_solver(eq)
     _, probe_s = timed(lambda: sol.run(st, 5))
     steps = int(min(1000, max(100, VMEC_MAIN_SECONDS * 5 / probe_s)))
-    vmec_geom.vmec_geom_launches = 0
+    vmec_geom.vmec_geom_launches = vmec_rhs.vmec_rhs_launches = 0
     final, seconds = timed(lambda: sol.run(st, steps))
     launches = vmec_geom.vmec_geom_launches
+    rhs_launches = vmec_rhs.vmec_rhs_launches
     expected = 2 * steps * VMEC_SUB_STEPS
     frac = float(in_flux_domain(final).double().mean())
     res = float(residual_fn(cold_plasma, eq)(final).max())
@@ -3239,14 +3272,17 @@ def phase_vmec_main(device, n=100_000, steps_check=3, steps_frozen=20):
           f"{VMEC_SUB_STEPS} (dt {VMEC_DT}): init_k {init_s:.3f} s "
           f"({diag.iterations} Newton iterations, {init_launches} K4 "
           f"launches, expected {diag.iterations + 2}); run {seconds:.3f} s = "
-          f"{rate:.6e} ray-steps/s; {launches} K4 launches (2 x "
-          f"{steps * VMEC_SUB_STEPS} substeps = {expected}); finite with 0 < "
+          f"{rate:.6e} ray-steps/s; {launches} K4 and {rhs_launches} K8 "
+          f"launches (each 2 x {steps * VMEC_SUB_STEPS} substeps = "
+          f"{expected}); finite with 0 < "
           f"s < 1: {frac}; s from {float(final.x.min()):.4f} to "
           f"{float(final.x.max()):.4f}; max D^2 {res:.3e}")
-    if (launches != expected or init_launches != diag.iterations + 2
+    if (launches != expected or rhs_launches != expected
+            or init_launches != diag.iterations + 2
             or frac != 1.0 or not np.isfinite(res)):
         raise AssertionError(f"VMEC main path: launches {launches} / "
-                             f"{init_launches}, in domain {frac}, D^2 {res}")
+                             f"{rhs_launches} / {init_launches}, in domain "
+                             f"{frac}, D^2 {res}")
     ops, dev_ms = device_work(lambda: sol.run(st, 2))
     step_ms = 1e3 * seconds / steps
     print(f"[16b VMEC where the time goes] 2 recorded steps under the "
@@ -3261,11 +3297,11 @@ def phase_vmec_main(device, n=100_000, steps_check=3, steps_frozen=20):
         lambda: vmec_solver(unfused).run(st, steps_check))
     dev_plain = trace_deviation(fused_short, plain_short)
     fused_frozen_ref = sol.run(st, steps_frozen)
-    vmec_geom.vmec_geom_launches = 0
+    vmec_geom.vmec_geom_launches = vmec_rhs.vmec_rhs_launches = 0
     frozen, frozen_s = timed(lambda: vmec_solver(
         eq, frozen_cells=True, freeze_every=VMEC_SUB_STEPS).run(
             st, steps_frozen))
-    frozen_launches = vmec_geom.vmec_geom_launches
+    frozen_launches = vmec_geom.vmec_geom_launches + vmec_rhs.vmec_rhs_launches
     dev_frozen = trace_deviation(frozen, fused_frozen_ref)
     tables = vmec_geom.jet_tables(eq)
     wrong = {}
@@ -3280,7 +3316,7 @@ def phase_vmec_main(device, n=100_000, steps_check=3, steps_frozen=20):
           f"{steps_check} recorded steps: {dev_plain:.3e} (limit "
           f"{VMEC_TRACE_TOL}; unfused {n * steps_check * VMEC_SUB_STEPS / plain_s:.6e} "
           f"ray-steps/s); frozen-radial rk2 K={VMEC_SUB_STEPS} (plain torch, "
-          f"{frozen_launches} K4 launches) over {steps_frozen} steps: "
+          f"{frozen_launches} K4 and K8 launches) over {steps_frozen} steps: "
           f"{n * steps_frozen * VMEC_SUB_STEPS / frozen_s:.6e} ray-steps/s, "
           f"against the fused trace {dev_frozen:.3e} (limit "
           f"{VMEC_TRACE_TOL}); finite with 0 < s < 1: "
@@ -3292,17 +3328,92 @@ def phase_vmec_main(device, n=100_000, steps_check=3, steps_frozen=20):
             and bool(in_flux_domain(frozen).all())):
         raise AssertionError(f"VMEC checks: unfused {dev_plain}, frozen "
                              f"{dev_frozen}, {frozen_launches} launches")
-    return dict(eq=eq, state=final, launches=launches)
+    return dict(eq=eq, state=final, launches=launches,
+                rhs_launches=rhs_launches)
+
+
+def vmec_rhs_record(main, tables, coords):
+    """Phase 17's K8 line: the ray RHS kernel over the final state of phase
+    16 and K4's jet there.  The kernel and the f32 plain version on the
+    same jet are each held to the f64 plain version on the same inputs
+    (per derivative, relative to its largest magnitude;
+    ``K8_REFEREE_FACTOR``), the kernel's deviation from the f32 plain
+    version printed beside K8_TOL, and the plain version with a planted
+    fault (tests/test_torch_vmec_rhs.py's) against the f64 one; wrapper ms
+    by CUDA events, device ms by the profiler, the plain version's ms and
+    the bound.  K8 reads six leaves (not u), 26 jet rows (not Z itself)
+    and the chi table, and writes six rows."""
+    eq, st = main["eq"], main["state"]
+    n = st.x.shape[0]
+    leaves = [a.contiguous()
+              for a in (st.w, st.x, st.y, st.z, st.kx, st.ky, st.kz)]
+    jet = vmec_geom.geometry_jet(*coords, tables)
+    params = vmec_rhs.rhs_params(eq)
+    got = vmec_rhs.ray_rhs(leaves, jet, params)
+    want = vmec_rhs.ray_rhs_plain(leaves, jet, params)
+    args64 = ([a.double() for a in leaves], jet.double(),
+              params._replace(chi=params.chi.double()))
+    ref = vmec_rhs.ray_rhs_plain(*args64)
+    err = float(max((a.double() - b.double()).abs().max()
+                    for a, b in zip(got, want)))
+    devs = relative_deviations(got, want)
+    worst = int(np.argmax(devs))
+    kernel_ref = max(relative_deviations(got, ref))
+    plain_ref = max(relative_deviations(want, ref))
+    chi_jet, densities = vmec_rhs._chi_jet, vmec_rhs._densities
+    wrong = {}
+    for name, attr, fault in (
+            ("d2chi/ds2 left out", "_chi_jet", lambda s, q: vmec_rhs._Dual(
+                chi_jet(s, q).v, (torch.zeros_like(s),) * 3)),
+            ("ion density te = 1e-16 ne", "_densities", lambda s: (
+                densities(s)[0], tuple(1e-16 * a for a in densities(s)[0])))):
+        with mock.patch.object(vmec_rhs, attr, fault):
+            wrong[name] = max(relative_deviations(
+                vmec_rhs.ray_rhs_plain(*args64), ref))
+    del got, want, ref, args64
+    ms = event_ms(lambda: vmec_rhs.ray_rhs(leaves, jet, params), 50)
+    plain_ms = event_ms(lambda: vmec_rhs.ray_rhs_plain(leaves, jet, params),
+                        5)
+    dev_ms, _, _ = profile_kernel(
+        lambda: [vmec_rhs.ray_rhs(leaves, jet, params) for _ in range(20)],
+        kernel=("vmec_rhs_kernel",))
+    ops = n * vmec_rhs.RHS_OPS["per_ray"]
+    nbytes = 4 * (n * (6 + (len(vmec_geom.JET_NAMES) - 1) + 6)
+                  + params.chi.numel())
+    b_ms, b_by = bound(ops, nbytes, torch.float32)
+    print(f"[17 vmec_rhs time] {n} rays f32: {ms:.5f} ms per call (CUDA "
+          f"events, wrapper included); kernel on the device {dev_ms} ms "
+          f"(profiler); plain version {plain_ms:.4f} ms; bound "
+          f"{b_ms:.5f} ms, by {b_by} ({bound_sides(ops, nbytes)}); max abs "
+          f"error {err:.3e}; worst derivative's deviation from the f32 "
+          f"plain version relative to its scale {devs[worst]:.3e} (the "
+          f"{('s', 'u', 'v', 'k_s', 'k_u', 'k_v')[worst]} row; K8_TOL "
+          f"{K8_TOL[torch.float32]}); against the f64 plain version: the "
+          f"kernel {kernel_ref:.3e}, the f32 plain version {plain_ref:.3e} "
+          f"(factor {K8_REFEREE_FACTOR}); the plain version with a planted "
+          f"fault {json.dumps(wrong)}; "
+          f"launches on the main path {main['rhs_launches']}")
+    if not kernel_ref <= K8_REFEREE_FACTOR * plain_ref:
+        raise AssertionError(f"vmec_rhs vs f64 plain at {n} rays: "
+                             f"{kernel_ref} against {plain_ref}")
+    return {"name": "vmec_rhs", "route": "cuda",
+            "source": "graph_framework_tpu_torch/csrc/vmec_rhs.cu",
+            "replaces": None, "launches": main["rhs_launches"],
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def vmec_kernel_records(main):
-    """Phase 17: the K4 and K7 lines at the main path's shapes (100k rays
-    f32, the final state of phase 16; K7 over the same rays' 86-mode
-    blocks): each held to its plain version (K4_TOL, K7_TOL, per sum
-    relative to its scale over the tables, ``wide_scales``; what phase
-    14's dropped mode reads there beside it), milliseconds per wrapper
-    call by CUDA events and on the device by the profiler, the plain
-    version's, the error and the bound."""
+    """Phase 17: the K4, K8 and K7 lines at the main path's shapes (100k
+    rays f32, the final state of phase 16; K8 over K4's jet there; K7 over
+    the same rays' 86-mode blocks): each held to its plain version
+    (K4_TOL, K7_TOL, per sum relative to its scale over the tables,
+    ``wide_scales``; what phase 14's dropped mode reads there beside it;
+    K8 and its plain version to the f64 plain version,
+    ``K8_REFEREE_FACTOR``),
+    milliseconds per wrapper call by CUDA events and on the device by the
+    profiler, the plain version's, the error and the bound."""
     eq, st = main["eq"], main["state"]
     n = st.x.shape[0]
     tables = vmec_geom.jet_tables(eq)
@@ -3346,6 +3457,7 @@ def vmec_kernel_records(main):
                 "launches": main["launches"], "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None}]
+    records.append(vmec_rhs_record(main, tables, coords))
 
     blocks = [b.contiguous() for b in eq.radial_modes(coords[0])]
     args = (coords[1], coords[2], *blocks, eq.xm, eq.xn)

@@ -265,8 +265,9 @@ def _check(s, u, v, tables):
                          "make_jet_tables")
 
 
-def _launch(s, u, v, tables):
-    """K4 on the current stream: a new (27, n) tensor."""
+def launch(s, u, v, tables):
+    """K4 on the current stream, without :func:`geometry_jet`'s checks: a
+    new (27, n) tensor."""
     from graph_framework_tpu_torch.kernels import build
 
     global vmec_geom_launches
@@ -303,7 +304,7 @@ def geometry_jet(s, u, v, tables: JetTables):
     _check(s, u, v, tables)
     if s.device.type == "cpu":
         return reference_jet(s, u, v, tables)
-    return _launch(s, u, v, tables)
+    return launch(s, u, v, tables)
 
 
 class FusedGeometry(torch.autograd.Function):

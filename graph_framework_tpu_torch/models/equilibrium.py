@@ -117,6 +117,14 @@ class Equilibrium:
         which the batched ray right-hand side (models.rays) needs."""
         return self.is_cartesian()
 
+    def value_rhs(self, dispersion):
+        """A hand-written value path of the ray right-hand side of
+        ``dispersion`` over this equilibrium, which ``models.rays.
+        make_ray_rhs`` asks once: ``rhs(leaves)`` of the seven leaves (w, x,
+        y, z, kx, ky, kz) gives the six derivatives, or None for leaves it
+        does not take.  Default: None, no such path."""
+        return None
+
 
 def _constant(value, pos):
     """A 0-dim tensor of ``pos``'s dtype and device (the JAX package's

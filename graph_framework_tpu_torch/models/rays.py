@@ -31,6 +31,12 @@ An equilibrium whose ``supports_batched()`` is false takes (3,)
 positions only: D is then evaluated per ray under ``torch.func.vmap``,
 as the JAX package vmaps its per-ray function; the gradient of the sum
 stays the per-ray gradient.
+
+An equilibrium may offer a hand-written value path of the RHS
+(``Equilibrium.value_rhs``): the VMEC equilibrium whose geometry the
+kernel K4 serves takes cold plasma's derivatives from the kernel K8
+(``kernels.vmec_rhs``), the chain rule written by hand over K4's jet, in
+place of the eager geometry, D and the autograd pass.
 """
 
 from __future__ import annotations
@@ -250,13 +256,22 @@ def make_ray_rhs(dispersion: Callable, eq, *,
     (``Solver(remat_substeps=True)``): the unit's recompute restores
     them.
 
+    The value path in the canonical form takes the equilibrium's own
+    value path instead (``eq.value_rhs(dispersion)``) where it serves
+    the leaves: K4 and K8 for cold plasma over a ``VmecEquilibrium``
+    whose geometry K4 serves (``fused_mode_sums``, cell-local tables) at
+    (rays,) float32 leaves.  Everything else - the differentiable RHS,
+    float64, unfused or frozen equilibria, ``reference_correction``, the
+    other dispersions and equilibria - is the eager path.
+
     Each call of the RHS, from entry to return (the geometry, D and the
-    ``autograd.grad`` pass), is the span ``gft.ray_rhs``
-    (``telemetry``)."""
+    ``autograd.grad`` pass, or the kernels' wrappers), is the span
+    ``gft.ray_rhs`` (``telemetry``)."""
     split = reference_correction and not eq.is_cartesian()
     make_d = _split_residual if split else dispersion_residual
     d_all = make_d(dispersion, eq)
     closure = grad_tensors(eq)
+    fused = None if split else eq.value_rhs(dispersion)
 
     def partials(d_fn, t, leaves, basis, create_graph):
         """The RHS from D's seven partials over ``leaves``."""
@@ -293,6 +308,9 @@ def make_ray_rhs(dispersion: Callable, eq, *,
                 return RayDerivatives(*LocalGraph.apply(
                     rhs_of, keep_local_graph, state.t, *leaves, *basis,
                     *closure))
+            derivs = None if fused is None else fused(leaves)
+            if derivs is not None:
+                return RayDerivatives(*derivs)
             fresh = [a.detach().requires_grad_(True) for a in leaves]
             return RayDerivatives(*partials(
                 d_all, state.t.detach(), fresh,

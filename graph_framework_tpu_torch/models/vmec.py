@@ -30,7 +30,11 @@ vmec_geom`), under the JAX package's condition: cell-local tables, (rays,)
 coordinates, float32.  The kernel loops over the per-mode tables, not the
 grid.  There the tables are constants: table gradients
 need ``fused_mode_sums=False``, and ``l`` and dl/ds come back as zeros
-(the geometry reads neither).
+(the geometry reads neither).  The value path of cold plasma's ray
+equations takes the kernel K8 there
+(:mod:`graph_framework_tpu_torch.kernels.vmec_rhs`, over K4's jet) in
+place of the eager geometry, D and autograd
+(:meth:`VmecEquilibrium.value_rhs`).
 
 Loading is split like EFIT's: :func:`read_vmec_tables` reads a file's
 tables into numpy (``h5py``, host only), :func:`vmec_from_tables` builds
@@ -46,7 +50,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from graph_framework_tpu_torch.kernels.vmec_geom import fused_geometry
+from graph_framework_tpu_torch.kernels import vmec_geom, vmec_rhs
+from graph_framework_tpu_torch.models.dispersion import cold_plasma
 from graph_framework_tpu_torch.models.equilibrium import (
     Equilibrium, PlasmaQuantities)
 from graph_framework_tpu_torch.ops.spline import (
@@ -188,6 +193,55 @@ class VmecEquilibrium(_VmecView):
     # derived tables of this object (K4's), built at first use
     _cache: dict = dataclasses.field(default_factory=dict, init=False,
                                      repr=False, compare=False)
+
+    def k4_serves(self, s):
+        """Whether the kernel K4 computes the geometry's sums at the
+        coordinates ``s``: ``fused_mode_sums``, cell-local tables on the
+        mode grid, (rays,) float32 (the JAX package's condition)."""
+        return (self.fused_mode_sums and self.cell_local
+                and self.grid_scatter is not None and s.ndim == 1
+                and s.dtype == torch.float32)
+
+    def value_rhs(self, dispersion):
+        """K4 and K8 (``kernels.vmec_rhs``) as the ray RHS's value path of
+        cold plasma with the physical chi (not ``quirky_chi``):
+        ``rhs(leaves)`` gives the six derivatives of the leaves (w, s, u, v,
+        k_s, k_u, k_v), or None unless K4 serves s (:meth:`k4_serves`) and
+        all seven leaves share its shape, dtype and device with the chi
+        table.  None for another dispersion, or where K4 serves no
+        coordinates.
+
+        On the card the first call goes through the two wrappers, which
+        check the tables against the leaves; later calls, whose leaves the
+        condition above holds to that same dtype and device, launch the
+        two kernels without the wrappers' checks."""
+        if not (dispersion is cold_plasma and self.fused_mode_sums
+                and self.cell_local and self.grid_scatter is not None
+                and not self.quirky_chi):
+            return None
+        chi = self.chi_coeffs
+        checked = []
+
+        def rhs(leaves):
+            s = leaves[1]
+            if not (self.k4_serves(s) and chi.dtype == s.dtype
+                    and chi.device == s.device and all(
+                        a.dtype == s.dtype and a.shape == s.shape
+                        and a.device == s.device for a in leaves)):
+                return None
+            leaves = [a.contiguous() for a in leaves]
+            tables = vmec_geom.jet_tables(self)
+            params = vmec_rhs.rhs_params(self)
+            if checked:
+                return vmec_rhs.launch(
+                    leaves, vmec_geom.launch(*leaves[1:4], tables), params)
+            out = vmec_rhs.ray_rhs(
+                leaves, vmec_geom.geometry_jet(*leaves[1:4], tables), params)
+            if s.device.type == "cuda":
+                checked.append(True)
+            return out
+
+        return rhs
 
     def _grid_table(self, coeffs):
         """Scatter a (num_s, 4, num_modes) table onto the dense mode grid
@@ -475,14 +529,13 @@ def _rzl_and_jac(eq: VmecEquilibrium, s, u, v):
     sums the geometry consumes; ``l`` and dl/ds are returned as zeros
     there.
     """
+    if eq.k4_serves(s):
+        (r, z, drs, dru, drv, dzs, dzu, dzv, dlu, dlv) = \
+            vmec_geom.fused_geometry(eq, s, u, v)
+        zero = torch.zeros_like(r)
+        return ((r, z, zero),
+                ((drs, dru, drv), (dzs, dzu, dzv), (zero, dlu, dlv)))
     if eq.grid_scatter is not None:
-        if (eq.fused_mode_sums and eq.cell_local and s.ndim == 1
-                and s.dtype == torch.float32):
-            (r, z, drs, dru, drv, dzs, dzu, dzv, dlu, dlv) = \
-                fused_geometry(eq, s, u, v)
-            zero = torch.zeros_like(r)
-            return ((r, z, zero),
-                    ((drs, dru, drv), (dzs, dzu, dzv), (zero, dlu, dlv)))
         # rmnc and zmns share the full radial grid: one concatenated table,
         # one block gather for both
         rz = torch.cat([eq._grid_table(eq.rmnc_coeffs),

@@ -29,11 +29,13 @@ runs) and the mode sums K7 (a sincos counts two).  K4's
 operations that depend on its tables alone (products of mode numbers,
 doubled coefficients, ds^2) are counted apart, as ``table_fixed`` and
 ``table_per_mode``: the function needs them once, not once a ray.  K7's
-shuffle tree counts the 31 adds a sum whose results reach lane 0.
+shuffle tree counts the 31 adds a sum whose results reach lane 0.  Per
+ray for the VMEC ray RHS K8 (a sincos counts two).
 ``chip_smoke.py`` takes the window kernels' counts for their
 ``bound_ms``; ``kernels.boris.SLAB_PUSH_OPS``,
-``kernels.deposit.DEPOSIT_OPS``, ``kernels.vmec_geom.JET_OPS``
-and ``kernels.vmec_modes.MODE_SUM_OPS`` must equal the counts here
+``kernels.deposit.DEPOSIT_OPS``, ``kernels.vmec_geom.JET_OPS``,
+``kernels.vmec_modes.MODE_SUM_OPS`` and ``kernels.vmec_rhs.RHS_OPS`` must
+equal the counts here
 (tests/test_torch_common.py checks all of them where g++ is present).
 
 :func:`host_library` is the host build itself; with ``every_thread`` it
@@ -442,6 +444,31 @@ extern "C" void count_vmec_geom(int extra, long long* ops,
 }
 """
 
+_VMEC_RHS_HARNESS = r"""
+// K8 for one ray: every operation depends on the ray (its state, its jet,
+// its cell of the chi table)
+extern "C" long long count_vmec_rhs() {
+  using namespace gft;
+  static Counted w[1] = {900.0}, s[1] = {0.5}, u[1] = {0.3}, v[1] = {0.2},
+      ks[1] = {99.0}, ku[1] = {1.0}, kv[1] = {-1.0}, jet[27], chi[8], out[6];
+  for (int k = 0; k < 27; ++k) jet[k] = 0.1 * (k % 5 + 1);
+  for (int k = 0; k < 8; ++k) chi[k] = 0.01 * (k + 1);
+  const RhsLeaves<Counted> st{{w, s, u, v, ks, ku, kv}};
+  RhsParams<Counted> q{};
+  q.sminf = -1.0;
+  q.ds = 1.0;
+  q.phip = -0.3;
+  q.plasma.kpe = 3.0e-3;
+  q.plasma.kce = -5.0e2;
+  q.plasma.kpi = 1.0e-6;
+  q.plasma.kci = 0.3;
+  q.nchi = 2;
+  g_ops = 0;
+  vmec_rhs_kernel<Counted>(st, jet, chi, q, out, 1);
+  return g_ops;
+}
+"""
+
 _VMEC_MODES_HARNESS = r"""
 extern "C" long long count_vmec_modes(int m) {
   using namespace gft;
@@ -565,6 +592,9 @@ def _build(tmp: pathlib.Path) -> pathlib.Path:
         "vmec_geom.cpp": ('#include "cuda_runtime.h"\n'
                           'namespace gft { using ::Counted; using ::g_ops; }\n'
                           '#include "vmec_geom.cu"\n' + _VMEC_GEOM_HARNESS),
+        "vmec_rhs.cpp": ('#include "cuda_runtime.h"\n'
+                         'namespace gft { using ::Counted; using ::g_ops; }\n'
+                         '#include "vmec_rhs.cu"\n' + _VMEC_RHS_HARNESS),
         "vmec_modes.cpp": ('#include "cuda_runtime.h"\n'
                            'namespace gft { using ::Counted; using ::g_ops; }'
                            '\n#include "vmec_modes.cu"\n'
@@ -582,7 +612,7 @@ def count() -> dict:
     with tempfile.TemporaryDirectory() as tmpdir:
         lib = ctypes.CDLL(str(_build(pathlib.Path(tmpdir))))
         for name in ("count_window", "count_window_primal", "count_slab",
-                     "count_vmec_modes"):
+                     "count_vmec_modes", "count_vmec_rhs"):
             getattr(lib, name).restype = ctypes.c_longlong
         out = {}
         for disp, (mode, tail) in enumerate(
@@ -618,6 +648,7 @@ def count() -> dict:
                      "per_ray_fixed": one - g * (two - one),
                      "table_per_mode": two_t - one_t,
                      "table_fixed": one_t - g * (two_t - one_t)}
+        out["K8"] = {"per_ray": lib.count_vmec_rhs()}
     return {"window": WINDOW, "ops": out}
 
 

@@ -114,3 +114,20 @@ def test_frozen_k4_counts_equal_the_programs():
         cwd=harness.ROOT, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout)["ops"]["K4"] == counts_vmec.JET_OPS
+
+
+def test_vmec_rhs_launches_counts_the_kernels_spans():
+    """``vmec_rhs_launches.vmec`` counts the program's ``gft.vmec_rhs``
+    spans, one a launch of K8, a unit; a program without them (the eager
+    RHS) gives nothing."""
+    m = {m["name"]: m for m in harness.load_spec()["per_layer"]}[
+        "vmec_rhs_launches.vmec"]
+    assert (m["layer"], m["source"], m["moves"], m["workloads"], m["unit"],
+            m["better"]) == ("VMEC ray RHS", "program_counter",
+                             "trace_p95_ms", [CELL], "count", "lower")
+    full = _units()
+    read = harness.load_reader("vmec_rhs_launches.vmec")
+    assert read(full) is None
+    host = full.host + [("gft.vmec_rhs", t, t + 1e-5)
+                        for t in (1.1, 1.3, 2.1, 6.1, 7.1, 7.3)]
+    assert read(_trace(host, full.device, spans=full.spans)) == 3.0

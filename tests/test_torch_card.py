@@ -22,6 +22,9 @@ and the mode sums K7 within ``chip_smoke.K4_TOL`` and ``chip_smoke.K7_TOL``
 phase function takes the production stack and launches K1 on the card;
 the complex special functions, the weak damping and the root finder on
 the card agree with the CPU's (the last two at a damped launch).  The
+VMEC ray RHS K8 is held to its plain version within ``chip_smoke.K8_TOL``
+on the same jet, and a short trace through K4 and K8 to the eager RHS's
+within ``chip_smoke.VMEC_TRACE_TOL``.  The
 spline tables' gradient scatter is held to its plain version on the CPU
 within ``chip_smoke.TABLE_SCATTER_EPS`` of each cell's scale, and exactly on
 integer-valued rows.
@@ -35,13 +38,13 @@ import torch
 
 import chip_smoke
 from graph_framework_tpu_torch.kernels import (
-    boris, efit_step, vmec_geom, vmec_modes)
+    boris, efit_step, vmec_geom, vmec_modes, vmec_rhs)
 from graph_framework_tpu_torch.kernels import deposit as k6
 from graph_framework_tpu_torch.kernels import table_scatter
 from graph_framework_tpu_torch.models.dispersion import (
     cold_plasma, extra_ordinary_wave, ordinary_wave)
 from graph_framework_tpu_torch.models.pic import run_pic
-from graph_framework_tpu_torch.models.rays import RayState
+from graph_framework_tpu_torch.models.rays import RayState, make_ray_rhs
 from graph_framework_tpu_torch.ops.compensated import init_comp_carry
 from graph_framework_tpu_torch.solver import Solver, init_k
 
@@ -279,15 +282,88 @@ def test_vmec_geom_matches_plain_version(device, dtype):
 
 
 def test_vmec_fused_trace_launches_k4(device):
+    """The main path's fused f32 rk2 trace: K4 and K8 (the value RHS) each
+    launch twice a substep."""
     eq = chip_smoke.synthetic_vmec(torch.float32, device,
                                    fused_mode_sums=True)
     st = init_k(chip_smoke.vmec_launch(RAGGED, torch.float32, device),
                 cold_plasma, eq)
-    vmec_geom.vmec_geom_launches = 0
+    vmec_geom.vmec_geom_launches = vmec_rhs.vmec_rhs_launches = 0
     out = Solver(cold_plasma, eq, method="rk2", dt=chip_smoke.VMEC_DT,
                  sub_steps=chip_smoke.VMEC_SUB_STEPS).run(st, 2)
     assert vmec_geom.vmec_geom_launches == 2 * 2 * chip_smoke.VMEC_SUB_STEPS
+    assert vmec_rhs.vmec_rhs_launches == 2 * 2 * chip_smoke.VMEC_SUB_STEPS
     assert bool(chip_smoke.in_flux_domain(out).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_vmec_rhs_matches_plain_version(device, dtype):
+    """K8 against its plain version (on the CPU) on the same jet."""
+    eq = chip_smoke.synthetic_vmec(dtype, device)
+    st = chip_smoke.vmec_rhs_state(RAGGED, dtype, device, seed=13)
+    leaves = [st.w, st.x, st.y, st.z, st.kx, st.ky, st.kz]
+    jet = vmec_geom.geometry_jet(st.x, st.y, st.z, vmec_geom.jet_tables(eq))
+    params = vmec_rhs.rhs_params(eq)
+    vmec_rhs.vmec_rhs_launches = 0
+    got = vmec_rhs.ray_rhs(leaves, jet, params)
+    assert vmec_rhs.vmec_rhs_launches == 1
+    cpu = vmec_rhs.rhs_params(chip_smoke.synthetic_vmec(dtype, "cpu"))
+    want = vmec_rhs.ray_rhs_plain([a.cpu() for a in leaves], jet.cpu(), cpu)
+    devs = chip_smoke.relative_deviations([a.cpu() for a in got], want)
+    assert max(devs) <= chip_smoke.K8_TOL[dtype], devs
+
+
+def test_vmec_fused_rhs_launches_k4_and_k8_once(device):
+    eq = chip_smoke.synthetic_vmec(torch.float32, device,
+                                   fused_mode_sums=True)
+    st = chip_smoke.vmec_rhs_state(RAGGED, torch.float32, device, seed=14)
+    vmec_geom.vmec_geom_launches = vmec_rhs.vmec_rhs_launches = 0
+    with torch.no_grad():
+        make_ray_rhs(cold_plasma, eq)(st)
+    assert vmec_geom.vmec_geom_launches == 1
+    assert vmec_rhs.vmec_rhs_launches == 1
+
+
+def test_vmec_fused_trace_matches_eager_rhs(device):
+    """A short fused f32 trace (K4 and K8) against the eager RHS's over the
+    same tables unfused: tests/test_torch_vmec_geom.py's
+    test_fused_trace_matches_default on the card."""
+    eq = chip_smoke.synthetic_vmec(torch.float32, device)
+    eqf = dataclasses.replace(eq, fused_mode_sums=True)
+    st = init_k(chip_smoke.vmec_launch(RAGGED, torch.float32, device),
+                cold_plasma, eqf)
+    vmec_rhs.vmec_rhs_launches = 0
+    f0 = Solver(cold_plasma, eq, method="rk4", dt=2e-7, sub_steps=5).run(st, 3)
+    assert vmec_rhs.vmec_rhs_launches == 0
+    f1 = Solver(cold_plasma, eqf, method="rk4", dt=2e-7,
+                sub_steps=5).run(st, 3)
+    assert vmec_rhs.vmec_rhs_launches == 4 * 5 * 3
+    for a, b, name in zip(f0, f1, f0._fields):
+        scale = max(1.0, float(a.abs().max()))
+        assert float((a - b).abs().max()) <= (
+            chip_smoke.VMEC_TRACE_TOL * scale), name
+
+
+def test_vmec_fused_geometry_backward_trace_matches_eager_rhs(device):
+    """test_vmec_fused_trace_matches_eager_rhs with ``quirky_chi``, which
+    keeps the fused trace on the eager RHS: autograd through K4's
+    FusedGeometry and its backward, no K8."""
+    eq = dataclasses.replace(chip_smoke.synthetic_vmec(torch.float32, device),
+                             quirky_chi=True)
+    eqf = dataclasses.replace(eq, fused_mode_sums=True)
+    st = init_k(chip_smoke.vmec_launch(RAGGED, torch.float32, device),
+                cold_plasma, eqf)
+    vmec_geom.vmec_geom_launches = vmec_rhs.vmec_rhs_launches = 0
+    f0 = Solver(cold_plasma, eq, method="rk4", dt=2e-7, sub_steps=5).run(st, 3)
+    f1 = Solver(cold_plasma, eqf, method="rk4", dt=2e-7,
+                sub_steps=5).run(st, 3)
+    assert vmec_geom.vmec_geom_launches == 4 * 5 * 3
+    assert vmec_rhs.vmec_rhs_launches == 0
+    for a, b, name in zip(f0, f1, f0._fields):
+        scale = max(1.0, float(a.abs().max()))
+        assert float((a - b).abs().max()) <= (
+            chip_smoke.VMEC_TRACE_TOL * scale), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],

@@ -476,7 +476,8 @@ def test_sass_per_item_reads_the_hot_loop():
 def test_op_counts_match_the_sources():
     """The operation counts behind the kernels' bounds (chip_smoke's
     WINDOW_OPS, kernels.boris.SLAB_PUSH_OPS, kernels.deposit.DEPOSIT_OPS,
-    kernels.vmec_geom.JET_OPS, kernels.vmec_modes.MODE_SUM_OPS) are what
+    kernels.vmec_geom.JET_OPS, kernels.vmec_modes.MODE_SUM_OPS,
+    kernels.vmec_rhs.RHS_OPS) are what
     tools/count_ops.py counts over the CUDA sources as they stand.  K1's
     source runs exactly the stages its count of what the function needs
     takes (D's gradient by the hand-written reverse sweep), so its own
@@ -484,7 +485,7 @@ def test_op_counts_match_the_sources():
     if shutil.which("g++") is None:
         pytest.skip("count_ops needs g++")
     from graph_framework_tpu_torch.kernels import (
-        boris, deposit, vmec_geom, vmec_modes)
+        boris, deposit, vmec_geom, vmec_modes, vmec_rhs)
     from graph_framework_tpu_torch.tools import count_ops
 
     counted = count_ops.count()
@@ -506,6 +507,7 @@ def test_op_counts_match_the_sources():
     assert ops["K6"] == deposit.DEPOSIT_OPS
     assert ops["K4"] == vmec_geom.JET_OPS
     assert ops["K7"] == vmec_modes.MODE_SUM_OPS
+    assert ops["K8"] == vmec_rhs.RHS_OPS
 
 
 def test_synthetic_equilibrium_matches_file(tmp_path_factory):

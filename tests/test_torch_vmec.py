@@ -33,7 +33,9 @@ from graph_framework_tpu.models.vmec import make_vmec as jax_make_vmec
 from graph_framework_tpu.solver import Solver as JaxSolver
 from graph_framework_tpu.solver import init_k as jax_init_k
 from graph_framework_tpu.tools.make_splines import write_vmec_file
-from graph_framework_tpu_torch.convert import vmec_from_numpy
+from graph_framework_tpu_torch.convert import (
+    ray_state_from_numpy, vmec_from_numpy)
+from graph_framework_tpu_torch.kernels import vmec_rhs
 from graph_framework_tpu_torch.models.dispersion import cold_plasma
 from graph_framework_tpu_torch.models.rays import make_ray_rhs, residual_fn
 from graph_framework_tpu_torch.models.vmec import (
@@ -46,6 +48,7 @@ from test_torch_common import both_states, leaf_errors
 
 KNOTS = 21          # full-grid knots on s in [-1, 1] (ds = 0.1)
 TOL = 1.0e-10
+F32_TOL = 1.0e-5
 NUM_RAYS = 8
 
 TABLES = ("chi_coeffs", "rmnc_coeffs", "zmns_coeffs", "lmns_coeffs", "xm",
@@ -198,6 +201,34 @@ def test_ray_rhs_matches_jax(eqs):
     want = jax_make_ray_rhs(jax_disp.cold_plasma, jeq)(jst)
     for g, w, name in zip(got, want, got._fields):
         assert _rel(g, w) < TOL, name
+
+
+def test_fused_f32_ray_rhs_matches_jax(eqs, monkeypatch):
+    """The main path's RHS - the value path of a fused float32 equilibrium,
+    K4's plain jet and K8's plain version on the CPU - against the JAX
+    package's float64 ``jax.grad`` RHS on the same file, at
+    test_ray_rhs_matches_jax's state rounded to float32 on both sides:
+    per derivative, relative to its scale, within F32_TOL (read 2.0e-6;
+    test_torch_vmec_rhs.py's planted faults read 1.2e-4 and more)."""
+    jeq, peq = eqs
+    jst, _ = _launch(jeq, peq)
+    jst = jst._replace(ky=jst.ky + 3.0, kz=jst.kz - 2.0)
+    jst = jst._replace(**{f: jnp.asarray(np.asarray(getattr(jst, f),
+                                                    np.float32), jnp.float64)
+                          for f in jst._fields})
+    eq32 = dataclasses.replace(
+        vmec_from_numpy(jeq, dtype=torch.float32, device="cpu"),
+        fused_mode_sums=True)
+    calls = []
+    plain = vmec_rhs.ray_rhs_plain
+    monkeypatch.setattr(vmec_rhs, "ray_rhs_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    got = make_ray_rhs(cold_plasma, eq32)(
+        ray_state_from_numpy(jst, dtype=torch.float32, device="cpu"))
+    want = jax_make_ray_rhs(jax_disp.cold_plasma, jeq)(jst)
+    assert calls == [1]
+    errs = [_rel(g, w) for g, w in zip(got, want)]
+    assert max(errs) < F32_TOL, dict(zip(got._fields, errs))
 
 
 def test_init_k_matches_jax(eqs):

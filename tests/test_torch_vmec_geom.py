@@ -133,27 +133,42 @@ def _pair(dtype=torch.float32):
     return eq, dataclasses.replace(eq, fused_mode_sums=True)
 
 
-def test_fused_rhs_matches_unfused():
-    """The ray RHS (autograd through the geometry: FusedGeometry's backward
-    in the production composition) fused against unfused, f32; the
-    pattern of test_pallas_vmec_geom.py, whose 5e-4 tolerance covers the
-    JAX kernel's bf16 words: here the two differ by the f32 rounding of
-    the geometry's sums, read 4e-7 of each derivative's scale."""
-    eq, eqf = _pair()
+def _rhs_fused_against_unfused(eq, eqf, **options):
     st = make_ray_state(33, w=900.0, x=0.5, y=0.5, z=0.1, kx=54.6, ky=3.0,
                         kz=2.0, dtype=torch.float32, device="cpu")
-    d0 = make_ray_rhs(cold_plasma, eq)(st)
-    d1 = make_ray_rhs(cold_plasma, eqf)(st)
+    d0 = make_ray_rhs(cold_plasma, eq, **options)(st)
+    d1 = make_ray_rhs(cold_plasma, eqf, **options)(st)
     for a, b, name in zip(d0, d1, d0._fields):
         scale = max(1.0, float(a.abs().max()))
         assert float((a - b).abs().max()) <= 1e-5 * scale, name
 
 
-def test_fused_trace_matches_default():
-    """test_pallas_vmec_geom.py's short rk4 trace (dt 2e-7, 5 substeps, 3
-    recorded steps, f32) from init_k's root, to its tolerance (1e-4 of
-    each leaf's scale)."""
+def test_fused_rhs_matches_unfused():
+    """The ray RHS fused against unfused, f32; the pattern of
+    test_pallas_vmec_geom.py, whose 5e-4 tolerance covers the JAX kernel's
+    bf16 words.  The fused side is the main path's value RHS: K4's plain
+    jet and K8's plain version (``kernels.vmec_rhs.ray_rhs_plain``); the
+    eager fused route is held by the test after this one."""
+    _rhs_fused_against_unfused(*_pair())
+
+
+@pytest.mark.parametrize("option", ["quirky_chi", "reference_correction"])
+def test_fused_geometry_backward_rhs_matches_unfused(option):
+    """test_fused_rhs_matches_unfused on the eager fused route, which
+    ``quirky_chi`` and ``reference_correction`` keep: autograd through the
+    geometry, FusedGeometry's backward in the composition of
+    ``make_ray_rhs``.  The two differ by the f32 rounding of the
+    geometry's sums, read 3.7e-7 (quirky_chi) and 7.0e-7 of each
+    derivative's scale."""
     eq, eqf = _pair()
+    if option == "quirky_chi":
+        _rhs_fused_against_unfused(dataclasses.replace(eq, quirky_chi=True),
+                                   dataclasses.replace(eqf, quirky_chi=True))
+    else:
+        _rhs_fused_against_unfused(eq, eqf, reference_correction=True)
+
+
+def _trace_fused_against_default(eq, eqf):
     st = init_k(make_ray_state(8, w=900.0, x=0.5, y=0.5, z=0.0, kx=500.0,
                                dtype=torch.float32, device="cpu"),
                 cold_plasma, eqf)
@@ -163,6 +178,22 @@ def test_fused_trace_matches_default():
     for a, b, name in zip(f0, f1, f0._fields):
         scale = max(1.0, float(a.abs().max()))
         assert float((a - b).abs().max()) <= 1e-4 * scale, name
+
+
+def test_fused_trace_matches_default():
+    """test_pallas_vmec_geom.py's short rk4 trace (dt 2e-7, 5 substeps, 3
+    recorded steps, f32) from init_k's root, to its tolerance (1e-4 of
+    each leaf's scale).  The fused trace's RHS is K4's plain jet and K8's
+    plain version."""
+    _trace_fused_against_default(*_pair())
+
+
+def test_fused_geometry_backward_trace_matches_default():
+    """test_fused_trace_matches_default with ``quirky_chi``, whose fused
+    trace keeps the eager RHS through FusedGeometry's backward."""
+    eq, eqf = _pair()
+    _trace_fused_against_default(dataclasses.replace(eq, quirky_chi=True),
+                                 dataclasses.replace(eqf, quirky_chi=True))
 
 
 def test_fused_routing(monkeypatch):
