@@ -55,7 +55,8 @@ failed check raises and the script exits non-zero):
    at 1M (K1 and K3 launches, one each a window, no K2; the value between
    0 and the ray count; finite gradients, dL/dpsi nonzero; fwd+bwd
    ray-steps/s, peak memory), and one batch's device time split between
-   K1, K3, the scatter, the table scatter and the eager weak damping;
+   K1, K3, the table scatter (K3's block cotangents and the weak
+   damping's gathers' transpose) and the eager weak damping;
    4b7. (phase b7) the spline tables' gradient scatter
    (``csrc/table_scatter.cu``): the 40 calls of one config-5 batch of 125k
    rays, uniform cells and ragged row counts against the plain version on
@@ -84,7 +85,8 @@ failed check raises and the script exits non-zero):
 7. each kernel's milliseconds per window (on the device and by CUDA
    events) beside its plain version's and its bound with the bound's
    basis, each held to its limit on that main-path window, and K3's
-   scatter into the tables (``index_add_``) timed apart.
+   scatter into the tables (two table scatter launches,
+   ``kernels/table_scatter.py``) timed apart.
 
 The particle paths follow (``xkorc``'s Boris push, ``xpic``'s PIC loop),
 with the hand-written kernels K5 (the slab push, ``csrc/boris.cu``) and K6
@@ -1910,7 +1912,6 @@ def phase_config5(device, n=1_000_000, n_ref=4099, steps=CONFIG5_STEPS,
     split, total, wall = device_split(
         lambda: grad(batch, "kernel"),
         {"K1": ("efit_window_kernel",), "K3": ("efit_window_bwd_kernel",),
-         "scatter": ("indexFunc", "index_add"),
          "table scatter": ("table_scatter_kernel",
                            "indexing_backward_kernel")})
     print(f"[b5 config 5 where the time goes] one batch of "
@@ -1919,9 +1920,10 @@ def phase_config5(device, n=1_000_000, n_ref=4099, steps=CONFIG5_STEPS,
           f"{total:.3f} ms on the device ({wall:.3f} ms of wall under the "
           f"profiler); a batch of the second pass took {batch_ms:.3f} ms of "
           f"wall, so the device is busy {total / batch_ms:.4f} of it; the "
-          f"scatter is index_add_ (scatter_block_cotangents), the table "
-          f"scatter the weak damping's gathers' transpose, other is the "
-          f"eager weak damping, its double backward, dl and the loss")
+          f"table scatter is the transpose of every table gather: K3's "
+          f"block cotangents (scatter_block_cotangents) and the weak "
+          f"damping's gathers'; other is the eager weak damping, its double "
+          f"backward, dl and the loss")
     return (counts, eq, batch._replace(kz=torch.full_like(batch.kz, kz0)),
             passes)
 
@@ -2004,10 +2006,13 @@ def phase_table_scatter(device, n=125_000, steps=CONFIG5_STEPS):
     before = table_scatter.table_scatter_launches
     calls = config5_scatter_calls(device, n, steps)
     launched = table_scatter.table_scatter_launches - before
-    if len(calls) != 2 * steps or launched != len(calls):
-        raise AssertionError(f"b7: {len(calls)} table scatters recorded and "
-                             f"{launched} launched in a batch; want "
-                             f"{2 * steps}")
+    # and K3's two a window: its psi and profile block cotangents
+    k3_scatters = 2 * steps * CONFIG5_SUB // absorbed_power.FREEZE_EVERY
+    if len(calls) != 2 * steps or launched != len(calls) + k3_scatters:
+        raise AssertionError(f"b7: {len(calls)} table scatters recorded at "
+                             f"the gathers and {launched} launched in a "
+                             f"batch; want {2 * steps} and "
+                             f"{2 * steps + k3_scatters}")
     distinct = [int(torch.unique(idx).numel()) for _, idx, _ in calls]
     largest = [int(torch.bincount(idx).max()) for _, idx, _ in calls]
     grad, idx, cells = calls[len(calls) // 2]
@@ -2437,7 +2442,7 @@ def bwd_kernel_records(eq, state, launches, launches_tab, mode="",
         scatter = ""
         if tables:
             # EfitWindow's backward adds K3's blocks into the tables after
-            # the kernel: two zeroed tables and two index_add_
+            # the kernel: two table scatter launches
             scatter_ms = event_ms(
                 lambda: efit_step.scatter_block_cotangents(eq, got), 10)
             scatter = (f"; the scatter into the tables "
@@ -4259,8 +4264,8 @@ COLLECTIVE_REPS = 20
 # are deterministic, and dL/dkz sums per-ray cotangents); the order in which
 # the 8 batches' sums are added differs: at most 2 (B - 1) roundings of
 # u = 2^-24 each, relative to the sum when the batches add with one sign.
-# dL/dpsi also carries K3's index_add_ atomics, whose order changes from run
-# to run: phase b5's two passes differ by that alone, read in this run.  The
+# dL/dpsi also carries the table scatter's atomics, whose order changes from
+# run to run: phase b5's two passes differ by that alone, read in this run.  The
 # limit of each quantity is CONFIG5_SUM_FACTOR times the larger of the two,
 # and it must lie SEPARATION times below what a wrong reduction shows (one
 # rank's share dropped, or counted twice).

@@ -50,15 +50,13 @@ def vmec_from_numpy(eq, *, dtype=torch.float64, device="cuda"):
     """The port's :class:`VmecEquilibrium` holding the same tables, mode
     and mode-grid metadata, scalars and flags as ``eq`` (the JAX package's
     VmecEquilibrium)."""
-    grid = {}
-    if eq.grid_scatter is not None:
-        grid = {k: _tensor(getattr(eq, k), dtype, device) for k in _VMEC_GRID}
-        grid["grid_scatter"] = torch.as_tensor(
-            np.array(eq.grid_scatter, dtype=np.int64), device=device)
     return VmecEquilibrium(
-        **{k: _tensor(getattr(eq, k), dtype, device) for k in _VMEC_TABLES},
+        **{k: _tensor(getattr(eq, k), dtype, device)
+           for k in _VMEC_TABLES + _VMEC_GRID},
+        grid_scatter=torch.as_tensor(
+            np.array(eq.grid_scatter, dtype=np.int64), device=device),
         **{k: float(getattr(eq, k)) for k in _VMEC_SCALARS},
-        **{k: bool(getattr(eq, k)) for k in _VMEC_FLAGS}, **grid)
+        **{k: bool(getattr(eq, k)) for k in _VMEC_FLAGS})
 
 
 def _fields(cls, state, dtype, device):

@@ -9,7 +9,8 @@
 // _window_bwd_tab_kernel (windowt): it also gives each ray's cotangents of
 // its 16 psi and 16 profile coefficients, summed over the window's
 // substeps and stages; the wrapper scatters them into the tables
-// (kernels/efit_step.py scatter_block_cotangents, index_add_).
+// (kernels/efit_step.py scatter_block_cotangents, by the table scatter of
+// csrc/table_scatter.cu).
 //
 // Launch shape as K1 (efit_window.cu): one thread per ray, 128 a block,
 // structure-of-arrays state (8 inputs, 8 cotangents, 8 outputs), a masked

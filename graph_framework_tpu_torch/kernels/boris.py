@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from graph_framework_tpu_torch.kernels import build
 from graph_framework_tpu_torch.utils import check_kernel_outputs
 
 #: Kernel launches of the slab push; plain-version calls do not count.
@@ -39,8 +40,6 @@ slab_push_launches = 0
 #: square root, rsqrt or reciprocal counts one.  The plain version's
 #: algebra below takes 58, with 3 square roots and 5 divisions.
 SLAB_PUSH_OPS = 52
-
-_DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 
 def _step(x, y, z, ux, uy, uz, *, dt, b0, b1, b_shear, neg_half_dt,
@@ -95,44 +94,30 @@ def slab_push_plain(x, y, z, ux, uy, uz, *, dt, b0, b1=1.0, b_shear=0.1,
 
 
 def _check(leaves, steps):
+    """Refuse what the kernel does not take; the dtype code."""
     if not isinstance(steps, int) or steps < 0:
         raise ValueError(f"steps={steps!r} must be a non-negative int")
-    x = leaves[0]
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"slab push runs on cuda (or cpu via the plain "
-                         f"version), not {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"slab push takes float32/float64, not {x.dtype}")
-    for a in leaves:
-        if (a.device != x.device or a.dtype != x.dtype or a.ndim != 1
-                or a.shape != x.shape or not a.is_contiguous()):
-            raise ValueError("slab push needs six contiguous 1-D tensors "
-                             "of one shape, dtype and device")
+    code = build.check("slab push", leaves, "x, y, z, ux, uy, uz",
+                       length=True)
     if torch.is_grad_enabled() and any(a.requires_grad for a in leaves):
         raise ValueError("the slab push has no backward (nor has the JAX "
                          "kernel): pass tensors that do not require grad")
+    return code
 
 
-def _launch(leaves, params, steps):
+def _launch(leaves, params, steps, dtype):
     """The kernel on the current stream: six new tensors."""
-    from graph_framework_tpu_torch.kernels import build
-
     global slab_push_launches
     x = leaves[0]
     outs = [torch.empty_like(a) for a in leaves]
     if x.shape[0] == 0:
         return tuple(outs)
-    lib = build.load()
     values = (ctypes.c_double * 6)(
         params["dt"], params["b0"], params["b1"], params["b_shear"],
         params["neg_half_dt"], params["larmor_dt"])
-    with torch.cuda.device(x.device):
-        rc = lib.gft_slab_push(
-            _DTYPE_CODES[x.dtype], x.shape[0], steps, build.pointers(leaves),
-            build.pointers(outs), values, build.stream(x))
-    if rc != 0:
-        raise RuntimeError(f"slab push kernel launch failed ({rc}): "
-                           f"{build.error_string(rc)}")
+    build.call(build.load().gft_slab_push, "slab push", x, dtype,
+               x.shape[0], steps, build.pointers(leaves),
+               build.pointers(outs), values)
     slab_push_launches += 1
     check_kernel_outputs("slab_push (K5)", ("x", "y", "z", "ux", "uy", "uz"),
                          outs, leaves, unit="particle")
@@ -151,11 +136,11 @@ def make_slab_push(*, dt, b0, b1=1.0, b_shear=0.1, larmor=1.0, steps=100):
 
     def push(x, y, z, ux, uy, uz):
         leaves = [x, y, z, ux, uy, uz]
-        _check(leaves, steps)
+        dtype = _check(leaves, steps)
         if x.device.type == "cpu":
             return slab_push_plain(*leaves, dt=dt, b0=b0, b1=b1,
                                    b_shear=b_shear, larmor=larmor,
                                    steps=steps)
-        return _launch(leaves, params, steps)
+        return _launch(leaves, params, steps, dtype)
 
     return push

@@ -13,6 +13,11 @@ either changes.  Importing this module needs no ``nvcc``; :func:`load`
 builds on the first call, from the package's own sources alone, and
 raises if the build fails.
 
+It also owns the protocol every wrapper launches its kernel with: the
+C interfaces' dtype codes (:data:`DTYPE_CODES`), the checks that the tensors a kernel reads share one device and dtype and are
+contiguous (:func:`check`), and the call on the current stream that raises
+on a non-zero return code (:func:`call`).
+
 Spans (``telemetry``): ``gft.load``, the first :func:`load`, build
 included; ``gft.build``, a build that compiles; in it ``gft.build.nvcc``,
 the wait for each source's ``nvcc``, one a source compiled.
@@ -31,6 +36,8 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 from graph_framework_tpu_torch import telemetry
 
 PACKAGE = pathlib.Path(__file__).resolve().parent.parent
@@ -43,6 +50,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _VOID_P, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 _PTRS = ctypes.POINTER(_VOID_P)
+
+#: The ``dtype`` argument of every C interface.
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 #: argtypes/restype of every exported function (csrc/efit_window.cu,
 #: csrc/efit_window_bwd.cu, csrc/boris.cu, csrc/deposit.cu,
@@ -214,6 +224,42 @@ def pointers(tensors):
 
 def stream(x):
     """PyTorch's current CUDA stream on ``x``'s device, as an int."""
-    import torch
-
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def check(kernel, tensors, what, *, length=False) -> int:
+    """Refuse what ``kernel`` cannot read: the first of ``tensors`` on a
+    device other than cuda (or cpu, which runs the plain version) or of a
+    dtype other than float32/float64 (TypeError), or any of them not
+    contiguous, on another device or of another dtype than the first
+    (``what`` names them in the error); with ``length``, also any that is
+    not 1-D of the first's length.  Returns the dtype's code
+    (:data:`DTYPE_CODES`)."""
+    x = tensors[0]
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel} runs on cuda (or cpu via the plain "
+                         f"version), not {x.device}")
+    code = DTYPE_CODES.get(x.dtype)
+    if code is None:
+        raise TypeError(f"{kernel} takes float32/float64, not {x.dtype}")
+    for a in tensors:
+        if (a.device != x.device or a.dtype != x.dtype
+                or not a.is_contiguous()
+                or (length and (a.ndim != 1 or a.shape != x.shape))):
+            if length:
+                raise ValueError(f"{kernel} needs contiguous 1-D {what} of "
+                                 f"one length, dtype and device")
+            raise ValueError(f"{kernel} needs contiguous {what} of one "
+                             f"dtype and device")
+    return code
+
+
+def call(fn, label, like, *args):
+    """Launch through the library's function ``fn`` with ``args`` and the
+    current stream on ``like``'s device, that device current; a non-zero
+    return code raises, naming ``label`` and the library's error."""
+    with torch.cuda.device(like.device):
+        rc = fn(*args, stream(like))
+    if rc != 0:
+        raise RuntimeError(f"{label} kernel launch failed ({rc}): "
+                           f"{error_string(rc)}")

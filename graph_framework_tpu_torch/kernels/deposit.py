@@ -35,6 +35,7 @@ import math
 
 import torch
 
+from graph_framework_tpu_torch.kernels import build
 from graph_framework_tpu_torch.utils import check_kernel_outputs
 
 #: Wrapper calls that launched the kernels; plain-version calls do not count.
@@ -61,8 +62,6 @@ REACH = {torch.float32: 112.0, torch.float64: 760.0}
 
 #: Particles per block of the plain version (bounds its (G, block) pairs).
 _PLAIN_BLOCK = 4096
-
-_DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 
 def _params(width, te, q):
@@ -93,16 +92,11 @@ def deposit_plain(x, mask, grid, *, width=1.0e-4, te=1.0, q=1.0):
 
 
 def _check(x, mask, grid):
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"deposit runs on cuda (or cpu via the plain "
-                         f"version), not {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"deposit takes float32/float64, not {x.dtype}")
-    for a in (x, mask, grid):
-        if (a.device != x.device or a.dtype != x.dtype or a.ndim != 1
-                or not a.is_contiguous()):
-            raise ValueError("deposit needs contiguous 1-D x, mask and grid "
-                             "of one dtype and device")
+    """Refuse what the kernels do not take; the dtype code."""
+    code = build.check("deposit", (x, mask, grid), "x, mask and grid")
+    if x.ndim != 1 or grid.ndim != 1:
+        raise ValueError(f"deposit takes 1-D x and grid, not "
+                         f"{tuple(x.shape)} and {tuple(grid.shape)}")
     if mask.shape != x.shape:
         raise ValueError(f"mask {tuple(mask.shape)} must match x "
                          f"{tuple(x.shape)}")
@@ -112,12 +106,11 @@ def _check(x, mask, grid):
             a.requires_grad for a in (x, mask, grid)):
         raise ValueError("the deposit has no backward (nor has the JAX "
                          "kernel): pass tensors that do not require grad")
+    return code
 
 
-def _launch(x, mask, grid, width, te, q):
+def _launch(x, mask, grid, width, te, q, code):
     """The kernels on the current stream: new (n, e) tensors."""
-    from graph_framework_tpu_torch.kernels import build
-
     global deposit_launches
     if not (0.0 < float(width) < math.inf):
         raise ValueError(f"the deposit kernel needs a positive finite width "
@@ -126,7 +119,6 @@ def _launch(x, mask, grid, width, te, q):
     if p == 0:
         return torch.zeros_like(grid), torch.zeros_like(grid)
     lib = build.load()
-    code = _DTYPE_CODES[x.dtype]
     nbytes = lib.gft_deposit_scratch_bytes(code, p, g)
     if nbytes < 0:
         raise ValueError(f"the deposit kernel takes 1 to 2^31 - 1 particles "
@@ -135,14 +127,9 @@ def _launch(x, mask, grid, width, te, q):
     n, e = torch.empty_like(grid), torch.empty_like(grid)
     params = (ctypes.c_double * 3)(*_params(width, te, q),
                                    reach(width, x.dtype))
-    with torch.cuda.device(x.device):
-        rc = lib.gft_deposit(
-            code, p, g, x.data_ptr(), mask.data_ptr(), grid.data_ptr(),
-            scratch.data_ptr(), n.data_ptr(), e.data_ptr(), params,
-            build.stream(x))
-    if rc != 0:
-        raise RuntimeError(f"deposit kernel launch failed ({rc}): "
-                           f"{build.error_string(rc)}")
+    build.call(lib.gft_deposit, "deposit", x, code, p, g, x.data_ptr(),
+               mask.data_ptr(), grid.data_ptr(), scratch.data_ptr(),
+               n.data_ptr(), e.data_ptr(), params)
     deposit_launches += 1
     check_kernel_outputs("deposit (K6)", ("n", "e"), (n, e), (x, grid),
                          unit="grid point")
@@ -157,7 +144,7 @@ def deposit(x, mask, grid, *, width=1.0e-4, te=1.0, q=1.0):
     CPU tensors run :func:`deposit_plain`; CUDA tensors launch the kernels
     and return new tensors.  Anything the kernels do not take raises,
     inputs that require grad included."""
-    _check(x, mask, grid)
+    code = _check(x, mask, grid)
     if x.device.type == "cpu":
         return deposit_plain(x, mask, grid, width=width, te=te, q=q)
-    return _launch(x, mask, grid, width, te, q)
+    return _launch(x, mask, grid, width, te, q, code)

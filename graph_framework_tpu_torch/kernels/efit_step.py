@@ -51,6 +51,7 @@ from torch.autograd.function import once_differentiable
 from graph_framework_tpu_torch import telemetry
 from graph_framework_tpu_torch.constants import (
     C, EPSILON0, ME, Q)
+from graph_framework_tpu_torch.kernels import build, table_scatter
 from graph_framework_tpu_torch.models.dispersion import (
     acoustic_wave, bohm_gross, cold_plasma, cold_plasma_expansion,
     extra_ordinary_wave, gaussian_well, ion_cyclotron, light_wave,
@@ -68,7 +69,6 @@ efit_window_launches = 0
 efit_window_bwd_launches = 0
 efit_window_bwd_tab_launches = 0
 
-_DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 _METHOD_CODES = {"rk2": 2, "rk4": 4}
 
 class KernelTail(NamedTuple):
@@ -251,20 +251,13 @@ def _leaves(carry, compensated):
 
 
 def _check_launch(eq, leaves, method, steps):
+    """Refuse what the window kernels do not take; the dtype code."""
     if method not in _METHOD_CODES:
         raise ValueError(f"window kernel supports rk2/rk4, not {method!r}")
     if not isinstance(steps, int) or steps < 1:
         raise ValueError(f"steps={steps!r} must be a positive int")
+    code = build.check("window kernel", leaves, "state leaves", length=True)
     x = leaves[0]
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"window kernel takes float32/float64, not "
-                        f"{x.dtype}")
-    for a in leaves:
-        if (a.device != x.device or a.dtype != x.dtype or a.ndim != 1
-                or a.shape != x.shape or not a.is_contiguous()):
-            raise ValueError(
-                "window kernel needs contiguous 1-D state leaves of one "
-                "shape, dtype and device")
     if not eq.cell_local:
         raise ValueError("window kernel needs cell_local tables")
     if eq.num_ion_species != 1:
@@ -281,47 +274,43 @@ def _check_launch(eq, leaves, method, steps):
     if psi.ndim != 4 or prof.ndim != 3 or prof.shape[1] != 4:
         raise ValueError("psi_coeffs must be (nr, nz, 4, 4) and "
                          "profile_coeffs (npsi, 4, 4)")
+    return code
+
+
+#: K1's outputs as ``check_kernel_outputs`` names them, plain and
+#: compensated.
+_K1_NAMES = (RayState._fields,
+             RayState._fields + tuple(f"lo.{f}" for f in RayState._fields))
 
 
 def _launch(eq, leaves, dispersion, method, dt, steps, compensated):
-    """K1 on the current stream: the advanced leaves, in new tensors."""
-    from graph_framework_tpu_torch.kernels import build
-
+    """K1 on the current stream: the advanced leaves, in new tensors.
+    ``dispersion`` is one of KERNEL_DISPERSIONS (the callers check)."""
     global efit_window_launches
-    code = kernel_dispersion_code(dispersion)
-    _check_launch(eq, leaves, method, steps)
+    dtype = _check_launch(eq, leaves, method, steps)
     x = leaves[0]
     n = x.shape[0]
     outs = [torch.empty_like(a) for a in leaves]
     if n == 0:
         return outs
-    lib = build.load()
-    params = kernel_param_array(eq, dt)
     psi, prof = eq.psi_coeffs, eq.profile_coeffs
-    with torch.cuda.device(x.device):
-        rc = lib.gft_efit_window(
-            _DTYPE_CODES[x.dtype], code, _METHOD_CODES[method],
-            int(compensated),
-            steps, n, build.pointers(leaves), build.pointers(outs),
-            psi.data_ptr(), psi.shape[0], psi.shape[1], prof.data_ptr(),
-            prof.shape[0], params, build.stream(x))
-    if rc != 0:
-        raise RuntimeError(f"efit_window kernel launch failed ({rc}): "
-                           f"{build.error_string(rc)}")
+    build.call(build.load().gft_efit_window, "efit_window", x,
+               dtype, KERNEL_DISPERSIONS[dispersion], _METHOD_CODES[method],
+               int(compensated), steps, n, build.pointers(leaves),
+               build.pointers(outs), psi.data_ptr(), psi.shape[0],
+               psi.shape[1], prof.data_ptr(), prof.shape[0],
+               kernel_param_array(eq, dt))
     efit_window_launches += 1
-    names = RayState._fields + (
-        tuple(f"lo.{f}" for f in RayState._fields) if compensated else ())
-    check_kernel_outputs("efit_window (K1)", names, outs, leaves)
+    check_kernel_outputs("efit_window (K1)", _K1_NAMES[compensated], outs,
+                         leaves)
     return outs
 
 
 def _launch_bwd(eq, leaves, cts, dispersion, method, dt, steps, tables):
-    """K2 (or K3 with ``tables``) on the current stream: a WindowVjp."""
-    from graph_framework_tpu_torch.kernels import build
-
+    """K2 (or K3 with ``tables``) on the current stream: a WindowVjp.
+    ``dispersion`` is one of KERNEL_DISPERSIONS (the caller checks)."""
     global efit_window_bwd_launches, efit_window_bwd_tab_launches
-    code = kernel_dispersion_code(dispersion)
-    _check_launch(eq, leaves + cts, method, steps)
+    dtype = _check_launch(eq, leaves + cts, method, steps)
     x = leaves[0]
     n = x.shape[0]
     outs = [torch.empty_like(a) for a in leaves]
@@ -330,25 +319,18 @@ def _launch_bwd(eq, leaves, cts, dispersion, method, dt, steps, tables):
         blocks = torch.empty((2, 16, n), dtype=x.dtype, device=x.device)
         cells = torch.empty((2, n), dtype=torch.int64, device=x.device)
     if n:
-        lib = build.load()
-        params = kernel_param_array(eq, dt)
         psi, prof = eq.psi_coeffs, eq.profile_coeffs
-        with torch.cuda.device(x.device):
-            rc = lib.gft_efit_window_bwd(
-                _DTYPE_CODES[x.dtype], code, _METHOD_CODES[method], steps,
-                n,
-                build.pointers(leaves), build.pointers(cts),
-                build.pointers(outs),
-                psi.data_ptr(), psi.shape[0], psi.shape[1], prof.data_ptr(),
-                prof.shape[0], params,
-                blocks[0].data_ptr() if tables else None,
-                blocks[1].data_ptr() if tables else None,
-                cells[0].data_ptr() if tables else None,
-                cells[1].data_ptr() if tables else None,
-                build.stream(x))
-        if rc != 0:
-            raise RuntimeError(f"efit_window_bwd kernel launch failed "
-                               f"({rc}): {build.error_string(rc)}")
+        build.call(
+            build.load().gft_efit_window_bwd, "efit_window_bwd", x, dtype,
+            KERNEL_DISPERSIONS[dispersion], _METHOD_CODES[method], steps, n,
+            build.pointers(leaves), build.pointers(cts),
+            build.pointers(outs), psi.data_ptr(), psi.shape[0],
+            psi.shape[1], prof.data_ptr(), prof.shape[0],
+            kernel_param_array(eq, dt),
+            blocks[0].data_ptr() if tables else None,
+            blocks[1].data_ptr() if tables else None,
+            cells[0].data_ptr() if tables else None,
+            cells[1].data_ptr() if tables else None)
         if tables:
             efit_window_bwd_tab_launches += 1
         else:
@@ -364,14 +346,6 @@ def _launch_bwd(eq, leaves, cts, dispersion, method, dt, steps, tables):
         return WindowVjp(RayState(*outs))
     return WindowVjp(RayState(*outs), blocks[0].t(), blocks[1].t(),
                      cells[0], cells[1])
-
-
-def _device_of(leaves):
-    device = leaves[0].device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"window kernel runs on cuda (or cpu via the "
-                         f"plain version), not {device}")
-    return device
 
 
 def efit_window_vjp(eq, state, ct, *, method, dt, steps, tables=False,
@@ -391,7 +365,7 @@ def efit_window_vjp(eq, state, ct, *, method, dt, steps, tables=False,
             f"{dispersion.__name__} reads no table: it has no block "
             f"cotangents (call with tables=False)")
     leaves, cts = list(state), [c.contiguous() for c in ct]
-    if _device_of(leaves).type == "cpu":
+    if leaves[0].device.type == "cpu":
         return _window_vjp(eq, dispersion, RayState(*leaves),
                            RayState(*cts), method, dt, steps, tables)
     return _launch_bwd(eq, leaves, cts, dispersion, method, dt, steps,
@@ -401,16 +375,15 @@ def efit_window_vjp(eq, state, ct, *, method, dt, steps, tables=False,
 def scatter_block_cotangents(eq, vjp):
     """The table gradients of a :class:`WindowVjp` with block cotangents:
     each ray's blocks added into the table rows it was gathered from (the
-    transpose of the freeze gather).  On CUDA ``index_add_`` adds with
+    transpose of the freeze gather), by ``kernels.table_scatter``, the
+    transpose of every spline table's gather.  On CUDA its kernel adds with
     atomics, so the order of the sums - and the last bits of a row that
     several rays share - varies from run to run."""
     psi, prof = eq.psi_coeffs, eq.profile_coeffs
-    rows = psi.shape[0] * psi.shape[1]
-    d_psi = torch.zeros((rows, 16), dtype=psi.dtype, device=psi.device)
-    d_psi.index_add_(0, vjp.psi_cell, vjp.psi_block)
-    d_prof = torch.zeros((prof.shape[0], 16), dtype=prof.dtype,
-                         device=prof.device)
-    d_prof.index_add_(0, vjp.prof_cell, vjp.prof_block)
+    d_psi = table_scatter.table_scatter(vjp.psi_block, vjp.psi_cell,
+                                        psi.shape[0] * psi.shape[1])
+    d_prof = table_scatter.table_scatter(vjp.prof_block, vjp.prof_cell,
+                                         prof.shape[0])
     return d_psi.reshape(psi.shape), d_prof.reshape(prof.shape)
 
 
@@ -444,7 +417,7 @@ class EfitWindow(torch.autograd.Function):
         ctx.eq, ctx.dispersion = eq, dispersion
         ctx.method, ctx.dt, ctx.steps = method, dt, steps
         ctx.save_for_backward(psi_table, prof_table, *leaves)
-        if _device_of(leaves).type == "cpu":
+        if leaves[0].device.type == "cpu":
             out = frozen_window(eq, dispersion, RayState(*leaves),
                                 method=method, dt=dt, steps=steps,
                                 compensated=False)
@@ -496,7 +469,6 @@ def efit_window(eq, carry, *, method, dt, steps, compensated,
     with telemetry.span("gft.efit_window"):
         kernel_dispersion_code(dispersion)
         leaves = _leaves(carry, compensated)
-        device = _device_of(leaves)
         if dispersion in TABLE_FREE:
             eq = _with_tables(eq, eq.psi_coeffs.detach(),
                               eq.profile_coeffs.detach())
@@ -510,7 +482,7 @@ def efit_window(eq, carry, *, method, dt, steps, compensated,
                     "package): take gradients through compensated=False")
             return RayState(*EfitWindow.apply(eq, dispersion, method, dt,
                                               steps, *tables, *leaves))
-        if device.type == "cpu":
+        if leaves[0].device.type == "cpu":
             return frozen_window(eq, dispersion, carry, method=method, dt=dt,
                                  steps=steps, compensated=compensated)
         outs = _launch(eq, leaves, dispersion, method, dt, steps, compensated)

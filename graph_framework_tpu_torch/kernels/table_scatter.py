@@ -32,12 +32,11 @@ from __future__ import annotations
 import torch
 
 from graph_framework_tpu_torch import telemetry
+from graph_framework_tpu_torch.kernels import build
 from graph_framework_tpu_torch.utils import check_kernel_outputs
 
 #: Wrapper calls that launched the kernel; plain-version calls do not count.
 table_scatter_launches = 0
-
-_DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 
 def table_scatter_plain(grad, idx, cells):
@@ -49,9 +48,6 @@ def table_scatter_plain(grad, idx, cells):
 
 
 def _check(grad, idx, cells):
-    if grad.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"table_scatter runs on cuda (or cpu via the plain "
-                         f"version), not {grad.device}")
     if grad.ndim != 2 or idx.ndim != 1 or idx.shape[0] != grad.shape[0]:
         raise ValueError(f"table_scatter takes (n, width) rows and (n,) "
                          f"cells, not {tuple(grad.shape)} and "
@@ -66,29 +62,20 @@ def _check(grad, idx, cells):
 
 def _launch(grad, idx, cells):
     """The kernel on the current stream: a new (cells, width) tensor."""
-    from graph_framework_tpu_torch.kernels import build
-
     global table_scatter_launches
-    if grad.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the table_scatter kernel takes float32/float64, "
-                        f"not {grad.dtype}")
+    grad, idx = grad.contiguous(), idx.contiguous()
+    dtype = build.check("the table_scatter kernel", (grad,), "rows")
     n, width = grad.shape
     out = torch.zeros((cells, width), dtype=grad.dtype, device=grad.device)
     if n == 0:
         return out
-    grad, idx = grad.contiguous(), idx.contiguous()
     vec = int(width * grad.element_size() % 16 == 0
               and grad.data_ptr() % 16 == 0)
     sms = torch.cuda.get_device_properties(grad.device).multi_processor_count
-    lib = build.load()
     with telemetry.span("gft.table_scatter"):
-        with torch.cuda.device(grad.device):
-            rc = lib.gft_table_scatter(
-                _DTYPE_CODES[grad.dtype], n, width, cells, grad.data_ptr(),
-                idx.data_ptr(), vec, sms, out.data_ptr(), build.stream(grad))
-    if rc != 0:
-        raise RuntimeError(f"table_scatter kernel launch failed ({rc}): "
-                           f"{build.error_string(rc)}")
+        build.call(build.load().gft_table_scatter, "table_scatter", grad,
+                   dtype, n, width, cells, grad.data_ptr(), idx.data_ptr(),
+                   vec, sms, out.data_ptr())
     table_scatter_launches += 1
     check_kernel_outputs("table_scatter", ("out",), (out,), (grad,),
                          unit="column")

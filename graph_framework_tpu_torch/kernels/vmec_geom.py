@@ -46,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from graph_framework_tpu_torch.kernels import build
 from graph_framework_tpu_torch.ops.tables import table_index_1d
 from graph_framework_tpu_torch.utils import check_kernel_outputs
 
@@ -85,8 +86,6 @@ JVP_IDX = (
 #: ds^2), which the function needs once, not once a ray.
 JET_OPS = {"per_ray_fixed": 420, "per_mode": 90, "table_fixed": 27,
            "table_per_mode": 7}
-
-_DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 
 class ModeRuns(NamedTuple):
@@ -226,18 +225,8 @@ def reference_jet(s, u, v, tables: JetTables):
 
 
 def _check(s, u, v, tables):
-    if s.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the VMEC geometry kernel runs on cuda (or cpu "
-                         f"via the plain version), not {s.device}")
-    if s.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the VMEC geometry kernel takes float32/float64, "
-                        f"not {s.dtype}")
-    for a in (s, u, v) + tuple(tables[:4]):
-        if (a.device != s.device or a.dtype != s.dtype
-                or not a.is_contiguous()):
-            raise ValueError("the VMEC geometry kernel needs contiguous "
-                             "coordinates and tables of one dtype and "
-                             "device")
+    build.check("the VMEC geometry kernel", (s, u, v) + tuple(tables[:4]),
+                "coordinates and tables")
     if s.ndim != 1 or u.shape != s.shape or v.shape != s.shape:
         raise ValueError("s, u and v must be 1-D of one length")
     rz, lm, xm, xn = tables[:4]
@@ -268,8 +257,6 @@ def _check(s, u, v, tables):
 def launch(s, u, v, tables):
     """K4 on the current stream, without :func:`geometry_jet`'s checks: a
     new (27, n) tensor."""
-    from graph_framework_tpu_torch.kernels import build
-
     global vmec_geom_launches
     n = s.shape[0]
     out = torch.empty((len(JET_NAMES), n), dtype=s.dtype, device=s.device)
@@ -277,18 +264,13 @@ def launch(s, u, v, tables):
         return out
     rz, lm = tables.rz_by_mode, tables.lm_by_mode
     runs = tables.modes.runs
-    lib = build.load()
     params = (ctypes.c_double * 4)(tables.sminf, tables.sminh, tables.ds,
                                    tables.modes.nfp)
-    with torch.cuda.device(s.device):
-        rc = lib.gft_vmec_geom(
-            _DTYPE_CODES[s.dtype], n, s.data_ptr(), u.data_ptr(),
-            v.data_ptr(), rz.data_ptr(), lm.data_ptr(), runs.data_ptr(),
-            runs.shape[0], rz.shape[0], lm.shape[0], lm.shape[1], params,
-            out.data_ptr(), build.stream(s))
-    if rc != 0:
-        raise RuntimeError(f"vmec_geom kernel launch failed ({rc}): "
-                           f"{build.error_string(rc)}")
+    build.call(build.load().gft_vmec_geom, "vmec_geom", s,
+               build.DTYPE_CODES[s.dtype], n, s.data_ptr(), u.data_ptr(),
+               v.data_ptr(), rz.data_ptr(), lm.data_ptr(), runs.data_ptr(),
+               runs.shape[0], rz.shape[0], lm.shape[0], lm.shape[1], params,
+               out.data_ptr())
     vmec_geom_launches += 1
     check_kernel_outputs("vmec_geom (K4)", ("the jet sums",), (out,),
                          (s, u, v))

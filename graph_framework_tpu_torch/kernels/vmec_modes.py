@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from graph_framework_tpu_torch.kernels import build
 from graph_framework_tpu_torch.utils import check_kernel_outputs
 
 #: Kernel launches of K7; plain-version calls do not count.
@@ -43,8 +44,6 @@ vmec_modes_launches = 0
 #: warp's shuffle tree whose results reach lane 0 (31 a sum).  Counted over
 #: csrc/vmec_modes.cu by tools/count_ops.py (a CPU test holds them to it).
 MODE_SUM_OPS = {"per_ray_fixed": 310, "per_mode": 28}
-
-_DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 #: The output order.
 SUM_NAMES = ("r", "z", "drs", "dru", "drv", "dzs", "dzu", "dzv", "dlu",
@@ -91,17 +90,9 @@ def reference_backward(u, v, rm, zm, rm_s, zm_s, lm, xm, xn, cts):
 
 
 def _check(u, v, blocks, xm, xn):
-    if u.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the mode-sum kernel runs on cuda (or cpu via "
-                         f"the plain version), not {u.device}")
-    if u.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the mode-sum kernel takes float32/float64, not "
-                        f"{u.dtype}")
-    for a in (u, v, xm, xn) + tuple(blocks):
-        if (a.device != u.device or a.dtype != u.dtype
-                or not a.is_contiguous()):
-            raise ValueError("the mode-sum kernel needs contiguous tensors "
-                             "of one dtype and device")
+    """Refuse what the kernel does not take; the dtype code."""
+    code = build.check("the mode-sum kernel", (u, v, xm, xn) + tuple(blocks),
+                       "tensors")
     n, m = u.shape[0], xm.shape[0]
     if (u.ndim != 1 or v.shape != u.shape or xm.shape != (m,)
             or xn.shape != (m,)
@@ -110,26 +101,19 @@ def _check(u, v, blocks, xm, xn):
                          f"xm, xn (M,); got u {tuple(u.shape)}, blocks "
                          f"{[tuple(b.shape) for b in blocks]}, xm "
                          f"{tuple(xm.shape)}")
+    return code
 
 
-def _launch(u, v, blocks, xm, xn):
+def _launch(u, v, blocks, xm, xn, dtype):
     """K7 on the current stream: a new (10, B) tensor."""
-    from graph_framework_tpu_torch.kernels import build
-
     global vmec_modes_launches
     n, m = u.shape[0], xm.shape[0]
     out = torch.empty((len(SUM_NAMES), n), dtype=u.dtype, device=u.device)
     if n == 0:
         return out
-    lib = build.load()
-    with torch.cuda.device(u.device):
-        rc = lib.gft_vmec_modes(
-            _DTYPE_CODES[u.dtype], n, m, u.data_ptr(), v.data_ptr(),
-            build.pointers(blocks), xm.data_ptr(), xn.data_ptr(),
-            out.data_ptr(), build.stream(u))
-    if rc != 0:
-        raise RuntimeError(f"vmec_modes kernel launch failed ({rc}): "
-                           f"{build.error_string(rc)}")
+    build.call(build.load().gft_vmec_modes, "vmec_modes", u, dtype, n, m,
+               u.data_ptr(), v.data_ptr(), build.pointers(blocks),
+               xm.data_ptr(), xn.data_ptr(), out.data_ptr())
     vmec_modes_launches += 1
     check_kernel_outputs("vmec_modes (K7)", ("the mode sums",), (out,),
                          (u, v))
@@ -141,10 +125,10 @@ def mode_sums(u, v, rm, zm, rm_s, zm_s, lm, xm, xn):
     run :func:`reference_forward`, CUDA tensors launch K7.  No gradient:
     see :func:`make_mode_sums`."""
     blocks = (rm, zm, rm_s, zm_s, lm)
-    _check(u, v, blocks, xm, xn)
+    dtype = _check(u, v, blocks, xm, xn)
     if u.device.type == "cpu":
         return reference_forward(u, v, *blocks, xm, xn)
-    return tuple(_launch(u, v, blocks, xm, xn).unbind(0))
+    return tuple(_launch(u, v, blocks, xm, xn, dtype).unbind(0))
 
 
 class ModeSums(torch.autograd.Function):

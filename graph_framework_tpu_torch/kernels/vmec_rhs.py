@@ -46,7 +46,7 @@ import torch
 
 from graph_framework_tpu_torch import telemetry
 from graph_framework_tpu_torch.constants import C, EPSILON0, ME, Q
-from graph_framework_tpu_torch.kernels import vmec_geom
+from graph_framework_tpu_torch.kernels import build, vmec_geom
 from graph_framework_tpu_torch.ops.tables import table_index_1d
 from graph_framework_tpu_torch.utils import check_kernel_outputs
 
@@ -56,8 +56,6 @@ vmec_rhs_launches = 0
 #: Floating point operations a ray, counted over csrc/vmec_rhs.cu by
 #: tools/count_ops.py (a CPU test holds them to it).
 RHS_OPS = {"per_ray": 865}
-
-_DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 #: The jet rows of the sums the geometry takes, each with the rows of its
 #: (s, u, v) partials (vmec_geom.JVP_IDX): r, drs, dru, drv, dzs, dzu, dzv,
@@ -287,22 +285,12 @@ def ray_rhs_plain(leaves, jet, p: RhsParams):
 
 def _check(leaves, jet, p):
     s = leaves[0]
-    if s.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the VMEC ray RHS kernel runs on cuda (or cpu via "
-                         f"the plain version), not {s.device}")
-    if s.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the VMEC ray RHS kernel takes float32/float64, "
-                        f"not {s.dtype}")
+    build.check("the VMEC ray RHS kernel", (*leaves, jet, p.chi),
+                "leaves, jet and chi table")
     if len(leaves) != 7 or s.ndim != 1:
         raise ValueError("the VMEC ray RHS kernel takes seven 1-D leaves "
                          "(w, s, u, v, k_s, k_u, k_v)")
     n = s.shape[0]
-    for a in (*leaves, jet, p.chi):
-        if (a.device != s.device or a.dtype != s.dtype
-                or not a.is_contiguous()):
-            raise ValueError("the VMEC ray RHS kernel needs contiguous "
-                             "leaves, jet and chi table of one dtype and "
-                             "device")
     if (any(a.shape != s.shape for a in leaves)
             or jet.shape != (len(vmec_geom.JET_NAMES), n)
             or p.chi.ndim != 2 or p.chi.shape[1] != 4):
@@ -315,24 +303,17 @@ def _check(leaves, jet, p):
 def launch(leaves, jet, p):
     """K8 on the current stream, without :func:`ray_rhs`'s checks: the six
     derivatives, rows of a new (6, n) tensor."""
-    from graph_framework_tpu_torch.kernels import build
-
     global vmec_rhs_launches
     s = leaves[0]
     n = s.shape[0]
     out = torch.empty((6, n), dtype=s.dtype, device=s.device)
     if n == 0:
         return tuple(out.unbind(0))
-    lib = build.load()
     with telemetry.span("gft.vmec_rhs"):
-        with torch.cuda.device(s.device):
-            rc = lib.gft_vmec_rhs(
-                _DTYPE_CODES[s.dtype], n, build.pointers(leaves),
-                jet.data_ptr(), p.chi.data_ptr(), p.chi.shape[0], p.array,
-                out.data_ptr(), build.stream(s))
-    if rc != 0:
-        raise RuntimeError(f"vmec_rhs kernel launch failed ({rc}): "
-                           f"{build.error_string(rc)}")
+        build.call(build.load().gft_vmec_rhs, "vmec_rhs", s,
+                   build.DTYPE_CODES[s.dtype], n, build.pointers(leaves),
+                   jet.data_ptr(), p.chi.data_ptr(), p.chi.shape[0], p.array,
+                   out.data_ptr())
     vmec_rhs_launches += 1
     check_kernel_outputs("vmec_rhs (K8)", ("the ray derivatives",), (out,),
                          (*leaves, jet))

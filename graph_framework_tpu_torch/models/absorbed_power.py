@@ -24,8 +24,9 @@ Forms (:data:`FORMS`):
   which bench.py also runs with ``remat_substeps``);
 * ``"kernel"``: the same windows through the window kernel (bench.py's
   ``BENCH_PALLAS_WINDOW=1``): on CUDA tensors each window is one K1 launch
-  forward and one K3 launch backward, whose block cotangents
-  ``index_add_`` scatters into the tables; on CPU tensors the wrapper runs
+  forward and one K3 launch backward, whose block cotangents the table
+  scatter (``kernels/table_scatter.py``) adds into the tables, as it does
+  the weak damping's gathers' cotangents; on CPU tensors the wrapper runs
   the plain frozen window.
 
 The rays are independent and the loss is a sum, so the loss and gradients

@@ -16,11 +16,13 @@ is plain batched torch: positions are (3, ...) with the component axis
 leading, so autograd gives the ray equations their derivatives.
 
 Tables are cell-major, (num_s, 4, num_modes), so a ray's radial cell is
-one contiguous (4, num_modes) block, fetched by a plain gather (the JAX
-package's one-hot matrix product for f32 ensembles is a TPU gather
-workaround and is not carried over).  ``vmec_from_tables`` also builds the
-mode grid: the (unique xm) x (unique xn) slots - 90 for the reference's
-86 modes - onto which the runtime scatters the tables, so that the trig
+one contiguous (4, num_modes) block, fetched by the spline tables' row
+gather ``ops.tables.gather_rows``, whose transpose is the table scatter
+kernel where a table takes a gradient (the JAX package's one-hot matrix
+product for f32 ensembles is a TPU gather workaround and is not carried
+over).  The geometry runs on the mode grid, which ``vmec_from_tables``
+builds: the (unique xm) x (unique xn) slots - 90 for the reference's 86
+modes - onto which the runtime scatters the tables, so that the trig
 factors come from outer products of per-unique-mode cos/sin
 (:func:`_grid_trig`).
 
@@ -45,7 +47,6 @@ the equilibrium from such tables - also from
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import numpy as np
 import torch
@@ -56,7 +57,7 @@ from graph_framework_tpu_torch.models.equilibrium import (
     Equilibrium, PlasmaQuantities)
 from graph_framework_tpu_torch.ops.spline import (
     rebase_cells_1d, to_cell_major_1d)
-from graph_framework_tpu_torch.ops.tables import table_index_1d
+from graph_framework_tpu_torch.ops.tables import gather_rows, table_index_1d
 
 #: The single deuterium ion species of VMEC (equilibrium.hpp:2206).
 DEUTERIUM_MASS = 3.34449469e-27
@@ -69,7 +70,7 @@ def _radial_block(coeffs, s, scale, offset, local):
     idx = table_index_1d(s, scale, offset, coeffs.shape[0])
     if local:
         u = u - idx.to(u.dtype)
-    return coeffs[idx], u.unsqueeze(-1)
+    return gather_rows(coeffs, idx), u.unsqueeze(-1)
 
 
 def _spline_modes(coeffs, s, scale, offset, local):
@@ -95,12 +96,6 @@ def _spline_modes_jet(coeffs, s, scale, offset, local):
     fetch.  Returns (value, d/ds), each (..., M)."""
     block, u = _radial_block(coeffs, s, scale, offset, local)
     return _horner_jet(block, u, scale)
-
-
-def _mode_trig(xm, xn, u, v):
-    """cos/sin of every mode angle (xm u - xn v), direct per-mode form."""
-    angle = xm * u.unsqueeze(-1) - xn * v.unsqueeze(-1)
-    return torch.cos(angle), torch.sin(angle)
 
 
 def _grid_trig(xm_u, xn_u, u, v):
@@ -177,29 +172,28 @@ class VmecEquilibrium(_VmecView):
     sminf: float
     sminh: float
     ds: float
+    # the mode grid (built by vmec_from_tables): each mode's slot in the
+    # dense (unique xm) x (unique xn) grid, the unique mode numbers and
+    # each slot's (xm, xn); missing combinations hold zero coefficients
+    grid_scatter: torch.Tensor   # (num_modes,) int64
+    xm_unique: torch.Tensor      # (n_xm,)
+    xn_unique: torch.Tensor      # (n_xn,)
+    xm_grid: torch.Tensor        # (n_xm * n_xn,)
+    xn_grid: torch.Tensor
     cell_local: bool = False
     # route the batched f32 geometry through the kernel K4 (module doc)
     fused_mode_sums: bool = False
     # replicate the reference's double-normalized chi argument (see chi())
     quirky_chi: bool = False
-    # the mode grid (built by vmec_from_tables): each mode's slot in the
-    # dense (unique xm) x (unique xn) grid, the unique mode numbers and
-    # each slot's (xm, xn); missing combinations hold zero coefficients
-    grid_scatter: Optional[torch.Tensor] = None   # (num_modes,) int64
-    xm_unique: Optional[torch.Tensor] = None      # (n_xm,)
-    xn_unique: Optional[torch.Tensor] = None      # (n_xn,)
-    xm_grid: Optional[torch.Tensor] = None        # (n_xm * n_xn,)
-    xn_grid: Optional[torch.Tensor] = None
     # derived tables of this object (K4's), built at first use
     _cache: dict = dataclasses.field(default_factory=dict, init=False,
                                      repr=False, compare=False)
 
     def k4_serves(self, s):
         """Whether the kernel K4 computes the geometry's sums at the
-        coordinates ``s``: ``fused_mode_sums``, cell-local tables on the
-        mode grid, (rays,) float32 (the JAX package's condition)."""
-        return (self.fused_mode_sums and self.cell_local
-                and self.grid_scatter is not None and s.ndim == 1
+        coordinates ``s``: ``fused_mode_sums``, cell-local tables, (rays,)
+        float32 (the JAX package's condition)."""
+        return (self.fused_mode_sums and self.cell_local and s.ndim == 1
                 and s.dtype == torch.float32)
 
     def value_rhs(self, dispersion):
@@ -216,8 +210,7 @@ class VmecEquilibrium(_VmecView):
         condition above holds to that same dtype and device, launch the
         two kernels without the wrappers' checks."""
         if not (dispersion is cold_plasma and self.fused_mode_sums
-                and self.cell_local and self.grid_scatter is not None
-                and not self.quirky_chi):
+                and self.cell_local and not self.quirky_chi):
             return None
         chi = self.chi_coeffs
         checked = []
@@ -253,22 +246,13 @@ class VmecEquilibrium(_VmecView):
     # -- Fourier geometry --------------------------------------------------
     def _rzl(self, s, u, v):
         """R, Z, lambda at a flux-space point (equilibrium.hpp:2083-2121)."""
-        if self.grid_scatter is not None:
-            rm = _spline_modes(self._grid_table(self.rmnc_coeffs), s,
-                               self.ds, self.sminf, self.cell_local)
-            zm = _spline_modes(self._grid_table(self.zmns_coeffs), s,
-                               self.ds, self.sminf, self.cell_local)
-            lm = _spline_modes(self._grid_table(self.lmns_coeffs), s,
-                               self.ds, self.sminh, self.cell_local)
-            ca, sa = _grid_trig(self.xm_unique, self.xn_unique, u, v)
-        else:
-            rm = _spline_modes(self.rmnc_coeffs, s, self.ds, self.sminf,
-                               self.cell_local)
-            zm = _spline_modes(self.zmns_coeffs, s, self.ds, self.sminf,
-                               self.cell_local)
-            lm = _spline_modes(self.lmns_coeffs, s, self.ds, self.sminh,
-                               self.cell_local)
-            ca, sa = _mode_trig(self.xm, self.xn, u, v)
+        rm = _spline_modes(self._grid_table(self.rmnc_coeffs), s, self.ds,
+                           self.sminf, self.cell_local)
+        zm = _spline_modes(self._grid_table(self.zmns_coeffs), s, self.ds,
+                           self.sminf, self.cell_local)
+        lm = _spline_modes(self._grid_table(self.lmns_coeffs), s, self.ds,
+                           self.sminh, self.cell_local)
+        ca, sa = _grid_trig(self.xm_unique, self.xn_unique, u, v)
         return ((rm * ca).sum(-1), (zm * sa).sum(-1), (lm * sa).sum(-1))
 
     def _chi_jet(self, s):
@@ -279,7 +263,7 @@ class VmecEquilibrium(_VmecView):
                              self.chi_coeffs.shape[0])
         if self.cell_local:
             un = un - idx.to(un.dtype)
-        c = self.chi_coeffs[idx]
+        c = gather_rows(self.chi_coeffs, idx)
         c0, c1, c2, c3 = c[..., 0], c[..., 1], c[..., 2], c[..., 3]
         val = c0 + un * (c1 + un * (c2 + un * c3))
         d = (c1 + un * (2.0 * c2 + 3.0 * un * c3)) / self.ds
@@ -338,21 +322,18 @@ class VmecEquilibrium(_VmecView):
             raise ValueError("freeze_cells with quirky_chi is not "
                              "supported (comparison-only path)")
         s = pos[0]
-        if self.grid_scatter is not None:
-            rz_tab = torch.cat([self._grid_table(self.rmnc_coeffs),
-                                self._grid_table(self.zmns_coeffs)], dim=-1)
-            l_tab = self._grid_table(self.lmns_coeffs)
-        else:
-            rz_tab = torch.cat([self.rmnc_coeffs, self.zmns_coeffs], dim=-1)
-            l_tab = self.lmns_coeffs
+        rz_tab = torch.cat([self._grid_table(self.rmnc_coeffs),
+                            self._grid_table(self.zmns_coeffs)], dim=-1)
+        l_tab = self._grid_table(self.lmns_coeffs)
         idx_f = table_index_1d(s, self.ds, self.sminf, rz_tab.shape[0])
         idx_h = table_index_1d(s, self.ds, self.sminh, l_tab.shape[0])
         idx_c = table_index_1d(s, self.ds, self.sminf,
                                self.chi_coeffs.shape[0])
         f = s.dtype
         return FrozenRadialVmec(
-            base=self, rz_block=rz_tab[idx_f], l_block=l_tab[idx_h],
-            chi_block=self.chi_coeffs[idx_c], idx_f=idx_f.to(f),
+            base=self, rz_block=gather_rows(rz_tab, idx_f),
+            l_block=gather_rows(l_tab, idx_h),
+            chi_block=gather_rows(self.chi_coeffs, idx_c), idx_f=idx_f.to(f),
             idx_h=idx_h.to(f), idx_c=idx_c.to(f))
 
     def characteristic_field(self):
@@ -493,12 +474,8 @@ class FrozenRadialVmec(_VmecView):
         un_h = ((s - eq.sminh) / eq.ds - self.idx_h).unsqueeze(-1)
         rzm, rzm_s = _horner_jet(self.rz_block, un_f, eq.ds)
         lm, lm_s = _horner_jet(self.l_block, un_h, eq.ds)
-        if eq.grid_scatter is not None:
-            ca, sa = _grid_trig(eq.xm_unique, eq.xn_unique, u, v)
-            xm, xn = eq.xm_grid.to(ca.dtype), eq.xn_grid.to(ca.dtype)
-        else:
-            ca, sa = _mode_trig(eq.xm, eq.xn, u, v)
-            xm, xn = eq.xm.to(ca.dtype), eq.xn.to(ca.dtype)
+        ca, sa = _grid_trig(eq.xm_unique, eq.xn_unique, u, v)
+        xm, xn = eq.xm_grid.to(ca.dtype), eq.xn_grid.to(ca.dtype)
         m = ca.shape[-1]
         (r, z, _l), (dr, dz, dl) = _mode_sums(
             rzm[..., :m], rzm[..., m:], lm, rzm_s[..., :m], rzm_s[..., m:],
@@ -535,19 +512,13 @@ def _rzl_and_jac(eq: VmecEquilibrium, s, u, v):
         zero = torch.zeros_like(r)
         return ((r, z, zero),
                 ((drs, dru, drv), (dzs, dzu, dzv), (zero, dlu, dlv)))
-    if eq.grid_scatter is not None:
-        # rmnc and zmns share the full radial grid: one concatenated table,
-        # one block gather for both
-        rz = torch.cat([eq._grid_table(eq.rmnc_coeffs),
-                        eq._grid_table(eq.zmns_coeffs)], dim=-1)
-        lmt = eq._grid_table(eq.lmns_coeffs)
-        ca, sa = _grid_trig(eq.xm_unique, eq.xn_unique, u, v)
-        xm, xn = eq.xm_grid.to(ca.dtype), eq.xn_grid.to(ca.dtype)
-    else:
-        rz = torch.cat([eq.rmnc_coeffs, eq.zmns_coeffs], dim=-1)
-        lmt = eq.lmns_coeffs
-        ca, sa = _mode_trig(eq.xm, eq.xn, u, v)
-        xm, xn = eq.xm.to(ca.dtype), eq.xn.to(ca.dtype)
+    # rmnc and zmns share the full radial grid: one concatenated table, one
+    # block gather for both
+    rz = torch.cat([eq._grid_table(eq.rmnc_coeffs),
+                    eq._grid_table(eq.zmns_coeffs)], dim=-1)
+    lmt = eq._grid_table(eq.lmns_coeffs)
+    ca, sa = _grid_trig(eq.xm_unique, eq.xn_unique, u, v)
+    xm, xn = eq.xm_grid.to(ca.dtype), eq.xn_grid.to(ca.dtype)
     m = xm.shape[0]
     rzm, rzm_s = _spline_modes_jet(rz, s, eq.ds, eq.sminf, eq.cell_local)
     lm, lm_s = _spline_modes_jet(lmt, s, eq.ds, eq.sminh, eq.cell_local)

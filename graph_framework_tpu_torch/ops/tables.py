@@ -19,9 +19,12 @@ clamps the out-of-range integer a NaN casts to) and in the CUDA kernel
 (``fmax(NaN, 0) = 0``); torch would otherwise raise on the garbage index.
 
 :func:`gather_rows` is the spline tables' row gather (ops/spline.py,
-``EfitEquilibrium.freeze_cells``).  Where the table takes a gradient, its
-transpose is the hand-written scatter of ``kernels/table_scatter.py`` on
-the card, in place of the library's ``index_put_`` with accumulate.
+``EfitEquilibrium.freeze_cells``, ``models/vmec.py``).  Where the table
+takes a gradient, its transpose is the hand-written scatter of
+``kernels/table_scatter.py`` on the card, in place of the library's
+``index_put_`` with accumulate; K3's block cotangents go into the EFIT
+tables through the same scatter (``kernels.efit_step.
+scatter_block_cotangents``).
 """
 
 import math

@@ -27,7 +27,7 @@ on the same jet, and a short trace through K4 and K8 to the eager RHS's
 within ``chip_smoke.VMEC_TRACE_TOL``.  The
 spline tables' gradient scatter is held to its plain version on the CPU
 within ``chip_smoke.TABLE_SCATTER_EPS`` of each cell's scale, and exactly on
-integer-valued rows.
+integer-valued rows; K3's block cotangents reach the tables through it.
 """
 
 import dataclasses
@@ -195,6 +195,41 @@ def test_solver_gradient_launches_k1_and_k2(device):
     assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
 
 
+def test_k3_table_gradient_goes_through_the_table_scatter(device):
+    """A window's table gradient: one K3 launch, whose psi and profile
+    block cotangents reach the tables by two table scatter launches, within
+    ``chip_smoke.TABLE_SCATTER_EPS`` of the plain scatter of the same
+    blocks on the CPU."""
+    eq, st = _root(torch.float32, device)
+    psi = eq.psi_coeffs.clone().requires_grad_(True)
+    prof = eq.profile_coeffs.clone().requires_grad_(True)
+    eqt = dataclasses.replace(eq, psi_coeffs=psi, profile_coeffs=prof)
+    kw = dict(method="rk2", dt=chip_smoke.DT, steps=chip_smoke.FREEZE_EVERY)
+    out = efit_step.efit_window(eqt, st, compensated=False, **kw)
+    chip_smoke.reset_launch_counts()
+    before = table_scatter.table_scatter_launches
+    got = torch.autograd.grad(chip_smoke.endpoint_loss(out), [psi, prof])
+    assert chip_smoke.launch_counts() == (0, 0, 1)
+    assert table_scatter.table_scatter_launches == before + 2
+    n = st.x.shape[0]
+    ct = RayState(*[torch.full_like(a, 1.0 / n) if f in ("x", "y", "z",
+                                                         "kx")
+                    else torch.zeros_like(a)
+                    for f, a in zip(RayState._fields, st)])
+    vjp = efit_step.efit_window_vjp(eq, st, ct, tables=True, **kw)
+    eps = torch.finfo(torch.float32).eps
+    for g, blocks, cells in ((got[0], vjp.psi_block, vjp.psi_cell),
+                             (got[1], vjp.prof_block, vjp.prof_cell)):
+        rows = g.reshape(-1, 16).double().cpu()
+        b64, i64 = blocks.double().cpu(), cells.cpu()
+        want = table_scatter.table_scatter_plain(b64, i64, rows.shape[0])
+        scale = table_scatter.table_scatter_plain(b64.abs(), i64,
+                                                  rows.shape[0])
+        assert float(scale.max()) > 0
+        assert ((rows - want).abs()
+                <= chip_smoke.TABLE_SCATTER_EPS * eps * scale).all()
+
+
 def test_compensated_window_refuses_gradients(device):
     eq, st = _root(torch.float32, device, n=16)
     leaves = [leaf.detach().clone().requires_grad_(True) for leaf in st]
@@ -226,7 +261,7 @@ def test_slab_push_refuses(device):
     leaves = chip_smoke.particle_ensemble(16, torch.float32, device, seed=8)
     push = boris.make_slab_push(**chip_smoke.SLAB, steps=2)
     boris.slab_push_launches = 0
-    with pytest.raises(ValueError, match="six contiguous"):
+    with pytest.raises(ValueError, match="contiguous 1-D"):
         push(*leaves[:5], leaves[5].cpu())
     with pytest.raises(ValueError, match="no backward"):
         push(*leaves[:5], leaves[5].clone().requires_grad_(True))

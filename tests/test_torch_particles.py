@@ -286,11 +286,11 @@ def test_slab_push_wrapper_refuses():
     require grad (the push has no backward)."""
     push = boris.make_slab_push(dt=0.5, b0=1.0, steps=2)
     leaves = [torch.ones(8, dtype=torch.float64) for _ in range(6)]
-    with pytest.raises(ValueError, match="six contiguous"):
+    with pytest.raises(ValueError, match="contiguous 1-D"):
         push(*leaves[:5], torch.ones(7, dtype=torch.float64))
-    with pytest.raises(ValueError, match="six contiguous"):
+    with pytest.raises(ValueError, match="contiguous 1-D"):
         push(*leaves[:5], torch.ones(8, dtype=torch.float32))
-    with pytest.raises(ValueError, match="six contiguous"):
+    with pytest.raises(ValueError, match="contiguous 1-D"):
         push(*leaves[:5], torch.ones(16, dtype=torch.float64)[::2])
     with pytest.raises(TypeError, match="float32/float64"):
         push(*[a.half() for a in leaves])

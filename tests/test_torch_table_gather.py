@@ -135,6 +135,44 @@ def test_routing_without_a_gradient_is_plain_indexing():
     assert ts.table_scatter_launches == before
 
 
+def test_vmec_table_gradient_goes_through_the_gather(monkeypatch):
+    """VMEC's spline gathers are this gather: the rmnc gradient of |B|^2
+    (test_torch_vmec.py's ``test_gradient_wrt_rmnc_matches_jax``) takes one
+    table scatter, of the rays' rmnc and zmns blocks over the full grid's
+    cells, and equals plain indexing's gradient bit for bit."""
+    import dataclasses
+
+    from graph_framework_tpu_torch.models import vmec
+    from graph_framework_tpu_torch.ops import tables
+    from graph_framework_tpu_torch.tools.make_splines import vmec_tables
+
+    eq = vmec.vmec_from_tables(
+        vmec_tables(**chip_smoke.synthetic_vmec_samples(21)), device="cpu")
+    rng = np.random.default_rng(3)
+    pos = torch.from_numpy(np.stack([rng.uniform(0.05, 0.95, 64),
+                                     rng.uniform(0.0, 2 * np.pi, 64),
+                                     rng.uniform(0.0, 2 * np.pi, 64)]))
+
+    def rmnc_gradient():
+        rmnc = eq.rmnc_coeffs.clone().requires_grad_(True)
+        b = dataclasses.replace(eq, rmnc_coeffs=rmnc).magnetic_field(pos)
+        return torch.autograd.grad((b * b).sum(), [rmnc])[0]
+
+    cells = []
+
+    def record(grad, idx, n):
+        cells.append(n)
+        return ts.table_scatter(grad, idx, n)
+
+    monkeypatch.setattr(tables, "table_scatter", record)
+    got = rmnc_gradient()
+    assert cells == [eq.rmnc_coeffs.shape[0]]
+    monkeypatch.setattr(vmec, "gather_rows", lambda table, idx: table[idx])
+    want = rmnc_gradient()
+    assert len(cells) == 1
+    assert bool(got.abs().max() > 0) and torch.equal(got, want)
+
+
 def test_wrapper_refuses_what_it_does_not_take():
     grad, idx = torch.zeros(5, 4), torch.zeros(5, dtype=torch.int64)
     with pytest.raises(ValueError):

@@ -122,7 +122,7 @@ def test_tables_bit_equal(build, eqs, path, tmp_path):
         assert getattr(peq, name) == getattr(jeq, name), name
 
 
-@pytest.mark.parametrize("quantity", ["rzl", "rzl per mode", "esup",
+@pytest.mark.parametrize("quantity", ["rzl", "esup",
                                       "magnetic_field", "jacobian",
                                       "to_xyz", "profiles", "one point"])
 def test_geometry_matches_jax(quantity, eqs):
@@ -131,10 +131,6 @@ def test_geometry_matches_jax(quantity, eqs):
     jp, pp = jnp.asarray(pts), torch.from_numpy(pts)
     if quantity == "rzl":
         got, want = peq._rzl(*pp), jeq._rzl(*jp)
-    elif quantity == "rzl per mode":
-        # the direct per-mode trig, without the mode grid
-        got = dataclasses.replace(peq, grid_scatter=None)._rzl(*pp)
-        want = dataclasses.replace(jeq, grid_scatter=None)._rzl(*jp)
     elif quantity == "esup":
         got, want = [peq.esup(pp)], [jeq.esup(jp)]
     elif quantity == "magnetic_field":
