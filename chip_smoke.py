@@ -243,7 +243,7 @@ import torch.distributed as dist
 from graph_framework_tpu_torch.constants import (
     ME, Q, cyclotron_frequency, plasma_frequency_squared)
 from graph_framework_tpu_torch.kernels import (
-    boris, build, efit_step, vmec_geom, vmec_modes, vmec_rhs)
+    boris, build, efit_step, vmec_geom, vmec_modes, vmec_rhs, weak_damping)
 from graph_framework_tpu_torch.kernels import deposit as k6
 from graph_framework_tpu_torch.kernels import table_scatter
 from graph_framework_tpu_torch import expr
@@ -266,7 +266,6 @@ from graph_framework_tpu_torch.models.rays import (
     RayDerivatives, RayState, dispersion_residual, residual_fn)
 from graph_framework_tpu_torch.models.vmec import vmec_from_tables
 from graph_framework_tpu_torch.ops import integrators, special
-from graph_framework_tpu_torch.ops import tables as ops_tables
 from graph_framework_tpu_torch.ops.compensated import (
     CompCarry, comp_state_f64, init_comp_carry)
 from graph_framework_tpu_torch.ops.tables import piecewise_2d
@@ -438,6 +437,64 @@ CONFIG5_KZ = 50.0
 CONFIG5_LAUNCH = dict(w=250.0, x=1.7, x_spread=0.005, kx=200.0, ky=100.0,
                       ky_spread=5.0, kz=CONFIG5_KZ)   # launch()'s keywords
 CONFIG5_STEPS, CONFIG5_SUB, CONFIG5_BATCHES = 20, 10, 8
+
+
+# K9, config 5's weak damping (kernels/weak_damping.py), against its plain
+# version: kamp's parts, each leaf's cotangent and dL/dpsi_coeffs, each
+# relative to its largest magnitude.  f64 within 1e-10 (read 2e-14 at 125k
+# rays, the kernel's source built on the host).  f32 within 5e-5: both
+# round in f32, and Im(kamp) = -Im(Dw) / S divides by S = khat . dDc/dk, a
+# sum whose terms cancel, so the f32 plain version itself reads 7.7e-6
+# from the f64 one at config 5's launch (the kernel 8.7e-6; host build,
+# 125k rays), the kernel 9.5e-6 from the f32 plain version.  A cell of
+# dL/dpsi sums thousands of rays' rows, which cancel under a cotangent of
+# either sign, and the card sums them in another order than the plain
+# version (the table scatter's atomics): in f32 it is held, cell by cell,
+# to the f64 plain version relative to the sum of its rows' magnitudes,
+# within K9_CELL_TOL (read 2.4e-5, the f32 plain version 2.6e-5; host
+# build, 20k rays).
+K9_TOL = {torch.float64: 1.0e-10, torch.float32: 5.0e-5}
+K9_CELL_TOL = 1.0e-4
+
+
+def config5_state(n, dtype, device, recorded=3, seed=SEED):
+    """(equilibrium, state): n rays of config 5's launch (kz set to
+    CONFIG5_KZ) in ``dtype`` after ``recorded`` recorded steps of its
+    kernel form's trace, the state its weak damping sees."""
+    eq = synthetic_equilibrium(dtype, device)
+    root = init_k(launch(n, dtype, device, seed=seed, **CONFIG5_LAUNCH),
+                  cold_plasma, eq)
+    s = root._replace(kz=torch.full_like(root.kz, CONFIG5_KZ))
+    step = Solver(cold_plasma, eq, method="rk4",
+                  dt=1.0 / (CONFIG5_STEPS * CONFIG5_SUB),
+                  sub_steps=CONFIG5_SUB,
+                  **absorbed_power.FORMS["kernel"]).step_fn()
+    with torch.no_grad():
+        for _ in range(recorded):
+            s = step(s)
+    return eq, s
+
+
+def k9_tables(eq):
+    """(psi, profile, params): K9's launch arguments over ``eq`` but the
+    leaves (``kernels.weak_damping``)."""
+    return (eq.psi_coeffs, eq.profile_coeffs, weak_damping.param_array(
+        efit_step.kernel_params(eq, 0.0)))
+
+
+def weak_damping_vjp(eq, state, ct, plain=False):
+    """(kamp, leaf cotangents (w, x, y, z, kx, ky, kz), dL/dpsi_coeffs) of
+    L = sum(Re(ct) Re(kamp) + Im(ct) Im(kamp)) by reverse mode through
+    ``make_weak_damping_real`` (K9 on the card) or, with ``plain``, its
+    plain version."""
+    make = (absorption.make_weak_damping_real_plain if plain
+            else absorption.make_weak_damping_real)
+    psi = eq.psi_coeffs.detach().clone().requires_grad_(True)
+    leaves = [a.detach().clone().requires_grad_(True) for a in state]
+    kamp = make(dataclasses.replace(eq, psi_coeffs=psi))(RayState(*leaves))
+    loss = (ct.real * kamp.real + ct.imag * kamp.imag).sum()
+    grads = torch.autograd.grad(loss, leaves[1:] + [psi])
+    return kamp.detach(), list(grads[:-1]), grads[-1]
 
 
 def synthetic_samples(grid=GRID, z_axis=0.0, psi_axis=0.0):
@@ -803,20 +860,24 @@ def ptxas_summary(log):
     K5 f64), of K6's seven kernels deposit_{setup, count, bins,
     scatter, tile, finish}_kernel<T> and deposit_rows_kernel (K6 tile f32,
     K6 bins f64, K6 rows, ...), or of
-    vmec_geom_kernel<T> and vmec_modes_kernel<T> (K4 f32, K7 f64, ...)."""
+    vmec_geom_kernel<T>, vmec_modes_kernel<T>, weak_damping_kernel<T> and
+    weak_damping_vjp_kernel<T> (K4 f32, K7 f64, K9 f32, K9 vjp f64, ...)."""
     out, variant = {}, None
     for line in log.splitlines():
         m = re.search(
             r"efit_window_(bwd_)?kernelI([fd])Li([24])ELb([01])", line)
         p = re.search(
             r"(slab_push|deposit_(?:setup|count|rows|bins|scatter|tile|"
-            r"finish)|vmec_geom|vmec_modes)_kernel(?:I([fd])E)?", line)
+            r"finish)|vmec_geom|vmec_modes|weak_damping(?:_vjp)?)_kernel"
+            r"(?:I([fd])E)?", line)
         if p and "Compiling entry function" in line:
             # K6's rows kernel counts integers: no dtype
             dtype = {"f": " f32", "d": " f64", None: ""}[p[2]]
             variant = {"slab_push": f"K5{dtype}",
                        "vmec_geom": f"K4{dtype}",
-                       "vmec_modes": f"K7{dtype}"}.get(
+                       "vmec_modes": f"K7{dtype}",
+                       "weak_damping": f"K9{dtype}",
+                       "weak_damping_vjp": f"K9 vjp{dtype}"}.get(
                 p[1], f"K6 {p[1][len('deposit_'):]}{dtype}")
             out[variant] = []
         elif m:
@@ -1718,12 +1779,20 @@ def reset_launch_counts():
     efit_step.efit_window_launches = 0
     efit_step.efit_window_bwd_launches = 0
     efit_step.efit_window_bwd_tab_launches = 0
+    weak_damping.weak_damping_launches = 0
+    weak_damping.weak_damping_vjp_launches = 0
 
 
 def launch_counts():
     return (efit_step.efit_window_launches,
             efit_step.efit_window_bwd_launches,
             efit_step.efit_window_bwd_tab_launches)
+
+
+def weak_damping_launch_counts():
+    """K9's launches since :func:`reset_launch_counts`: (forward, VJP)."""
+    return (weak_damping.weak_damping_launches,
+            weak_damping.weak_damping_vjp_launches)
 
 
 def phase_grad_main(device, n=100_000, steps=1000, steps_tab=100):
@@ -1820,19 +1889,21 @@ def phase_config5(device, n=1_000_000, n_ref=4099, steps=CONFIG5_STEPS,
     each recorded step, in ``batches`` ray batches whose losses and
     gradients add up (models.absorbed_power.absorbed_power_grad).  First
     the referee: over n_ref rays and over the first batch (the shape each
-    K1 and K3 launch of the path sees), the kernel form against the plain
-    frozen form on the card (value and dL/dkz to BWD_TOL's state limit
-    relative to themselves, dL/dpsi to its tables limit relative to its
-    largest magnitude).  Then two passes over the n rays (the first
-    allocates): K1, K2 and K3 launches (one K1 and one K3 a window, no
-    K2), the value between 0 and n, finite gradients, dL/dpsi nonzero;
-    fwd+bwd ray-steps/s of the second pass (bench.py:1047's definition),
-    its peak memory, and one batch's device time split between K1, K3,
-    the scatter into the tables and the eager rest (the weak damping and
-    its double backward), with the device's busy share of a batch of the
+    K1, K3 and K9 launch of the path sees), the kernel form against the
+    plain frozen form with the plain weak damping on the card (value and
+    dL/dkz to BWD_TOL's state limit relative to themselves, dL/dpsi to its
+    tables limit relative to its largest magnitude).  Then two passes over
+    the n rays (the first allocates): K1, K2 and K3 launches (one K1 and
+    one K3 a window, no K2) and K9's (two a recorded step), the value
+    between 0 and n, finite gradients, dL/dpsi nonzero; fwd+bwd
+    ray-steps/s of the second pass (bench.py:1047's definition), its peak
+    memory, and one batch's device time split between K1, K3, K9, the
+    scatter into the tables and the eager rest (dl, the loss and their
+    autograd), with the device's busy share of a batch of the
     second pass (the device ms over that pass's seconds a batch: the
     profiler slows the host several times over).  Returns the second
-    pass's launch counts, the equilibrium and the first batch's launch
+    pass's launch counts, K1/K2/K3 and K9's (forward, VJP), the
+    equilibrium and the first batch's launch
     state (kz set to kz0), for the K1 and K3 lines at that batch, and
     each pass's seconds and (value, dL/dpsi, dL/dkz) on the host, which
     phase 22 holds its ranks' sums to.
@@ -1854,14 +1925,18 @@ def phase_config5(device, n=1_000_000, n_ref=4099, steps=CONFIG5_STEPS,
               "dL/dpsi": tol["tables"]}
     for part in (RayState(*[leaf[:n_ref] for leaf in root]), batch):
         t0 = time.perf_counter()
-        got, want = grad(part, "kernel"), grad(part, "frozen")
+        got = grad(part, "kernel")
+        with mock.patch.object(absorbed_power, "make_weak_damping_real",
+                               absorption.make_weak_damping_real_plain):
+            want = grad(part, "frozen")
         seconds = time.perf_counter() - t0
         dev = {"value": relative_deviations([got[0]], [want[0]])[0],
                "dL/dkz": relative_deviations([got[1][1]], [want[1][1]])[0],
                "dL/dpsi": relative_deviations([got[1][0]],
                                               [want[1][0]])[0]}
         print(f"[b5 config 5 referee] {part.x.shape[0]} rays, kernel form "
-              f"against the plain frozen form on the card: value "
+              f"(K1, K3, K9) against the plain frozen form with the plain "
+              f"weak damping on the card: value "
               f"{float(got[0]):.6f} / {float(want[0]):.6f}, dL/dkz "
               f"{float(got[1][1]):.6e} / {float(want[1][1]):.6e}; relative "
               f"deviations {json.dumps(dev)} (limits {json.dumps(limits)}); "
@@ -1883,7 +1958,7 @@ def phase_config5(device, n=1_000_000, n_ref=4099, steps=CONFIG5_STEPS,
         torch.cuda.synchronize()
         float(value)
         seconds = time.perf_counter() - t0
-        counts = launch_counts()
+        counts, k9 = launch_counts(), weak_damping_launch_counts()
         peak = torch.cuda.max_memory_allocated() - before
         finite = bool(torch.isfinite(g_psi).all() and torch.isfinite(g_kz))
         rate = n * steps * sub / seconds
@@ -1891,19 +1966,23 @@ def phase_config5(device, n=1_000_000, n_ref=4099, steps=CONFIG5_STEPS,
               f"x {sub} rk4 K={absorbed_power.FREEZE_EVERY} in {nb} batches "
               f"at w {CONFIG5_LAUNCH['w']} /m, R {CONFIG5_LAUNCH['x']} m, "
               f"kz0 {kz0} /m: {seconds:.3f} s = {rate:.6e} fwd+bwd "
-              f"ray-steps/s; launches K1/K2/K3 {counts} ({windows} windows); "
+              f"ray-steps/s; launches K1/K2/K3 {counts} ({windows} windows), "
+              f"K9 forward/VJP {k9} (one each a recorded step: "
+              f"{nb * steps}); "
               f"peak memory above the inputs {peak / 1e9:.3f} GB "
               f"(max_memory_allocated); absorbed power {float(value):.3f} of "
               f"{n}; dL/dkz {float(g_kz):.6e}; max |dL/dpsi| "
               f"{float(g_psi.abs().max()):.6e}, "
               f"{int((g_psi != 0).sum())} psi coefficients touched")
-        ok = ((not check_launches or counts == (windows, 0, windows))
+        ok = ((not check_launches or (counts == (windows, 0, windows)
+                                      and k9 == (nb * steps,) * 2))
               and finite
               and 0.0 < float(value) < n and float(g_psi.abs().max()) > 0)
         if not ok:
             raise AssertionError(
                 f"config 5: launches {counts} (want {windows}, 0, "
-                f"{windows}), finite {finite}, value {float(value)}")
+                f"{windows}), K9 {k9} (want {nb * steps} each), finite "
+                f"{finite}, value {float(value)}")
         passes.append(dict(seconds=seconds, sums=[
             t.detach().cpu() for t in (value, g_psi, g_kz)]))
         del g_psi, g_kz
@@ -1912,6 +1991,7 @@ def phase_config5(device, n=1_000_000, n_ref=4099, steps=CONFIG5_STEPS,
     split, total, wall = device_split(
         lambda: grad(batch, "kernel"),
         {"K1": ("efit_window_kernel",), "K3": ("efit_window_bwd_kernel",),
+         "K9": ("weak_damping",),
          "table scatter": ("table_scatter_kernel",
                            "indexing_backward_kernel")})
     print(f"[b5 config 5 where the time goes] one batch of "
@@ -1921,11 +2001,10 @@ def phase_config5(device, n=1_000_000, n_ref=4099, steps=CONFIG5_STEPS,
           f"profiler); a batch of the second pass took {batch_ms:.3f} ms of "
           f"wall, so the device is busy {total / batch_ms:.4f} of it; the "
           f"table scatter is the transpose of every table gather: K3's "
-          f"block cotangents (scatter_block_cotangents) and the weak "
-          f"damping's gathers'; other is the eager weak damping, its double "
-          f"backward, dl and the loss")
-    return (counts, eq, batch._replace(kz=torch.full_like(batch.kz, kz0)),
-            passes)
+          f"block cotangents (scatter_block_cotangents) and K9's psi rows; "
+          f"other is dl, the loss and their autograd")
+    return (counts, k9, eq,
+            batch._replace(kz=torch.full_like(batch.kz, kz0)), passes)
 
 
 # -- the spline tables' gradient scatter (phase b7) --------------------------
@@ -1942,10 +2021,11 @@ TABLE_SCATTER_EPS = 256
 
 
 def config5_scatter_calls(device, n=125_000, steps=CONFIG5_STEPS):
-    """The table scatters of one config-5 batch of n rays in its kernel
-    form (``steps`` recorded steps): each call's (rows, cells, table rows),
-    recorded where ``ops.tables`` calls the wrapper, in the order the
-    backward makes them."""
+    """The weak damping's table scatters of one config-5 batch of n rays in
+    its kernel form (``steps`` recorded steps; one a recorded step, K9's psi
+    rows): each call's (rows, cells, table rows), recorded where
+    ``kernels.weak_damping`` calls the wrapper, in the order the backward
+    makes them."""
     eq = synthetic_equilibrium(torch.float32, device)
     root = init_k(launch(n, torch.float32, device, **CONFIG5_LAUNCH),
                   cold_plasma, eq)
@@ -1955,7 +2035,8 @@ def config5_scatter_calls(device, n=125_000, steps=CONFIG5_STEPS):
         calls.append((grad.detach().clone(), idx.clone(), cells))
         return table_scatter.table_scatter(grad, idx, cells)
 
-    with mock.patch.object(ops_tables, "table_scatter", record):
+    with mock.patch.object(weak_damping, "table_scatter",
+                           types.SimpleNamespace(table_scatter=record)):
         absorbed_power.absorbed_power_grad(
             eq, root, steps, CONFIG5_SUB, eq.psi_coeffs, CONFIG5_KZ,
             form="kernel")
@@ -1994,8 +2075,8 @@ def table_scatter_bound(n, width, cells, dtype):
 def phase_table_scatter(device, n=125_000, steps=CONFIG5_STEPS):
     """Phase b7: the spline tables' gradient scatter (csrc/table_scatter.cu,
     the transpose of ``ops.tables.gather_rows``).  The real calls of one
-    config-5 batch of n rays (the weak damping's psi gathers, two a recorded
-    step) and, with their rows, uniform cells over the whole table and
+    config-5 batch of n rays (the weak damping's psi rows, K9's, one a
+    recorded step) and, with their rows, uniform cells over the whole table and
     ragged row counts: the kernel against the plain version on the CPU in
     f32 and f64 (TABLE_SCATTER_EPS; integer rows exact); then its time at
     the batch's real calls and at uniform cells, by CUDA events (wrapper and
@@ -2008,11 +2089,11 @@ def phase_table_scatter(device, n=125_000, steps=CONFIG5_STEPS):
     launched = table_scatter.table_scatter_launches - before
     # and K3's two a window: its psi and profile block cotangents
     k3_scatters = 2 * steps * CONFIG5_SUB // absorbed_power.FREEZE_EVERY
-    if len(calls) != 2 * steps or launched != len(calls) + k3_scatters:
+    if len(calls) != steps or launched != len(calls) + k3_scatters:
         raise AssertionError(f"b7: {len(calls)} table scatters recorded at "
-                             f"the gathers and {launched} launched in a "
-                             f"batch; want {2 * steps} and "
-                             f"{2 * steps + k3_scatters}")
+                             f"the weak damping and {launched} launched in "
+                             f"a batch; want {steps} and "
+                             f"{steps + k3_scatters}")
     distinct = [int(torch.unique(idx).numel()) for _, idx, _ in calls]
     largest = [int(torch.bincount(idx).max()) for _, idx, _ in calls]
     grad, idx, cells = calls[len(calls) // 2]
@@ -2073,6 +2154,136 @@ def phase_table_scatter(device, n=125_000, steps=CONFIG5_STEPS):
             "uniform": times["uniform"], "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": times["config 5"]["library_ms"]}
+
+
+
+def weak_damping_bound(n, dtype, vjp):
+    """One K9 launch over n rays: WEAK_DAMPING_OPS a ray (the source's own
+    count, more than the function needs, so the bound is loose); the bytes
+    of the seven leaves read and kamp's two parts written (forward), and
+    with the VJP the cotangent's two parts read, seven leaf cotangents, 16
+    psi-block cotangents and an int64 cell written (the tables, a few
+    cells in L1 and L2, not counted)."""
+    size = torch.finfo(dtype).bits // 8
+    ops = n * weak_damping.WEAK_DAMPING_OPS["vjp" if vjp else "forward"]
+    nbytes = n * ((7 + 2 + 7 + 16) * size + 8 if vjp else (7 + 2) * size)
+    return (*bound(ops, nbytes, dtype), bound_sides(ops, nbytes, dtype))
+
+
+def phase_weak_damping(device, launches, n=125_000):
+    """Phase b8: K9, config 5's weak damping (kernels/weak_damping.py), at
+    its shape: n rays of config 5's launch after three recorded steps, f32.
+    The forward against the plain version and the VJP (a seeded complex
+    cotangent) against autograd of it, in f32 and f64 (``K9_TOL``; the f32
+    table gradient cell by cell, ``K9_CELL_TOL``); then, in f32, each
+    launch's ms by CUDA events (wrapper included) and on the device (the
+    profiler), the plain version's (its forward; its backward pass through
+    ``rays.LocalGraph``), and the bound.  Returns the two kernel records,
+    with ``launches``, K9's (forward, VJP) in phase b5's config-5 pass, and
+    the f32 deviations of what each computes: kamp's parts for the
+    forward, the leaf cotangents for the VJP."""
+    devs = {}
+    for dtype in (torch.float64, torch.float32):
+        eq, st = config5_state(n, dtype, device)
+        gen = torch.Generator(device=device).manual_seed(SEED + 9)
+        ct = torch.complex(*(torch.randn(n, generator=gen, device=device,
+                                         dtype=dtype) for _ in range(2)))
+        got = weak_damping_vjp(eq, st, ct)
+        want = weak_damping_vjp(eq, st, ct, plain=True)
+        key = "f32" if dtype == torch.float32 else "f64"
+        d = relative_deviations(
+            [got[0].real, got[0].imag] + got[1],
+            [want[0].real, want[0].imag] + want[1])
+        devs[key] = dict(zip(("kamp.re", "kamp.im") + weak_damping.LEAVES,
+                             d))
+        if dtype == torch.float64:
+            devs[key]["psi_coeffs"] = relative_deviations([got[2]],
+                                                          [want[2]])[0]
+            eq64, ct64 = eq, ct
+            continue
+        ref = weak_damping_vjp(eq64, RayState(*[a.double() for a in st]),
+                               ct.to(torch.complex128), plain=True)[2]
+        del ct64
+        psi, prof, params = k9_tables(eq)
+        _, rows, cells = weak_damping._launch_vjp(
+            psi, prof, [getattr(st, f) for f in weak_damping.LEAVES], params,
+            ct, True)
+        scale = table_scatter.table_scatter(
+            rows.abs().double(), cells, psi.shape[0] * psi.shape[1]
+        ).reshape(psi.shape)
+        touched = scale > 0
+        devs[key]["psi_coeffs per cell"] = float(
+            ((got[2].double() - ref).abs()[touched] / scale[touched]).max())
+        ok = (max(v for k, v in devs[key].items() if "psi" not in k)
+              <= K9_TOL[dtype]
+              and devs[key]["psi_coeffs per cell"] <= K9_CELL_TOL
+              and max(devs["f64"].values()) <= K9_TOL[torch.float64])
+        print(f"[b8 weak damping check] {n} rays of config 5's launch after "
+              f"3 recorded steps: K9 against the plain version (kamp) and "
+              f"autograd of it (a seeded complex cotangent), relative to "
+              f"each largest: {json.dumps(devs)} (limits "
+              f"{K9_TOL[torch.float64]} f64, {K9_TOL[torch.float32]} f32; "
+              f"the f32 table gradient per cell against the f64 plain "
+              f"version over the sum of its rows' magnitudes, "
+              f"{K9_CELL_TOL})")
+        if not ok:
+            raise AssertionError(f"b8: K9 against its plain version {devs}")
+    del eq64, ref, rows, cells, scale
+
+    leaves = [getattr(st, f) for f in weak_damping.LEAVES]
+    psi, prof, params = k9_tables(eq)
+    reset_launch_counts()
+    records = []
+    for vjp in (False, True):
+        name = "weak_damping_vjp" if vjp else "weak_damping"
+        if vjp:
+            def kernel():
+                return weak_damping._launch_vjp(psi, prof, leaves, params,
+                                                ct, True)
+
+            def plain():
+                with torch.enable_grad():
+                    fresh = [a.detach().requires_grad_(True) for a in st]
+                    kamp = absorption.make_weak_damping_real_plain(eq)(
+                        RayState(*fresh))
+                    return torch.autograd.grad(
+                        (ct.real * kamp.real + ct.imag * kamp.imag).sum(),
+                        fresh[1:])
+            kernel_names = ("weak_damping_vjp_kernel",)
+        else:
+            def kernel():
+                return weak_damping._launch(psi, prof, leaves, params)
+
+            def plain():
+                with torch.no_grad():
+                    return absorption.make_weak_damping_real_plain(eq)(st)
+            kernel_names = ("weak_damping_kernel",)
+        ms = event_ms(kernel, 50)
+        dev_ms, _, _ = profile_kernel(lambda: [kernel() for _ in range(20)],
+                                      kernel=kernel_names)
+        plain_ms = event_ms(plain, 5)
+        b_ms, b_by, sides = weak_damping_bound(n, torch.float32, vjp)
+        what = ("its forward and its LocalGraph backward, which evaluates "
+                "kamp again" if vjp else "eager")
+        print(f"[b8 {name} time] {n} rays f32: {ms:.5f} ms a launch (CUDA "
+              f"events, wrapper included); on the device {dev_ms} ms "
+              f"(profiler); plain version {plain_ms:.4f} ms ({what}); "
+              f"bound {b_ms:.6f} ms, by {b_by} ({sides})")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "graph_framework_tpu_torch/csrc/weak_damping.cu",
+            "replaces": None,
+            "launches": launches[vjp],
+            "max_rel_dev_f32": max(
+                devs["f32"][k] for k in (weak_damping.LEAVES if vjp
+                                         else ("kamp.re", "kamp.im"))),
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    print(f"[b8 weak damping launches] forward/VJP "
+          f"{weak_damping_launch_counts()} in the timings (each launch "
+          f"counts one); in b5's config-5 pass {tuple(launches)}, one each a "
+          f"recorded step of each batch")
+    return records
 
 
 def phase_remat_policy(device, n=100_000, steps=2):
@@ -4555,17 +4766,20 @@ def main():
     lap("4a-4c")
     counts, counts_tab = phase_grad_main(device)
     lap("b")
-    counts_c5, eq_c5, batch_c5, passes_c5 = phase_config5(device)
+    counts_c5, k9_c5, eq_c5, batch_c5, passes_c5 = phase_config5(device)
     lap("b5")
     scatter_record = phase_table_scatter(device)
     lap("b7")
+    weak_damping_records = phase_weak_damping(device, k9_c5)
+    lap("b8")
     phase_remat_policy(device)
     phase_grad_fd(device)
     lap("b6, c")
     phase_segmented(eq32, st32)
     phase_plain_timing(eq32, st32, out["rate_f32"])
     lap("5-6")
-    records = [kernel_record(eq32, st32, out["launches"]), scatter_record]
+    records = [kernel_record(eq32, st32, out["launches"]), scatter_record,
+               *weak_damping_records]
     records += bwd_kernel_records(eq32, st32, counts[1], counts_tab[2])
     del eq32, st32
     # config 5's windows: plain rk4 at one batch of its path, dt 1 / 200

@@ -604,11 +604,14 @@ struct Stiff {
   X(10, Stiff)
 
 // The field front, the plasma tail Disp and the front's sweep back (see
-// the top of this file).
+// the top of this file).  The tail object: the dispersions' tails are
+// empty structs with a static adjoint; the weak damping's (weak_damping.cu)
+// carries a ray's cotangent and its kamp.
 template <typename Disp, typename S, typename T, typename F>
 __device__ __forceinline__ void field_adjoint(const S st[7], const F& f,
                                               const Params<T>& p, S g[7],
-                                              S b[7], S uvp[3]) {
+                                              S b[7], S uvp[3],
+                                              const Disp& tail = Disp{}) {
   const S& w = st[0];
   const S& x = st[1];
   const S& y = st[2];
@@ -691,7 +694,7 @@ __device__ __forceinline__ void field_adjoint(const S st[7], const F& f,
   const S bv[3] = {br * cphi - bp * sphi, br * sphi + bp * cphi, bz};
 
   S ne_b, te_b, pres_b, bb[3];
-  Disp::adjoint(w, st + 4, ne, te, pres, bv, p, g, ne_b, te_b, pres_b, bb);
+  tail.adjoint(w, st + 4, ne, te, pres, bv, p, g, ne_b, te_b, pres_b, bb);
 
   // B from psi_r, psi_z, fpol and the angle
   const S br_b = bb[0] * cphi + bb[1] * sphi;

@@ -57,8 +57,9 @@ DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 #: argtypes/restype of every exported function (csrc/efit_window.cu,
 #: csrc/efit_window_bwd.cu, csrc/boris.cu, csrc/deposit.cu,
 #: csrc/vmec_geom.cu, csrc/vmec_modes.cu, csrc/vmec_rhs.cu,
-#: csrc/table_scatter.cu).  The window kernels' disp is the dispersion's
-#: code (kernels/efit_step.py KERNEL_DISPERSIONS).
+#: csrc/table_scatter.cu, csrc/weak_damping.cu).  The window kernels'
+#: disp is the dispersion's code (kernels/efit_step.py
+#: KERNEL_DISPERSIONS).
 SIGNATURES = {
     "gft_efit_window": (
         [_INT, _INT, _INT, _INT, _INT, _LL,           # dtype disp method
@@ -110,6 +111,19 @@ SIGNATURES = {
         [_INT, _LL, _INT, _LL,                        # dtype n width cells
          _VOID_P, _VOID_P, _INT, _INT,                # grad idx vec sms
          _VOID_P, _VOID_P],                           # out stream
+        _INT),
+    "gft_weak_damping": (
+        [_INT, _LL, _PTRS,                            # dtype n leaves
+         _VOID_P, _INT, _INT, _VOID_P, _INT,          # psi nr nz prof npsi
+         ctypes.POINTER(ctypes.c_double),             # params
+         _VOID_P, _VOID_P],                           # out stream
+        _INT),
+    "gft_weak_damping_vjp": (
+        [_INT, _LL, _PTRS, _VOID_P,                   # dtype n leaves ct
+         _VOID_P, _INT, _INT, _VOID_P, _INT,          # psi nr nz prof npsi
+         ctypes.POINTER(ctypes.c_double),             # params
+         _VOID_P, _VOID_P, _VOID_P,                   # dleaves dpsi cells
+         _VOID_P],                                    # stream
         _INT),
     "gft_error_string": ([_INT], ctypes.c_char_p),
 }

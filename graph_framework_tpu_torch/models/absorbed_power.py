@@ -25,9 +25,13 @@ Forms (:data:`FORMS`):
 * ``"kernel"``: the same windows through the window kernel (bench.py's
   ``BENCH_PALLAS_WINDOW=1``): on CUDA tensors each window is one K1 launch
   forward and one K3 launch backward, whose block cotangents the table
-  scatter (``kernels/table_scatter.py``) adds into the tables, as it does
-  the weak damping's gathers' cotangents; on CPU tensors the wrapper runs
-  the plain frozen window.
+  scatter (``kernels/table_scatter.py``) adds into the tables; on CPU
+  tensors the wrapper runs the plain frozen window.
+
+In every form the weak damping of a CUDA state is K9
+(``kernels/weak_damping.py``), one launch forward and one backward a
+recorded step, whose psi-block cotangents the table scatter adds into the
+tables too; on CPU tensors it is the eager plain version.
 
 The rays are independent and the loss is a sum, so the loss and gradients
 of ray batches add up exactly to those of the whole ensemble

@@ -17,7 +17,9 @@ loss), :func:`make_weak_damping_real` takes the real state with a complex
 Z and is differentiable in the state and the tables.  The JAX package
 evaluates one ray at a time under ``vmap``; here the rays are one batch
 with the component axis leading, as in the rest of the port: positions
-and wave vectors are (3, n), the contravariant basis (3, 3, n).
+and wave vectors are (3, n), the contravariant basis (3, 3, n).  On the
+card the real form over EFIT takes K9, a hand-written kernel pair
+(``kernels/weak_damping.py``); the eager form stays its plain version.
 :func:`run_absorption`'s spans (``telemetry``), a row each:
 ``gft.absorption.read_row`` (the store's read and the copy to the
 device), ``gft.absorption.update`` and ``gft.absorption.write_row``; the
@@ -34,7 +36,9 @@ import numpy as np
 import torch
 
 from graph_framework_tpu_torch import telemetry
+from graph_framework_tpu_torch.kernels import build, efit_step, weak_damping
 from graph_framework_tpu_torch.models import dispersion as disp
+from graph_framework_tpu_torch.models.efit import EfitEquilibrium
 from graph_framework_tpu_torch.models.rays import (
     RayState, LocalGraph, grad_tensors, rebind)
 from graph_framework_tpu_torch.ops.newton import newton_solve
@@ -104,11 +108,13 @@ def make_weak_damping(eq, z_function=None):
     return update
 
 
-def make_weak_damping_real(eq, z_function=None):
+def make_weak_damping_real_plain(eq, z_function=None):
     """The weak-damping kamp of a **real** ray state, differentiable in the
     state and in the tensors of ``eq`` that require grad - what the JAX
     package's ``make_weak_damping_split`` gives its absorbed-power loss
-    (bench.py run_config5, tests/test_config5.py).
+    (bench.py run_config5, tests/test_config5.py) - evaluated eagerly: the
+    plain version of K9 (``kernels/weak_damping.py``), which
+    :func:`make_weak_damping_real` takes where K9 does not.
 
     For a real state only Z(zeta) is complex: ``update(state) -> kamp``
     returns it in the complex dtype of the state's precision (complex64
@@ -129,14 +135,55 @@ def make_weak_damping_real(eq, z_function=None):
                                   create_graph)
 
     def update(state: RayState):
-        if state.x.is_complex():
-            raise TypeError("make_weak_damping_real takes a real ray "
-                            "state (make_weak_damping takes a complex one)")
+        _refuse_complex(state)
         if torch.is_grad_enabled() and (closure or any(
                 a.requires_grad for a in state)):
             return LocalGraph.apply(kamp_of, False, *state, *closure)
         return _weak_damping_kamp(eq, dw_fn, RayState(
             *[a.detach() for a in state]), False)
+
+    return update
+
+
+def _refuse_complex(state):
+    if state.x.is_complex():
+        raise TypeError("make_weak_damping_real takes a real ray "
+                        "state (make_weak_damping takes a complex one)")
+
+
+def k9_takes(eq, state, z_function=None) -> bool:
+    """Whether K9 (``kernels.weak_damping``) computes the weak damping of
+    the real ``state`` over ``eq`` with ``z_function``: a state on a CUDA
+    device in float32 or float64, a cell-local ``EfitEquilibrium``, the
+    default Z (``z_plasma``), and no tensor of ``eq`` other than
+    ``psi_coeffs`` requiring grad."""
+    return (state.x.device.type == "cuda"
+            and state.x.dtype in build.DTYPE_CODES
+            and isinstance(eq, EfitEquilibrium) and eq.cell_local
+            and z_function in (None, z_plasma)
+            and all(t is eq.psi_coeffs for t in grad_tensors(eq)))
+
+
+def make_weak_damping_real(eq, z_function=None):
+    """The weak-damping kamp of a **real** ray state (see
+    :func:`make_weak_damping_real_plain`), differentiable in the state and
+    in the tensors of ``eq`` that require grad: ``update(state) -> kamp``.
+
+    Where :func:`k9_takes` the update takes K9 (``kernels.weak_damping``:
+    a forward kernel and its VJP, the psi tables' gradient by the table
+    scatter), and there it launches or raises.  Everything else - CPU
+    tensors, other equilibria and Z functions - takes the plain
+    version."""
+    plain = make_weak_damping_real_plain(eq, z_function)
+
+    def update(state: RayState):
+        _refuse_complex(state)
+        if k9_takes(eq, state, z_function):
+            return weak_damping.weak_damping(
+                eq.psi_coeffs, eq.profile_coeffs,
+                [getattr(state, f) for f in weak_damping.LEAVES],
+                weak_damping.param_array(efit_step.kernel_params(eq, 0.0)))
+        return plain(state)
 
     return update
 

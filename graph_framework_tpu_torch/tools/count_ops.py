@@ -30,12 +30,13 @@ operations that depend on its tables alone (products of mode numbers,
 doubled coefficients, ds^2) are counted apart, as ``table_fixed`` and
 ``table_per_mode``: the function needs them once, not once a ray.  K7's
 shuffle tree counts the 31 adds a sum whose results reach lane 0.  Per
-ray for the VMEC ray RHS K8 (a sincos counts two).
+ray for the VMEC ray RHS K8 (a sincos counts two), and for the weak
+damping K9, forward and VJP, at a ray of config 5's beam.
 ``chip_smoke.py`` takes the window kernels' counts for their
 ``bound_ms``; ``kernels.boris.SLAB_PUSH_OPS``,
 ``kernels.deposit.DEPOSIT_OPS``, ``kernels.vmec_geom.JET_OPS``,
-``kernels.vmec_modes.MODE_SUM_OPS`` and ``kernels.vmec_rhs.RHS_OPS`` must
-equal the counts here
+``kernels.vmec_modes.MODE_SUM_OPS``, ``kernels.vmec_rhs.RHS_OPS`` and
+``kernels.weak_damping.WEAK_DAMPING_OPS`` must equal the counts here
 (tests/test_torch_common.py checks all of them where g++ is present).
 
 :func:`host_library` is the host build itself; with ``every_thread`` it
@@ -515,6 +516,41 @@ extern "C" void count_deposit(long long* per_pair, long long* per_particle,
 """
 
 
+_WEAK_DAMPING_HARNESS = r"""
+// K9 for one ray of config 5's beam (w 250 /m at R 1.69 m, |B| about
+// 0.41 T, ne 1e19 /m^3, te 1 keV: zeta about 1.4, in Weideman's series),
+// forward and VJP: every operation depends on the ray
+extern "C" void count_weak_damping(long long* fwd, long long* vjp) {
+  using namespace gft;
+  static Counted w[1] = {250.0}, x[1] = {1.69}, y[1] = {0.0}, z[1] = {0.01},
+      kx[1] = {200.0}, ky[1] = {100.0}, kz[1] = {50.0}, psi[64], prof[32],
+      out[2], ct[2] = {1.0, 1.0}, dl[7], dpsi[16];
+  static long long cell[1];
+  for (int c = 0; c < 4; ++c) {
+    psi[16 * c] = 0.5;       // u^0 v^0
+    psi[16 * c + 1] = 0.01;  // v
+    psi[16 * c + 4] = 0.01;  // u
+  }
+  for (int c = 0; c < 2; ++c) {
+    prof[16 * c] = prof[16 * c + 4] = prof[16 * c + 8] = 1.0;
+    prof[16 * c + 12] = 0.7;   // fpol
+  }
+  double a[82] = {1.0, 1.0, -1.0, 1.0, 0.0, 1.0, 1e19, 1e3,
+                  3.5424e-14, -586.68, 1.9e-17, 0.16, 0.0,
+                  1.0, 3.9139e-6, 5.33e-10, 1.6e-9, 6.727};
+  for (int k = 0; k < 64; ++k) a[18 + k] = 1e-3 * (k + 1);
+  const WdParams<Counted> q = make_wd_params<Counted>(a, 2, 2, 2);
+  const WdLeaves<Counted> st{{w, x, y, z, kx, ky, kz}};
+  g_ops = 0;
+  weak_damping_kernel<Counted>(st, psi, prof, q, out, 1);
+  *fwd = g_ops;
+  g_ops = 0;
+  weak_damping_vjp_kernel<Counted>(st, ct, psi, prof, q, dl, dpsi, cell, 1);
+  *vjp = g_ops;
+}
+"""
+
+
 def _host_source(src: str) -> str:
     """A CUDA source with each ``kernel<<<g, b, 0, s>>>(args);`` launch
     turned into a plain call, ``host_launch(g, b, [&] { kernel(args); })``."""
@@ -599,6 +635,10 @@ def _build(tmp: pathlib.Path) -> pathlib.Path:
                            'namespace gft { using ::Counted; using ::g_ops; }'
                            '\n#include "vmec_modes.cu"\n'
                            + _VMEC_MODES_HARNESS),
+        "weak_damping.cpp": ('#include "cuda_runtime.h"\n'
+                             'namespace gft { using ::Counted; using ::g_ops; '
+                             '}\n#include "weak_damping.cu"\n'
+                             + _WEAK_DAMPING_HARNESS),
     }
     return host_library(tmp, units)
 
@@ -649,6 +689,7 @@ def count() -> dict:
                      "table_per_mode": two_t - one_t,
                      "table_fixed": one_t - g * (two_t - one_t)}
         out["K8"] = {"per_ray": lib.count_vmec_rhs()}
+        out["K9"] = _weak_damping(lib)
     return {"window": WINDOW, "ops": out}
 
 
@@ -704,6 +745,15 @@ def _deposit(lib):
     lib.count_deposit(*[ctypes.byref(c) for c in counts])
     return dict(zip(("per_pair", "per_particle", "per_point"),
                     (c.value for c in counts)))
+
+
+def _weak_damping(lib):
+    """K9's operations a ray, forward and VJP."""
+    import ctypes
+
+    fwd, vjp = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.count_weak_damping(ctypes.byref(fwd), ctypes.byref(vjp))
+    return {"forward": fwd.value, "vjp": vjp.value}
 
 
 def _vmec_geom(lib, extra):

@@ -85,3 +85,26 @@ def test_readers_read_nothing_without_units_or_scatters():
     no_units.host = [op for op in no_units.host if op[0] != "bench.unit"]
     for name in NAMES:
         assert harness.load_reader(name)(no_units) is None
+
+
+def test_weak_damping_launches_counts_the_kernels_spans():
+    """``weak_damping_launches.grad`` counts the program's
+    ``gft.weak_damping.kernel`` spans, one a launch of K9 (forward or VJP),
+    a unit; a program without them (the eager weak damping) gives
+    nothing, and so does a window without units."""
+    m = {m["name"]: m for m in harness.load_spec()["per_layer"]}[
+        "weak_damping_launches.grad"]
+    assert (m["layer"], m["source"], m["moves"], m["workloads"], m["unit"],
+            m["better"]) == ("absorption", "program_counter",
+                             "grad_ray_steps_per_s", [CELL], "count",
+                             "lower")
+    assert harness.reader_path(m["name"]).name == "weak_damping_launches.py"
+    read = harness.load_reader("weak_damping_launches.grad")
+    assert read(_program()) is None
+    assert read(_library()) is None
+    spans = [("gft.weak_damping.kernel", t, t + 0.01)
+             for t in (1.0, 2.0, 3.0, 45.0, 51.0, 52.0)]
+    full = _trace(_units() + spans, [])
+    assert read(full) == 3.0
+    no_units = _trace(spans, [])
+    assert read(no_units) is None

@@ -28,6 +28,11 @@ within ``chip_smoke.VMEC_TRACE_TOL``.  The
 spline tables' gradient scatter is held to its plain version on the CPU
 within ``chip_smoke.TABLE_SCATTER_EPS`` of each cell's scale, and exactly on
 integer-valued rows; K3's block cotangents reach the tables through it.
+Config 5's weak damping K9 is held to its plain version and to autograd
+of it at config 5's launch, 125k rays, within ``chip_smoke.K9_TOL`` (its
+f32 table gradient cell by cell to the f64 plain version, ``K9_CELL_TOL``);
+rays whose kamp is not finite take exact zero cotangents, and a complex
+state never reaches it.
 """
 
 import dataclasses
@@ -41,6 +46,8 @@ from graph_framework_tpu_torch.kernels import (
     boris, efit_step, vmec_geom, vmec_modes, vmec_rhs)
 from graph_framework_tpu_torch.kernels import deposit as k6
 from graph_framework_tpu_torch.kernels import table_scatter
+from graph_framework_tpu_torch.kernels import weak_damping as k9
+from graph_framework_tpu_torch.models import absorption
 from graph_framework_tpu_torch.models.dispersion import (
     cold_plasma, extra_ordinary_wave, ordinary_wave)
 from graph_framework_tpu_torch.models.pic import run_pic
@@ -514,8 +521,8 @@ def test_root_finder_on_the_card_matches_the_cpu(device):
 
 @pytest.fixture(scope="module")
 def config5_scatters(device):
-    """The table scatters of one config-5 batch of 125k rays (its kernel
-    form over 2 recorded steps: the weak damping's psi gathers)."""
+    """The weak damping's table scatters of one config-5 batch of 125k rays
+    (its kernel form over 2 recorded steps: K9's psi rows, one a step)."""
     return chip_smoke.config5_scatter_calls(device, steps=2)
 
 
@@ -528,7 +535,7 @@ def test_table_scatter_matches_plain_version(config5_scatters, dtype, case):
     and exactly on integer-valued rows: at config 5's real calls, at
     uniform cells over the whole table and at ragged row counts; a launch
     each."""
-    assert len(config5_scatters) == 4
+    assert len(config5_scatters) == 2
     grad, idx, cells = config5_scatters[-1]
     if case == "config5":
         parts = [(g, i) for g, i, _ in config5_scatters]
@@ -543,3 +550,111 @@ def test_table_scatter_matches_plain_version(config5_scatters, dtype, case):
         ratio, exact = chip_smoke.check_table_scatter(g.to(dtype), i, cells)
         assert table_scatter.table_scatter_launches == before + 2
         assert exact and ratio <= chip_smoke.TABLE_SCATTER_EPS, ratio
+
+
+@pytest.fixture(scope="module")
+def config5_states(device):
+    """Config 5's launch of 125k rays after three recorded steps, f32 and
+    f64, on the card: the states K9 sees."""
+    return {dtype: chip_smoke.config5_state(125_000, dtype, device)
+            for dtype in (torch.float32, torch.float64)}
+
+
+def _k9_cotangent(state):
+    gen = torch.Generator(device=state.x.device).manual_seed(5)
+    re, im = (torch.randn(state.x.shape, generator=gen, device=state.x.device,
+                          dtype=state.x.dtype) for _ in range(2))
+    return torch.complex(re, im)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_weak_damping_kernel_matches_plain_version(config5_states, dtype):
+    """K9's forward against the plain version at config 5's launch, 125k
+    rays: kamp's parts within ``chip_smoke.K9_TOL`` of their largest."""
+    eq, st = config5_states[dtype]
+    chip_smoke.reset_launch_counts()
+    with torch.no_grad():
+        got = absorption.make_weak_damping_real(eq)(st)
+        want = absorption.make_weak_damping_real_plain(eq)(st)
+    assert chip_smoke.weak_damping_launch_counts() == (1, 0)
+    assert torch.isfinite(want).all() and float(want.imag.abs().min()) > 0
+    devs = chip_smoke.relative_deviations([got.real, got.imag],
+                                          [want.real, want.imag])
+    assert max(devs) <= chip_smoke.K9_TOL[dtype], devs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_weak_damping_vjp_matches_autograd_of_plain_version(config5_states,
+                                                            dtype):
+    """K9's VJP against autograd of the plain version, 125k rays, a seeded
+    complex cotangent: each leaf's cotangent within K9_TOL of its largest;
+    dL/dpsi_coeffs within K9_TOL in f64, and in f32, cell by cell, within
+    K9_CELL_TOL of the sum of its rows' magnitudes from the f64 plain
+    version.  One forward and one VJP launch; one table scatter."""
+    eq, st = config5_states[dtype]
+    ct = _k9_cotangent(st)
+    chip_smoke.reset_launch_counts()
+    before = table_scatter.table_scatter_launches
+    _, got, got_psi = chip_smoke.weak_damping_vjp(eq, st, ct)
+    assert chip_smoke.weak_damping_launch_counts() == (1, 1)
+    assert table_scatter.table_scatter_launches == before + 1
+    _, want, want_psi = chip_smoke.weak_damping_vjp(eq, st, ct, plain=True)
+    devs = chip_smoke.relative_deviations(got, want)
+    assert max(devs) <= chip_smoke.K9_TOL[dtype], dict(zip(k9.LEAVES, devs))
+    if dtype == torch.float64:
+        (dev,) = chip_smoke.relative_deviations([got_psi], [want_psi])
+        assert dev <= chip_smoke.K9_TOL[dtype], dev
+        return
+    eq64, _ = config5_states[torch.float64]
+    _, _, ref = chip_smoke.weak_damping_vjp(
+        eq64, RayState(*[a.double() for a in st]), ct.to(torch.complex128),
+        plain=True)
+    psi, prof, params = chip_smoke.k9_tables(eq)
+    _, rows, cells = k9._launch_vjp(
+        psi, prof, [getattr(st, f) for f in k9.LEAVES], params, ct, True)
+    scale = table_scatter.table_scatter(
+        rows.abs().double(), cells, psi.shape[0] * psi.shape[1]
+    ).reshape(psi.shape)
+    touched = scale > 0
+    dev = float(((got_psi.double() - ref).abs()[touched]
+                 / scale[touched]).max())
+    assert int(touched.sum()) > 0 and dev <= chip_smoke.K9_CELL_TOL, dev
+
+
+def test_weak_damping_kernel_zero_cotangents_where_kamp_is_not_finite(
+        config5_states):
+    """Rays whose kamp is not finite (k = 0), scrubbed by nan_to_num as
+    config 5's loss scrubs them, give exact zero cotangents, and every
+    gradient stays finite."""
+    eq, st = config5_states[torch.float32]
+    bad = torch.zeros_like(st.x, dtype=torch.bool)
+    bad[3::101] = True
+    st = st._replace(**{f: torch.where(bad, 0.0, getattr(st, f))
+                        for f in ("kx", "ky", "kz")})
+    psi = eq.psi_coeffs.detach().clone().requires_grad_(True)
+    leaves = [a.detach().clone().requires_grad_(True) for a in st]
+    kamp = absorption.make_weak_damping_real(
+        dataclasses.replace(eq, psi_coeffs=psi))(RayState(*leaves))
+    assert not torch.isfinite(kamp.imag[bad]).any()
+    kim = torch.nan_to_num(kamp.imag, nan=0.0, posinf=0.0, neginf=0.0)
+    grads = torch.autograd.grad(kim.sum(), leaves[1:] + [psi])
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert all(int(torch.count_nonzero(g[bad])) == 0 for g in grads[:-1])
+    assert float(grads[-1].abs().max()) > 0
+
+
+def test_complex_state_never_reaches_the_weak_damping_kernel(
+        config5_states):
+    """The complex update (run_absorption's) stays eager on the card, and
+    the real form refuses a complex state: K9 counts no launch."""
+    eq, st = config5_states[torch.float64]
+    cs = RayState(*[a.to(torch.complex128) for a in st])
+    chip_smoke.reset_launch_counts()
+    kamp = absorption.make_weak_damping(eq)(cs)
+    assert torch.isfinite(kamp).all()
+    with pytest.raises(TypeError, match="real ray state"):
+        absorption.make_weak_damping_real(eq)(cs)
+    assert not absorption.k9_takes(eq, cs)
+    assert chip_smoke.weak_damping_launch_counts() == (0, 0)

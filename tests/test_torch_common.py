@@ -347,7 +347,8 @@ def test_ptxas_summary_names_each_variant():
     cotangents, K3 with them), K5's slab_push_kernel<T>, K6's seven
     kernels (its tile kernel, its bins scan and its rows scan, which has
     no dtype, named here), K4's
-    vmec_geom_kernel<T> and K7's vmec_modes_kernel<T>."""
+    vmec_geom_kernel<T>, K7's vmec_modes_kernel<T> and K9's
+    weak_damping_kernel<T> and weak_damping_vjp_kernel<T>."""
     log = "\n".join([
         "ptxas info    : 0 bytes gmem",
         "ptxas info    : Compiling entry function '_ZN3gft18efit_window_"
@@ -404,6 +405,14 @@ def test_ptxas_summary_names_each_variant():
         "vmec_modes_kernelIdEEvPKT_S4_NS0_10ModeBlocksIS2_EES4_S4_PS2_xi' "
         "for 'sm_90a'",
         "ptxas info    : Used 37 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN3gft12_GLOBAL__N_119"
+        "weak_damping_kernelIfEEvNS0_8WdLeavesIT_EEPKS3_S6_NS0_8WdParamsIS3_"
+        "EEPS3_x' for 'sm_90a'",
+        "ptxas info    : Used 88 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN3gft12_GLOBAL__N_123"
+        "weak_damping_vjp_kernelIdEEvNS0_8WdLeavesIT_EEPKS3_S6_S6_NS0_8"
+        "WdParamsIS3_EEPS3_S9_Pxx' for 'sm_90a'",
+        "ptxas info    : Used 168 registers, used 0 barriers",
     ])
     assert chip_smoke.ptxas_summary(log) == {
         "K5 f32": "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
@@ -414,6 +423,8 @@ def test_ptxas_summary_names_each_variant():
         "K6 rows": "Used 16 registers, used 0 barriers",
         "K4 f32": "Used 72 registers, used 0 barriers",
         "K7 f64": "Used 37 registers, used 0 barriers",
+        "K9 f32": "Used 88 registers, used 0 barriers",
+        "K9 vjp f64": "Used 168 registers, used 0 barriers",
         "K2 f32/rk4": "6096 bytes stack frame, 7864 bytes spill stores, "
                       "10484 bytes spill loads; Used 168 registers, used 0 "
                       "barriers, 6096 bytes cumulative stack size",
@@ -477,15 +488,15 @@ def test_op_counts_match_the_sources():
     """The operation counts behind the kernels' bounds (chip_smoke's
     WINDOW_OPS, kernels.boris.SLAB_PUSH_OPS, kernels.deposit.DEPOSIT_OPS,
     kernels.vmec_geom.JET_OPS, kernels.vmec_modes.MODE_SUM_OPS,
-    kernels.vmec_rhs.RHS_OPS) are what
-    tools/count_ops.py counts over the CUDA sources as they stand.  K1's
+    kernels.vmec_rhs.RHS_OPS, kernels.weak_damping.WEAK_DAMPING_OPS) are
+    what tools/count_ops.py counts over the CUDA sources as they stand.  K1's
     source runs exactly the stages its count of what the function needs
     takes (D's gradient by the hand-written reverse sweep), so its own
     count equals that count in all four variants of each dispersion."""
     if shutil.which("g++") is None:
         pytest.skip("count_ops needs g++")
     from graph_framework_tpu_torch.kernels import (
-        boris, deposit, vmec_geom, vmec_modes, vmec_rhs)
+        boris, deposit, vmec_geom, vmec_modes, vmec_rhs, weak_damping)
     from graph_framework_tpu_torch.tools import count_ops
 
     counted = count_ops.count()
@@ -508,6 +519,7 @@ def test_op_counts_match_the_sources():
     assert ops["K4"] == vmec_geom.JET_OPS
     assert ops["K7"] == vmec_modes.MODE_SUM_OPS
     assert ops["K8"] == vmec_rhs.RHS_OPS
+    assert ops["K9"] == weak_damping.WEAK_DAMPING_OPS
 
 
 def test_synthetic_equilibrium_matches_file(tmp_path_factory):
